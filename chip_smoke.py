@@ -1,0 +1,706 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # needs one CUDA device, nvcc and no network
+
+Builds the CUDA kernels of ``src/repro_torch/csrc`` into ``build/``, holds each
+kernel against its plain PyTorch version on the card (integers and bools:
+tolerance 0), then drives the port's main path — one mixed query batch through
+``Session.execute`` over a seeded versioned collection, fused and dense device
+layouts — and compares every answer with the host-only session.  Each phase
+prints one JSON line; any failure ends the run with a non-zero exit code.  The
+last line is ``{"ok": true, "device": {...}}``; the line before it lists every
+kernel with its launches on the main path, its error against the plain version,
+its time, the plain version's time, the card's lower bound for the same work
+and, where one PyTorch call computes the same function, that call's time.
+
+It imports ``torch``, ``numpy`` and ``repro_torch`` only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# published peaks of one H100 SXM (NVIDIA data sheet): device memory rate, and
+# the float32 rate outside the tensor cores, taken here for int32 ALU work
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+KERNEL_META = {
+    "anchor_probe_sliced": {
+        "route": "cuda", "source": "src/repro_torch/csrc/anchor_intersect.cu",
+        "replaces": "src/repro/kernels/anchor_intersect/kernel.py:88"},
+    "decode_rows": {
+        "route": "cuda", "source": "src/repro_torch/csrc/fused_decode.cu",
+        "replaces": "src/repro/kernels/fused_decode/kernel.py:71"},
+    "probe_rows": {
+        "route": "cuda", "source": "src/repro_torch/csrc/fused_decode.cu",
+        "replaces": "src/repro/kernels/fused_decode/kernel.py:97"},
+}
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+# ----------------------------------------------------------------------
+# timing and bounds
+# ----------------------------------------------------------------------
+# spin the card this long before a timed call, so that the call's launches are
+# queued before the first one runs and the events bracket device time alone
+PRELOAD_CYCLES = 2_000_000  # about 1 ms at the H100's clocks
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 2, preload: bool = True) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up.  With
+    ``preload`` the device is kept busy while the host enqueues ``fn``, so the
+    time is the device's; without, it is what a caller that waits sees (the
+    wrapper's host side included)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        if preload:
+            torch.cuda._sleep(PRELOAD_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+    """Least time (ms) the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate, and which one it is."""
+    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _search_steps(n: torch.Tensor) -> int:
+    """Compares a bisection over slices of the given lengths needs:
+    ceil(log2(n + 1)) per slice, summed (this run's data, not the worst case)."""
+    n = n.clamp(min=0).to(torch.float64)
+    return int(torch.ceil(torch.log2(n + 1)).sum().item())
+
+
+def _distinct_words(start: torch.Tensor, length: torch.Tensor) -> int:
+    """Words covered by the distinct ``[start, start + length)`` slices among
+    the given ones (a slice many rows share is read from memory once)."""
+    key = torch.unique((start.long() << 32) | length.clamp(min=0).long())
+    return int((key & 0xFFFFFFFF).sum().item())
+
+
+def anchor_bound(q, lo, hi, anchors):
+    """16 B per query (q, lo, hi in, l out) plus the anchors this run's
+    searches can reach: the distinct slices' words, or one word per compare
+    where that is fewer."""
+    steps = _search_steps(hi - lo)
+    bytes_moved = 16 * q.numel() + 4 * min(_distinct_words(lo, hi - lo), steps)
+    return bound(bytes_moved, steps)
+
+
+def decode_bound(pool, ptr, lens, L):
+    """12 B per row in, 5 B per lane out, plus the pool words under the
+    distinct rows' L lanes."""
+    out_lanes = ptr.numel() * L
+    pool_words = min(int(torch.unique(ptr).numel()) * L, pool.numel(), out_lanes)
+    bytes_moved = 12 * ptr.numel() + 4 * pool_words + 5 * out_lanes
+    return bound(bytes_moved, 2 * out_lanes)
+
+
+def probe_bound(pool, ptr, lens):
+    """17 B per row (ptr, base, lens, target in, hit out) plus the pool words
+    this run's rows can reach: the distinct rows' live lanes, or one word per
+    compare where that is fewer."""
+    loads = _search_steps(lens) + ptr.numel()
+    bytes_moved = 17 * ptr.numel() + 4 * min(_distinct_words(ptr, lens), loads)
+    return bound(bytes_moved, loads)
+
+
+def diff_stats(got, want) -> tuple[int, int]:
+    """(mismatching elements, max abs difference) over paired outputs."""
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    mism, err = 0, 0
+    for g, w in zip(got, want):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"shape/dtype differ: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+        if g.numel():
+            d = (g.to(torch.int64) - w.to(torch.int64)).abs()
+            mism += int((d != 0).sum().item())
+            err = max(err, int(d.max().item()))
+    return mism, err
+
+
+# ----------------------------------------------------------------------
+# kernels phase
+# ----------------------------------------------------------------------
+def make_pool(rng, n_rules: int, max_len: int, dev):
+    """A rule pool like CompressedAnchoredIndex builds: strictly increasing
+    prefix-sum rows, one per rule, then max_len zeros of tail padding."""
+    lens = rng.integers(1, max_len + 1, n_rules)
+    lens[0] = max_len
+    rows = [np.cumsum(rng.integers(1, 50, int(n))) for n in lens]
+    pool = np.concatenate(rows + [np.zeros(max_len, np.int64)]).astype(np.int32)
+    ptr = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
+    return torch.from_numpy(pool).to(dev), ptr, lens.astype(np.int32)
+
+
+def edge_cases(dev, seed: int) -> list[dict]:
+    from repro_torch.kernels.anchor_intersect.ops import (
+        anchor_probe_sliced, anchor_probe_sliced_torch)
+    from repro_torch.kernels.fused_decode.ops import (
+        decode_rows, decode_rows_torch, probe_rows, probe_rows_torch)
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+    out = []
+    # anchors: 40 slices of 0..300 strictly increasing values each
+    sl = rng.integers(0, 300, 40)
+    sl[:3] = 0  # empty slices
+    offs = np.concatenate([[0], np.cumsum(sl)])
+    anchors = np.concatenate([np.cumsum(rng.integers(1, 9, int(n))) - 1 for n in sl]
+                             + [np.zeros(0, np.int64)])
+    for nq in (0, 1, 255, 256, 257, 100_003):
+        lid = rng.integers(0, 40, nq)
+        q = rng.integers(-3, 2600, nq)
+        q[::7] = 2**31 - 2  # above every anchor
+        args = (t(q), t(offs[lid]), t(offs[lid + 1]), t(anchors))
+        mism, err = diff_stats(anchor_probe_sliced(*args), anchor_probe_sliced_torch(*args))
+        out.append({"kernel": "anchor_probe_sliced", "shape": {"NQ": nq, "NA": len(anchors)},
+                    "mismatches": mism, "max_abs_err": err})
+    for L in (1, 7, 128, 129):
+        pool, rptr, rlen = make_pool(rng, 64, L, dev)
+        for rows in (0, 1, 255, 256, 257):
+            pick = rng.integers(0, 64, rows)
+            lens = np.minimum(rlen[pick], rng.integers(0, L + 1, rows))
+            lens[::5] = 0  # lens == 0 rows
+            base = rng.integers(0, 10**6, rows)
+            args = (pool, t(rptr[pick]), t(base), t(lens))
+            mism, err = diff_stats(decode_rows(*args, L), decode_rows_torch(*args, L))
+            out.append({"kernel": "decode_rows", "shape": {"R": rows, "L": L},
+                        "mismatches": mism, "max_abs_err": err})
+            vals, _ = decode_rows_torch(*args, L)
+            lane = rng.integers(0, np.maximum(lens, 1))
+            hitv = vals.cpu().numpy()[np.arange(rows), lane] if rows else np.zeros(0)
+            targets = np.where(np.arange(rows) % 2 == 0, hitv, base + 10**7)
+            targets[3::11] = -5
+            args = args + (t(targets),)
+            got, want = probe_rows(*args), probe_rows_torch(*args)
+            mism, err = diff_stats(got, want)
+            out.append({"kernel": "probe_rows", "shape": {"R": rows, "L": L},
+                        "mismatches": mism, "max_abs_err": err,
+                        "hits": int(want.sum().item())})
+    # top of the int32 range: base + pool wraps in the later lanes, and both
+    # sides add with wraparound (targets: a wrapped lane, and the unwrapped sum)
+    pool, rptr, rlen = make_pool(rng, 64, 16, dev)
+    rows = 257
+    pick = rng.integers(0, 64, rows)
+    lens = rlen[pick]
+    base = 2**31 - 1 - rng.integers(0, 60, rows)
+    args = (pool, t(rptr[pick]), t(base), t(lens))
+    mism, err = diff_stats(decode_rows(*args, 16), decode_rows_torch(*args, 16))
+    out.append({"kernel": "decode_rows", "shape": {"R": rows, "L": 16, "wraps": True},
+                "mismatches": mism, "max_abs_err": err})
+    vals, _ = decode_rows_torch(*args, 16)
+    lane = rng.integers(0, lens)
+    wrapped = vals.cpu().numpy()[np.arange(rows), lane]
+    targets = np.where(np.arange(rows) % 3 == 0, 2**31 - 1, wrapped)
+    args = args + (t(targets),)
+    got, want = probe_rows(*args), probe_rows_torch(*args)
+    mism, err = diff_stats(got, want)
+    require(int((wrapped < 0).sum()) > 0 and int(want.sum().item()) > 0,
+            "the wraparound edge case does not wrap")
+    out.append({"kernel": "probe_rows", "shape": {"R": rows, "L": 16, "wraps": True},
+                "mismatches": mism, "max_abs_err": err, "hits": int(want.sum().item())})
+    if dev.type == "cuda":
+        torch.cuda.synchronize()  # a fault inside a kernel surfaces here
+    return out
+
+
+def wrapper_refusals(dev) -> int:
+    """The wrappers take contiguous int32 tensors on one CUDA device and raise
+    on anything else; returns how many refusals were checked."""
+    from repro_torch.kernels.anchor_intersect.ops import anchor_probe_sliced
+    from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
+
+    q = torch.zeros(4, dtype=torch.int32, device=dev)
+    cases = [
+        (TypeError, "int32", lambda: anchor_probe_sliced(q.long(), q, q, q)),
+        (ValueError, "lies on", lambda: anchor_probe_sliced(q, q.cpu(), q, q)),
+        (ValueError, "contiguous", lambda: probe_rows(q, q[::2], q[::2], q[::2], q[::2])),
+        (ValueError, "rows", lambda: decode_rows(q, q, q[:2], q, 1)),
+    ]
+    before = launch_counts()
+    for exc, text, call in cases:
+        try:
+            call()
+        except exc as e:
+            require(text in str(e), f"refusal says {e!r}, expected {text!r} in it")
+        else:
+            raise SmokeFailure(f"a wrapper took what its kernel does not take ({text})")
+    require(launch_counts() == before, "a refused call counted as a launch")
+    return len(cases)
+
+
+@contextlib.contextmanager
+def recorded_wrappers():
+    """Put a recorder in front of each kernel wrapper for the time of the
+    block, so that a device step built and run inside it tells what it handed
+    each kernel.  Yields ``{kernel name: [argument tuple per call, ...]}``."""
+    from repro_torch.kernels.anchor_intersect import ops as ai
+    from repro_torch.kernels.fused_decode import ops as fd
+
+    homes = {"anchor_probe_sliced": ai, "decode_rows": fd, "probe_rows": fd}
+    seen = {name: [] for name in homes}
+    originals = {name: getattr(mod, name) for name, mod in homes.items()}
+
+    def recorder(name):
+        def rec(*a):
+            seen[name].append(a)
+            return originals[name](*a)
+        # a wrapper counts its launches on its module-level name
+        rec.launches = originals[name].launches
+        return rec
+
+    for name, mod in homes.items():
+        setattr(mod, name, recorder(name))
+    try:
+        yield seen
+    finally:
+        for name, mod in homes.items():
+            originals[name].launches = getattr(mod, name).launches
+            setattr(mod, name, originals[name])
+
+
+def main_path_inputs(server, kind: str, qt: np.ndarray, ql: np.ndarray,
+                     window: int = 0) -> dict:
+    """What one device step of ``server`` hands each kernel: a step like the
+    server's own (same layout, probe and width) is built and run on window
+    ``window`` of the term-id batch with recorders in front of the wrappers."""
+    from repro_torch.serving.engine import MAX_CAND_ROWS, make_serve_step
+    from repro_torch.serving.plan import AND, PHRASE
+
+    dev = server.device
+    with recorded_wrappers() as seen, torch.no_grad():
+        step = make_serve_step(max_terms=qt.shape[1],
+                               mode=PHRASE if kind == "phrase" else AND,
+                               n_docs=server.n_docs, probe="kernel",
+                               layout=server.layout, max_phrase=server.max_phrase)
+        step(server.arrays, torch.from_numpy(qt).to(dev), torch.from_numpy(ql).to(dev),
+             window * MAX_CAND_ROWS)
+    want = {"fused": {"anchor_probe_sliced": qt.shape[1] - 1, "decode_rows": 1,
+                      "probe_rows": qt.shape[1] - 1},
+            "dense": {"anchor_probe_sliced": qt.shape[1] - 1, "decode_rows": 0,
+                      "probe_rows": 0}}[server.layout]
+    got = {name: len(calls) for name, calls in seen.items()}
+    require(got == want, f"a {server.layout} step of width {qt.shape[1]} made the "
+            f"kernel calls {got}, expected {want}")
+    return {"calls": seen, "c_offsets": server.arrays["c_offsets"],
+            "B": int(qt.shape[0]), "window": window}
+
+
+def library_lower_bound(args, c_offsets):
+    """``torch.searchsorted`` as a yardstick for anchor_probe_sliced: one call
+    over composite int64 keys (slice id << 32 | value), prepared outside the
+    timed call.  Never used by the port.  Returns the call and the mask of
+    queries it answers (those with a non-empty slice)."""
+    targets, lo, hi, anchors = args
+    c_off = c_offsets.long()
+    slice_of = torch.repeat_interleave(
+        torch.arange(c_off.numel() - 1, device=anchors.device), c_off[1:] - c_off[:-1])
+    keys = (slice_of << 32) | anchors.long()
+    live = lo < hi
+    qkeys = (slice_of[lo.long().clamp(max=anchors.numel() - 1)] << 32) | targets.long()
+    return (lambda: torch.searchsorted(keys, qkeys)), live
+
+
+def kernels_at_main_path(name: str, inp: dict, reps: int, timed: bool) -> list[dict]:
+    """Every recorded call of the step against the plain version (tolerance
+    0); with ``timed``, the first call of each kernel is also timed, beside
+    the plain version, the bound and the library yardstick."""
+    from repro_torch.kernels.anchor_intersect.ops import (
+        anchor_probe_sliced, anchor_probe_sliced_torch)
+    from repro_torch.kernels.fused_decode.ops import (
+        decode_rows, decode_rows_torch, probe_rows, probe_rows_torch)
+
+    pairs = {"anchor_probe_sliced": (anchor_probe_sliced, anchor_probe_sliced_torch),
+             "decode_rows": (decode_rows, decode_rows_torch),
+             "probe_rows": (probe_rows, probe_rows_torch)}
+    rows = []
+    for kernel, calls in inp["calls"].items():
+        if not calls:
+            continue
+        fn, plain = pairs[kernel]
+        mism = err = 0
+        for a in calls:
+            m, e = diff_stats(fn(*a), plain(*a))
+            mism, err = mism + m, max(err, e)
+        a = calls[0]
+        if kernel == "anchor_probe_sliced":
+            shape = {"NQ": a[0].numel(), "NA": a[3].numel()}
+        else:
+            shape = {"R": a[1].numel(), "P": a[0].numel()}
+            shape.update({"L": a[4]} if kernel == "decode_rows"
+                         else {"longest_row": int(a[3].max().item())})
+        row = {"kernel": kernel, "at": name, "window": inp["window"], "shape": shape,
+               "calls_compared": len(calls), "mismatches": mism, "max_abs_err": err}
+        if timed:
+            library_ms = None
+            if kernel == "anchor_probe_sliced":
+                lib_call, live = library_lower_bound(a, inp["c_offsets"])
+                row["library"] = "torch.searchsorted on composite int64 keys"
+                row["library_agrees"] = bool(torch.equal(
+                    lib_call().to(torch.int32)[live], fn(*a)[live]))
+                library_ms = time_ms(lib_call, reps)
+                b_ms, b_by = anchor_bound(*a)
+            elif kernel == "decode_rows":
+                b_ms, b_by = decode_bound(a[0], a[1], a[3], a[4])
+            else:
+                b_ms, b_by = probe_bound(a[0], a[1], a[3])
+            row.update(ms=time_ms(lambda: fn(*a), reps),
+                       call_ms=time_ms(lambda: fn(*a), reps, preload=False),
+                       plain_ms=time_ms(lambda: plain(*a), reps),
+                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+    return rows
+
+
+# ----------------------------------------------------------------------
+# serve phase
+# ----------------------------------------------------------------------
+def make_batch(docs, idx, rng, per_cell: int) -> list[tuple[str, str]]:
+    """(kind label, query string) pairs: words, ANDs of 2-4 terms (half random
+    vocabulary words, half words that co-occur in one document), phrases of
+    2-4 tokens from real text, top10:, docs: and docs: "..." queries."""
+    from repro_torch.data.queries import sample_traffic
+    from repro_torch.data.text import tokenize
+
+    words = sorted(idx.vocab.token_to_id)
+
+    def cooccurring(n_terms: int) -> str:
+        toks = [t for t in tokenize(docs[int(rng.integers(len(docs)))])
+                if idx.lookup(t) is not None]
+        i = int(rng.integers(0, max(1, len(toks) - 8)))
+        picked = list(dict.fromkeys(toks[i:i + 8]))[:n_terms]
+        return " ".join(picked)
+
+    def ands(n_terms: int, n: int) -> list[str]:
+        half = sample_traffic("and", n // 2, docs, words, rng, n_terms=n_terms)
+        return half + [cooccurring(n_terms) for _ in range(n - n // 2)]
+
+    out = [("word", q) for q in sample_traffic("word", per_cell, docs, words, rng)]
+    for nt in (2, 3, 4):
+        out += [("and", q) for q in ands(nt, per_cell)]
+        out += [("phrase", q) for q in
+                sample_traffic("phrase", per_cell, docs, words, rng, n_terms=nt)]
+    for nt in (2, 3):
+        out += [("topk", f"top10: {q}") for q in ands(nt, per_cell)]
+        out += [("docs", f"docs: {q}") for q in ands(nt, per_cell)]
+        out += [("docs-phrase", q) for q in
+                sample_traffic("docs-phrase", per_cell, docs, words, rng, n_terms=nt)]
+    order = rng.permutation(len(out))
+    return [out[i] for i in order]
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels.anchor_intersect.ops import anchor_probe_sliced
+    from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
+    return {"anchor_probe_sliced": anchor_probe_sliced.launches,
+            "decode_rows": decode_rows.launches, "probe_rows": probe_rows.launches}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels.anchor_intersect.ops import anchor_probe_sliced
+    from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
+    anchor_probe_sliced.launches = decode_rows.launches = probe_rows.launches = 0
+
+
+def build_indexes(args) -> dict:
+    from repro_torch.core.index import NonPositionalIndex, PositionalIndex
+    from repro_torch.data import generate_collection
+
+    t0 = time.perf_counter()
+    col = generate_collection(n_articles=args.articles,
+                              versions_per_article=args.versions,
+                              words_per_doc=args.words, seed=args.seed)
+    t1 = time.perf_counter()
+    idx = NonPositionalIndex.build(col.docs, store="repair_skip")
+    t2 = time.perf_counter()
+    pidx = PositionalIndex.build(col.docs, store="repair_skip")
+    t3 = time.perf_counter()
+    return {"docs": col.docs, "idx": idx, "pidx": pidx,
+            "info": {"articles": args.articles, "versions_per_article": args.versions,
+                     "words_per_doc": args.words, "seed": args.seed,
+                     "documents": len(col.docs), "tokens": int(pidx.n_tokens),
+                     "collection_bytes": int(col.total_bytes),
+                     "generate_s": round(t1 - t0, 3),
+                     "build_nonpositional_s": round(t2 - t1, 3),
+                     "build_positional_s": round(t3 - t2, 3)}}
+
+
+def serve(built: dict, sessions: dict, batch: list[tuple[str, str]], device: str) -> dict:
+    """Drive the mixed batch through the fused session (the main path, with
+    the launch counts read around it), the dense session and the host-only
+    session, and compare every answer exactly."""
+    from repro_torch.serving.session import Session
+
+    on_gpu = device != "cpu"
+    sync = torch.cuda.synchronize if on_gpu else (lambda: None)
+    queries = [q for _, q in batch]
+    kinds = [k for k, _ in batch]
+    fused, dense = sessions["fused"], sessions["dense"]
+    if on_gpu:
+        torch.cuda.reset_peak_memory_stats()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got_fused = fused.execute(queries)
+    sync()
+    fused_s = time.perf_counter() - t0
+    fused_launches = launch_counts()
+    windows = {"fused/nonpositional": fused.server.windows_swept,
+               "fused/positional": fused.positional_server.windows_swept}
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got_dense = dense.execute(queries)
+    sync()
+    dense_s = time.perf_counter() - t0
+    dense_launches = launch_counts()
+    windows.update({"dense/nonpositional": dense.server.windows_swept,
+                    "dense/positional": dense.positional_server.windows_swept})
+
+    t0 = time.perf_counter()
+    host = Session(built["idx"], positional=built["pidx"])
+    got_host = host.execute(queries)
+    host_s = time.perf_counter() - t0
+
+    wrong = [q for q, a, b, c in zip(queries, got_fused, got_dense, got_host)
+             if not (np.array_equal(a, c) and np.array_equal(b, c))]
+    require(not wrong, f"{len(wrong)} answers differ between fused / dense / host, "
+            f"first: {wrong[:3]}")
+    for g in (got_fused, got_dense):
+        require(all(isinstance(r, np.ndarray) and r.ndim == 1 and r.dtype == np.int64
+                    for r in g), "an answer is not a 1-D int64 array")
+
+    # second pass per kind (steps and plans are warm): queries/s per kind, layout
+    per_kind: dict = {}
+    for name, sess in (("fused", fused), ("dense", dense)):
+        per_kind[name] = {}
+        for kind in sorted(set(kinds)):
+            sub = [q for k, q in batch if k == kind]
+            sync()
+            t0 = time.perf_counter()
+            sess.execute(sub)
+            sync()
+            per_kind[name][kind] = {"queries": len(sub),
+                                    "queries_per_s": len(sub) / (time.perf_counter() - t0)}
+
+    servers = {f"{lay}/{which}": getattr(sessions[lay], attr)
+               for lay in ("fused", "dense")
+               for which, attr in (("nonpositional", "server"),
+                                   ("positional", "positional_server"))}
+    dev_bytes = {}
+    for name, srv in servers.items():
+        if on_gpu:
+            require(all(t.is_cuda for t in srv.arrays.values()),
+                    f"{name}: a server array is not a CUDA tensor")
+        want = sum(int(np.prod(srv.arrays[k].shape))
+                   * (1 if srv.arrays[k].dtype == torch.bool else 4)
+                   for k in srv._LAYOUT_ARRAYS[srv.layout])
+        require(srv.device_bytes() == want,
+                f"{name}: device_bytes() {srv.device_bytes()} != {want} from array sizes")
+        require(all(srv.arrays[k].dtype in (torch.int32, torch.bool)
+                    for k in srv.arrays), f"{name}: an array is neither int32 nor bool")
+        dev_bytes[name] = srv.device_bytes()
+    if on_gpu:
+        require(all(v > 0 for v in fused_launches.values()),
+                f"a kernel was not launched on the fused main path: {fused_launches}")
+        require(dense_launches["anchor_probe_sliced"] > 0,
+                f"anchor_probe_sliced was not launched on the dense path: {dense_launches}")
+    n = len(queries)
+    return {
+        "queries": n, "kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+        "answers_equal_fused_dense_host": True,
+        "nonempty_answers": sum(len(r) > 0 for r in got_host),
+        "mixed_batch": {"fused_s": fused_s, "dense_s": dense_s, "host_s": host_s,
+                        "fused_queries_per_s": n / fused_s,
+                        "dense_queries_per_s": n / dense_s,
+                        "host_queries_per_s": n / host_s},
+        "queries_per_s_by_kind": per_kind,
+        "launches_fused": fused_launches, "launches_dense": dense_launches,
+        "windows_swept": windows,
+        "device_steps_built": {"fused": fused.jit_traces, "dense": dense.jit_traces},
+        "device_bytes": dev_bytes,
+        "max_phrase": {name: srv.max_phrase for name, srv in servers.items()
+                       if srv.layout == "fused"},
+        "c_entries": {name: int(srv.arrays["anchors"].numel())
+                      for name, srv in servers.items() if srv.layout == "fused"},
+        "max_memory_allocated": torch.cuda.max_memory_allocated() if on_gpu else None,
+    }
+
+
+def build_sessions(built: dict, device: str, probe: str | None) -> tuple[dict, dict]:
+    from repro_torch.serving.session import Session
+
+    sessions, secs = {}, {}
+    for layout in ("fused", "dense"):
+        t0 = time.perf_counter()
+        sessions[layout] = Session.build(built["idx"], positional=built["pidx"],
+                                         device=device, probe=probe, layout=layout)
+        secs[layout] = round(time.perf_counter() - t0, 3)
+    return sessions, secs
+
+
+def group_terms(server, batch, kind: str, n_terms: tuple[int, ...]):
+    """(term ids, lengths, windows) of the ``kind`` queries with one of
+    ``n_terms`` known terms — one device batch of the main path, padded to
+    the width bucket the session would give it."""
+    from repro_torch.serving.plan import PHRASE, parse_query, width_bucket
+
+    qs = [parse_query(q) for k, q in batch if k == kind]
+    qs = [list(pq.terms) for pq in qs if len(pq.terms) in n_terms
+          and all(server.host_index.lookup(t) is not None for t in pq.terms)]
+    require(len(qs) > 0, f"no {kind} query of {n_terms} known terms in the batch")
+    qt, ql, ok = server.encode(qs, sort_by_length=(kind != PHRASE),
+                               width=width_bucket(max(n_terms)))
+    return qt, ql, server._n_windows(qt, ok)
+
+
+# ----------------------------------------------------------------------
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--articles", type=int, default=80)
+    ap.add_argument("--versions", type=int, default=50)
+    ap.add_argument("--words", type=int, default=400)
+    ap.add_argument("--per-cell", type=int, default=24,
+                    help="queries per (kind, term count) cell of the mixed batch")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: torch.cuda.is_available() is False; this script "
+              "runs the port on a CUDA device and has no CPU mode", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    from repro_torch.kernels import cuda_build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
+        else "nvidia-smi unavailable"
+    kind = torch.cuda.get_device_name(0)
+    emit("device", card=card, kind=kind, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0])
+
+    cuda_build.load()
+    info = cuda_build.build_info
+    emit("build", seconds=info["seconds"], nvcc=info.get("nvcc"), library=info["library"],
+         reused=info["reused"], sources=info["sources"],
+         ptxas=[ln for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln])
+
+    built = build_indexes(args)
+    sessions, session_s = build_sessions(built, "cuda", "kernel")
+    rng = np.random.default_rng(args.seed)
+    batch = make_batch(built["docs"], built["idx"], rng, args.per_cell)
+    require(len(batch) >= 256, f"mixed batch has {len(batch)} < 256 queries")
+
+    # kernels, against their plain versions on the card: edge shapes, then what
+    # a device step hands them on each path that launches one — both layouts,
+    # both indexes, 2-term and 3-4-term batches, first and last window.  The
+    # 2-term first-window steps are also timed.
+    dev = torch.device("cuda")
+    edges = edge_cases(dev, args.seed)
+    refusals = wrapper_refusals(dev)
+    measured = []
+    for layout in ("fused", "dense"):
+        for which, srv, mode in (("nonpositional", sessions[layout].server, "and"),
+                                 ("positional", sessions[layout].positional_server,
+                                  "phrase")):
+            for n_terms in ((2,), (3, 4)):
+                qt, ql, n_win = group_terms(srv, batch, mode, n_terms)
+                for window in sorted({0, n_win - 1}):
+                    timed = n_terms == (2,) and window == 0
+                    if layout == "dense" and not timed:
+                        continue  # its one kernel sees the fused step's inputs again
+                    name = f"{layout}/{which}/{mode}{'-'.join(map(str, n_terms))}"
+                    inp = main_path_inputs(srv, mode, qt, ql, window)
+                    measured += kernels_at_main_path(name, inp, args.reps, timed)
+                    del inp
+    torch.cuda.synchronize()
+    total_mism = sum(r["mismatches"] for r in edges + measured)
+    emit("kernels", tolerance=0,
+         timing=f"CUDA events, median of {args.reps} after warm-up; ms, plain_ms, library_ms: "
+                f"device time (card kept busy while the call is queued); call_ms: the "
+                f"wrapper as a waiting caller sees it",
+         mismatches=total_mism, edge_cases=len(edges), wrapper_refusals=refusals,
+         edge_mismatches=[r for r in edges if r["mismatches"]],
+         main_path=measured, launches_so_far=launch_counts())
+    require(total_mism == 0, f"{total_mism} elements differ between a kernel and its "
+            f"plain version")
+    require(all(r.get("library_agrees", True) for r in measured),
+            "torch.searchsorted yardstick disagrees with anchor_probe_sliced")
+
+    result = serve(built, sessions, batch, "cuda")
+    emit("serve", card=card, collection=built["info"], session_build_s=session_s, **result)
+
+    # one entry per kernel, at the positional fused shape (the path's most
+    # frequent); the per-shape list is in the "kernels" phase line above
+    at = "fused/positional/phrase2"
+    kernels = []
+    for r in measured:
+        if r["at"] != at or "ms" not in r:
+            continue
+        kernels.append({"name": r["kernel"], **KERNEL_META[r["kernel"]],
+                        "launches": result["launches_fused"][r["kernel"]],
+                        "max_abs_err": max(x["max_abs_err"] for x in edges + measured
+                                           if x["kernel"] == r["kernel"]),
+                        "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "shape": r["shape"], "at": at})
+    emit("done", seconds=round(time.perf_counter() - t_start, 1))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        code = main()
+    except SmokeFailure as e:
+        print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
+        code = 1
+    sys.exit(code)

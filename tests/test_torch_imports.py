@@ -1,0 +1,90 @@
+"""The PyTorch package stands alone: importing it, any module of it, or
+``chip_smoke.py`` pulls in neither ``jax`` nor the JAX package ``repro``."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
+
+
+def _module_names() -> list[str]:
+    names = ["repro_torch"]
+    for m in pkgutil.walk_packages([str(SRC / "repro_torch")], prefix="repro_torch."):
+        names.append(m.name)
+    return sorted(names)
+
+
+MODULES = _module_names()
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=str(ROOT),
+                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+
+
+def test_module_list_covers_the_slice():
+    for needed in ("repro_torch.core.anchors", "repro_torch.serving.engine",
+                   "repro_torch.serving.session", "repro_torch.kernels.cuda_build",
+                   "repro_torch.kernels.anchor_intersect.ops",
+                   "repro_torch.kernels.fused_decode.ops", "repro_torch.data.queries"):
+        assert needed in MODULES, needed
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = (
+        "import importlib, sys\n"
+        f"names = {MODULES!r}\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "assert 'torch' in sys.modules\n"
+        "print('ok', len(names))\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_module_source_names_no_jax_import(name):
+    """Static half of the same claim, per module (one case each)."""
+    rel = Path(*name.split("."))
+    path = SRC / rel / "__init__.py" if (SRC / rel).is_dir() else SRC / rel.with_suffix(".py")
+    text = path.read_text()
+    for line in text.splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            assert not s.startswith(("import jax", "from jax", "import repro ",
+                                     "import repro.", "from repro ", "from repro.")), (name, s)
+
+
+def test_chip_smoke_imports_without_jax_or_repro():
+    code = (
+        "import importlib.util, sys\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+        "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    """No CUDA device here: the script must exit non-zero and print no result."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True,
+                         text=True, cwd=str(ROOT))
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout

@@ -1,0 +1,273 @@
+"""The port's kernel ops on the CPU: each op's plain PyTorch version against
+the JAX op (Pallas, interpret mode) and against the NumPy oracles, over the
+shape sweeps of ``tests/test_kernels.py`` with the tile-boundary ±1 cases.
+Integers and bools: tolerance 0.  The CUDA kernels themselves cannot run
+here; ``chip_smoke.py`` holds them against these plain versions on the card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import anchors as ref_anchors
+from repro.core.repair import RePairStore as RefRePairStore
+from repro.kernels.anchor_intersect import ops as ref_ai_ops
+from repro.kernels.anchor_intersect.ref import anchor_probe_sliced_ref as ref_sliced_ref
+from repro.kernels.fused_decode import ops as ref_fd_ops
+from repro.kernels.fused_decode.ref import decode_rows_ref as ref_decode_ref
+from repro.kernels.fused_decode.ref import probe_rows_ref as ref_probe_ref
+from repro_torch.core import anchors as port_anchors
+from repro_torch.kernels.anchor_intersect import ops as ai_ops
+from repro_torch.kernels.anchor_intersect.ref import anchor_probe_sliced_ref
+from repro_torch.kernels.fused_decode import ops as fd_ops
+from repro_torch.kernels.fused_decode.ref import decode_rows_ref, probe_rows_ref
+
+
+def t32(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+
+def _rows_as_pool(gaps: np.ndarray):
+    """Lay rectangular (R, L) rows out as a pool: row r at ptr[r] = r * L,
+    plus L zeros of tail padding (the layout the port's ops read)."""
+    r, l = gaps.shape
+    pool = np.concatenate([gaps.reshape(-1), np.zeros(max(l, 1), gaps.dtype)])
+    return pool.astype(np.int32), (np.arange(r) * l).astype(np.int32)
+
+
+@pytest.mark.parametrize("r,l", [(0, 8), (1, 1), (3, 41), (255, 127), (256, 128), (257, 129)])
+def test_decode_rows_vs_jax_and_oracles(r, l):
+    rng = np.random.default_rng(1000 + 7 * r + l)
+    gaps = rng.integers(1, 50, size=(r, l)).astype(np.int32)
+    lens = rng.integers(0, l + 1, size=r).astype(np.int32)
+    base = rng.integers(0, 10**6, size=r).astype(np.int32)
+    pool, ptr = _rows_as_pool(gaps)
+    vals, valid = fd_ops.decode_rows(t32(pool), t32(ptr), t32(base), t32(lens), l)
+    assert vals.dtype == torch.int32 and valid.dtype == torch.bool
+    assert tuple(vals.shape) == (r, l) and tuple(valid.shape) == (r, l)
+    jv, jvalid = ref_fd_ops.decode_rows(jnp.asarray(gaps), jnp.asarray(base),
+                                        jnp.asarray(lens), interpret=True)
+    # every lane, not only the live ones: dead lanes hold base + row value too
+    assert np.array_equal(vals.numpy(), np.asarray(jv))
+    assert np.array_equal(valid.numpy(), np.asarray(jvalid))
+    rv, rvalid = ref_decode_ref(gaps, base, lens)
+    assert np.array_equal(vals.numpy(), rv) and np.array_equal(valid.numpy(), rvalid)
+    pv, pvalid = decode_rows_ref(pool, ptr, base, lens, l)
+    assert np.array_equal(vals.numpy(), pv) and np.array_equal(valid.numpy(), pvalid)
+
+
+@pytest.mark.parametrize("r,l", [(0, 8), (1, 1), (3, 41), (255, 127), (256, 128), (257, 129)])
+def test_probe_rows_vs_jax_and_oracles(r, l):
+    rng = np.random.default_rng(2000 + 7 * r + l)
+    gaps = np.cumsum(rng.integers(1, 50, size=(r, l)), axis=1).astype(np.int32)
+    lens = rng.integers(0, l + 1, size=r).astype(np.int32)
+    base = rng.integers(0, 10**6, size=r).astype(np.int32)
+    rvals, _ = ref_decode_ref(gaps, base, lens)
+    hit_lane = rng.integers(0, np.maximum(lens, 1))
+    targets = np.where(np.arange(r) % 2 == 0,
+                       rvals[np.arange(r), hit_lane] if r else 0, -5).astype(np.int32)
+    pool, ptr = _rows_as_pool(gaps)
+    got = fd_ops.probe_rows(t32(pool), t32(ptr), t32(base), t32(lens), t32(targets))
+    assert got.dtype == torch.bool and tuple(got.shape) == (r,)
+    jhit = ref_fd_ops.probe_rows(jnp.asarray(gaps), jnp.asarray(base), jnp.asarray(lens),
+                                 jnp.asarray(targets), interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(jhit))
+    assert np.array_equal(got.numpy(), ref_probe_ref(gaps, base, lens, targets))
+    assert np.array_equal(got.numpy(), probe_rows_ref(pool, ptr, base, lens, targets))
+    if r:
+        assert got.numpy()[(np.arange(r) % 2 == 0) & (lens > 0)].all()
+        assert not got.numpy()[lens == 0].any()
+
+
+def test_probe_rows_plain_version_chunks(monkeypatch):
+    """The plain probe stages its (rows, L) gather in chunks; a tiny chunk
+    size must not change the answer."""
+    rng = np.random.default_rng(5)
+    gaps = np.cumsum(rng.integers(1, 9, size=(300, 17)), axis=1).astype(np.int32)
+    lens = rng.integers(0, 18, size=300).astype(np.int32)
+    base = rng.integers(0, 1000, size=300).astype(np.int32)
+    targets = (base + gaps[np.arange(300), rng.integers(0, 17, 300)]).astype(np.int32)
+    pool, ptr = _rows_as_pool(gaps)
+    args = (t32(pool), t32(ptr), t32(base), t32(lens), t32(targets))
+    whole = fd_ops.probe_rows_torch(*args)
+    monkeypatch.setattr(fd_ops, "PROBE_CHUNK_ELEMS", 64)
+    assert torch.equal(fd_ops.probe_rows_torch(*args), whole)
+
+
+def test_decode_rows_reads_clamp_to_the_pool():
+    """A row that points near the pool's end reads the last element instead
+    of running off the allocation (same rule in op, oracle and kernel)."""
+    pool = np.asarray([3, 5, 9, 0], np.int32)
+    ptr, base, lens = np.asarray([2], np.int32), np.asarray([10], np.int32), np.asarray([1], np.int32)
+    vals, valid = fd_ops.decode_rows(t32(pool), t32(ptr), t32(base), t32(lens), 4)
+    assert vals.tolist() == [[19, 10, 10, 10]] and valid.tolist() == [[True, False, False, False]]
+    pv, _ = decode_rows_ref(pool, ptr, base, lens, 4)
+    assert np.array_equal(vals.numpy(), pv)
+
+
+def _sliced_case(rng, nq, na, nl):
+    bounds = np.sort(np.concatenate([[0, na], rng.integers(0, na, nl - 1)]))
+    # strictly increasing inside each slice (as prefix sums of phrase sums are)
+    anchors = np.concatenate(
+        [np.sort(rng.choice(10**6, size=hi - lo, replace=False))
+         for lo, hi in zip(bounds[:-1], bounds[1:])] + [np.zeros(0, np.int64)])
+    lists = rng.integers(0, nl, nq)
+    lo = bounds[lists].astype(np.int32)
+    hi = bounds[lists + 1].astype(np.int32)
+    queries = rng.integers(0, 10**6, nq).astype(np.int32)
+    if nq > 4:
+        queries[0] = 2**31 - 2  # above every anchor -> hi
+        queries[1] = -7  # below every anchor -> lo
+        queries[2] = anchors[lo[2]] if hi[2] > lo[2] else 0  # exact hit on the first
+    return queries, lo, hi, anchors.astype(np.int32)
+
+
+@pytest.mark.parametrize("nq,na,nl", [(1, 1, 1), (7, 100, 3), (255, 2047, 9), (256, 2048, 9),
+                                      (257, 2049, 9), (300, 5000, 12), (1024, 2048, 40)])
+def test_anchor_probe_sliced_vs_jax_and_oracles(nq, na, nl):
+    rng = np.random.default_rng(3000 + nq + na)
+    queries, lo, hi, anchors = _sliced_case(rng, nq, na, nl)
+    got = ai_ops.anchor_probe_sliced(t32(queries), t32(lo), t32(hi), t32(anchors))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (nq,)
+    jgot = ref_ai_ops.anchor_probe_sliced(jnp.asarray(queries), jnp.asarray(lo),
+                                          jnp.asarray(hi), jnp.asarray(anchors),
+                                          interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(jgot))
+    assert np.array_equal(got.numpy(), ref_sliced_ref(queries, lo, hi, anchors))
+    assert np.array_equal(got.numpy(), anchor_probe_sliced_ref(queries, lo, hi, anchors))
+
+
+def test_anchor_probe_sliced_empty_inputs():
+    e = t32(np.zeros(0))
+    out = ai_ops.anchor_probe_sliced(e, e, e, t32([1, 2, 3]))
+    assert out.dtype == torch.int32 and out.numel() == 0
+    # an empty slice returns lo, whatever the query
+    out = ai_ops.anchor_probe_sliced(t32([5, -1]), t32([2, 0]), t32([2, 0]), t32([1, 2, 3]))
+    assert out.tolist() == [2, 0]
+
+
+def _member_lists(rng):
+    lists = []
+    for i in range(12):
+        if i == 5:
+            lists.append(np.asarray([], dtype=np.int64))  # empty list
+        else:
+            lists.append(np.flatnonzero(
+                np.repeat(rng.random(40) < 0.4, 10)).astype(np.int64))
+    return lists
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_member_batch_vs_reference(seed):
+    """member_batch / member_batch_compressed / the kernel-split membership
+    against the reference on random (list, value) pairs, empty lists and
+    out-of-range values included."""
+    rng = np.random.default_rng(seed)
+    lists = _member_lists(rng)
+    store = RefRePairStore.build(lists, variant="skip")
+    ref_dense = ref_anchors.AnchoredIndex.from_store(store)
+    ref_comp = ref_anchors.CompressedAnchoredIndex.from_store(store)
+    dense = port_anchors.AnchoredIndex.from_numpy(
+        {k: np.asarray(getattr(ref_dense, k)) for k in
+         ("anchors", "c_offsets", "expand", "expand_valid", "lengths")})
+    comp = port_anchors.CompressedAnchoredIndex.from_numpy(
+        {**{k: np.asarray(getattr(ref_comp, k)) for k in
+            ("anchors", "c_offsets", "c_ptr", "c_len", "pool", "lengths")},
+         "max_phrase": ref_comp.max_phrase})
+    ids = rng.integers(0, len(lists), 400).astype(np.int32)
+    vals = rng.integers(-1, 500, 400).astype(np.int32)
+    want = np.asarray(ref_anchors.member_batch(ref_dense, jnp.asarray(ids), jnp.asarray(vals)))
+    want_c = np.asarray(ref_anchors.member_batch_compressed(
+        ref_comp, jnp.asarray(ids), jnp.asarray(vals)))
+    truth = np.asarray([v in set(lists[i].tolist()) for i, v in zip(ids, vals)])
+    assert np.array_equal(want, truth) and np.array_equal(want_c, truth)
+    got = port_anchors.member_batch(dense, t32(ids), t32(vals)).numpy()
+    got_c = port_anchors.member_batch_compressed(comp, t32(ids), t32(vals)).numpy()
+    got_k = ai_ops.member_batch_kernel(dense.anchors, dense.c_offsets, dense.expand,
+                                       dense.expand_valid, t32(ids), t32(vals)).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got_c, want_c)
+    assert np.array_equal(got_k, want)
+    assert not got[ids == 5].any() and not got_c[ids == 5].any()
+
+
+def test_member_batch_compressed_without_entries():
+    """anchors.shape[0] == 0 (every list empty): nothing matches, nothing is
+    gathered."""
+    comp = port_anchors.build_compressed_anchored(
+        [np.zeros(0, np.int64), np.zeros(0, np.int64)])
+    assert comp.anchors.shape[0] == 0
+    got = port_anchors.member_batch_compressed(comp, t32([0, 1, 0]), t32([0, 5, 9]))
+    assert got.tolist() == [False, False, False]
+    ref = ref_anchors.build_compressed_anchored(
+        [np.zeros(0, np.int64), np.zeros(0, np.int64)])
+    want = ref_anchors.member_batch_compressed(ref, jnp.asarray([0, 1, 0]),
+                                               jnp.asarray([0, 5, 9]))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_row_compare_chunks(monkeypatch):
+    """The dense row compare stages its gather in chunks; a tiny chunk size
+    must not change the answer."""
+    rng = np.random.default_rng(3)
+    idx = port_anchors.build_anchored(_member_lists(rng))
+    ids = t32(rng.integers(0, 12, 500))
+    vals = t32(rng.integers(0, 450, 500))
+    whole = port_anchors.member_batch(idx, ids, vals)
+    monkeypatch.setattr(port_anchors, "ROW_CHUNK_ELEMS", 100)
+    assert torch.equal(port_anchors.member_batch(idx, ids, vals), whole)
+
+
+def test_launch_counts_stay_zero_on_cpu():
+    """A CPU tensor takes the plain version and never counts as a launch."""
+    before = (ai_ops.anchor_probe_sliced.launches, fd_ops.decode_rows.launches,
+              fd_ops.probe_rows.launches)
+    ai_ops.anchor_probe_sliced(t32([1]), t32([0]), t32([1]), t32([1]))
+    fd_ops.decode_rows(t32([1, 0]), t32([0]), t32([0]), t32([1]), 1)
+    fd_ops.probe_rows(t32([1, 0]), t32([0]), t32([0]), t32([1]), t32([1]))
+    assert before == (ai_ops.anchor_probe_sliced.launches, fd_ops.decode_rows.launches,
+                      fd_ops.probe_rows.launches)
+
+
+def test_kernel_probe_needs_a_cuda_device():
+    """probe="kernel" on a CPU server raises; so does the default device
+    when there is no GPU."""
+    from repro_torch.core.index import NonPositionalIndex
+    from repro_torch.serving.engine import BatchedServer, make_serve_step
+
+    idx = NonPositionalIndex.build(["a b c", "a b d", "b c d"], store="repair_skip")
+    with pytest.raises(ValueError, match="probe='kernel'"):
+        BatchedServer.from_index(idx, device="cpu", probe="kernel")
+    with pytest.raises(ValueError, match="unknown probe"):
+        BatchedServer.from_index(idx, device="cpu", probe="vmap")
+    with pytest.raises(ValueError, match="unknown probe"):
+        make_serve_step(probe="pallas")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            BatchedServer.from_index(idx)  # device defaults to "cuda"
+    assert BatchedServer.from_index(idx, device="cpu").probe == "torch"
+
+
+def test_wrapper_refuses_wrong_dtype_on_check():
+    """The argument checks of the CUDA path (exercised directly: no GPU is
+    needed to refuse a tensor)."""
+    from repro_torch.kernels import cuda_build
+
+    with pytest.raises(TypeError, match="int32"):
+        cuda_build.require_int32("x", torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError, match="dimension"):
+        cuda_build.require_int32("x", torch.zeros((3, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_build.require_int32("x", torch.zeros(6, dtype=torch.int32)[::2])
+    with pytest.raises(TypeError, match="Tensor"):
+        cuda_build.require_int32("x", np.zeros(3, np.int32))
+
+
+def test_kernel_sources_are_in_the_package():
+    from repro_torch.kernels import cuda_build
+
+    names = {p.name for p in cuda_build.CSRC_DIR.glob("*.cu")}
+    assert {"anchor_intersect.cu", "fused_decode.cu", "common.cu"} <= names
+    text = "".join(p.read_text() for p in cuda_build.CSRC_DIR.glob("*.cu"))
+    for entry in cuda_build.SIGNATURES:
+        assert f" {entry}(" in text, entry  # every bound entry point exists
