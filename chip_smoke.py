@@ -3,16 +3,29 @@
 
     python3 chip_smoke.py            # needs one CUDA device, nvcc and no network
 
-Builds the CUDA kernels of ``src/repro_torch/csrc`` into ``build/``, holds each
-kernel against its plain PyTorch version on the card (integers and bools:
-tolerance 0), then drives the port's main path — one mixed query batch through
-``Session.execute`` over a seeded versioned collection, fused and dense device
-layouts — and compares every answer with the host-only session.  Each phase
-prints one JSON line; any failure ends the run with a non-zero exit code.  The
-last line is ``{"ok": true, "device": {...}}``; the line before it lists every
-kernel with its launches on the main path, its error against the plain version,
-its time, the plain version's time, the card's lower bound for the same work
-and, where one PyTorch call computes the same function, that call's time.
+Builds the CUDA kernels of ``src/repro_torch/csrc`` into ``build/``, then drives
+the port's paths over a seeded versioned collection, each with the kernels'
+launch counts set to 0 just before it and read just after:
+
+* mining — ``NonPositionalIndex.build(..., mine_similarity=True,
+  device="cuda")`` signs the documents on the card; the same documents mined
+  with the plain version on the CPU give the same similarity index;
+* rlz — ``NonPositionalIndex.build(store="rlz", device="cuda")`` signs the
+  posting lists on the card (the store equals the one built on the CPU, byte
+  for byte), and ``Session.build`` serves AND / ``top10:`` / ``docs:`` over it
+  on the card (dense layout);
+* serve — one mixed query batch through ``Session.execute``, fused and dense
+  device layouts, ``similar:`` / ``versions-of:`` over the mined index
+  included.
+
+Every answer is compared with the host-only session's, and each kernel is held
+against its plain PyTorch version on the card (integers and bools: tolerance
+0) at edge shapes and at the inputs the paths handed it.  Each phase prints one
+JSON line; any failure ends the run with a non-zero exit code.  The last line
+is ``{"ok": true, "device": {...}}``; the line before it lists every kernel
+with its launches on its path, its error against the plain version, its time,
+the plain version's time, the card's lower bound for the same work and, where
+one PyTorch call computes the same function, that call's time.
 
 It imports ``torch``, ``numpy`` and ``repro_torch`` only.
 """
@@ -49,7 +62,11 @@ KERNEL_META = {
     "probe_rows": {
         "route": "cuda", "source": "src/repro_torch/csrc/fused_decode.cu",
         "replaces": "src/repro/kernels/fused_decode/kernel.py:97"},
+    "minhash_rows": {
+        "route": "cuda", "source": "src/repro_torch/csrc/minhash_sig.cu",
+        "replaces": "src/repro/kernels/minhash_sig/kernel.py:61"},
 }
+SERVE_KERNELS = ("anchor_probe_sliced", "decode_rows", "probe_rows")
 
 
 def emit(phase: str, **kw) -> None:
@@ -142,6 +159,16 @@ def probe_bound(pool, ptr, lens):
     loads = _search_steps(lens) + ptr.numel()
     bytes_moved = 17 * ptr.numel() + 4 * min(_distinct_words(ptr, lens), loads)
     return bound(bytes_moved, loads)
+
+
+def minhash_bound(shingles, lens, a):
+    """The live lanes' 4 B each plus 4 B per row in, 8 B per hash in, 4 B
+    per (row, hash) out; 2 operations (multiply-add, min) per (live lane,
+    hash)."""
+    d, l = shingles.shape
+    p = a.numel()
+    live = int(lens.long().clamp(0, l).sum().item())
+    return bound(4 * live + 4 * d + 8 * p + 4 * d * p, 2 * live * p), live
 
 
 def diff_stats(got, want) -> tuple[int, int]:
@@ -245,18 +272,64 @@ def edge_cases(dev, seed: int) -> list[dict]:
     return out
 
 
+#: edge shapes of the MinHash kernel: rows, lanes, hashes
+MINHASH_ROWS = (0, 1, 31, 32, 33, 4097)
+MINHASH_LANES = (0, 1, 127, 128, 129, 4096)
+MINHASH_PERMS = (1, 64, 200)
+
+
+def minhash_edge_cases(dev, seed: int) -> list[dict]:
+    """minhash_rows against its plain version at every (D, L, P) of the edge
+    shapes, with garbage in the dead lanes, rows with ``lens == 0``, the
+    shingles 0 and 0xFFFFFFFF among the live lanes and an ``a`` with its top
+    bit set."""
+    from repro_torch.kernels.minhash_sig.ops import (
+        hash_params, minhash_rows, minhash_rows_torch)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for d in MINHASH_ROWS:
+        for l in MINHASH_LANES:
+            s = torch.randint(-2**31, 2**31, (d, l), generator=g, device=dev,
+                              dtype=torch.int64).to(torch.int32)
+            lens = torch.randint(0, l + 1, (d,), generator=g, device=dev,
+                                 dtype=torch.int64).to(torch.int32)
+            lens[::4] = 0
+            lens[2::5] = l
+            if l:
+                s[:, 0] = 0
+                s[1::3, l // 2] = -1  # 0xFFFFFFFF
+            for p in MINHASH_PERMS:
+                a, b = hash_params(p, seed + p)
+                a[0] |= np.uint32(0x80000000)
+                ab = [torch.from_numpy(x.view(np.int32)).to(dev) for x in (a, b)]
+                mism, err = diff_stats(minhash_rows(s, lens, *ab),
+                                       minhash_rows_torch(s, lens, *ab))
+                out.append({"kernel": "minhash_rows", "shape": {"D": d, "L": l, "P": p},
+                            "mismatches": mism, "max_abs_err": err})
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
 def wrapper_refusals(dev) -> int:
     """The wrappers take contiguous int32 tensors on one CUDA device and raise
     on anything else; returns how many refusals were checked."""
     from repro_torch.kernels.anchor_intersect.ops import anchor_probe_sliced
     from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
+    from repro_torch.kernels.minhash_sig.ops import minhash_rows
 
     q = torch.zeros(4, dtype=torch.int32, device=dev)
+    s = torch.zeros((4, 4), dtype=torch.int32, device=dev)
     cases = [
         (TypeError, "int32", lambda: anchor_probe_sliced(q.long(), q, q, q)),
         (ValueError, "lies on", lambda: anchor_probe_sliced(q, q.cpu(), q, q)),
         (ValueError, "contiguous", lambda: probe_rows(q, q[::2], q[::2], q[::2], q[::2])),
         (ValueError, "rows", lambda: decode_rows(q, q, q[:2], q, 1)),
+        (TypeError, "int32", lambda: minhash_rows(s.long(), q, q, q)),
+        (ValueError, "lies on", lambda: minhash_rows(s, q.cpu(), q, q)),
+        (ValueError, "contiguous", lambda: minhash_rows(s.t(), q, q, q)),
+        (ValueError, "rows", lambda: minhash_rows(s, q[:3], q, q)),
     ]
     before = launch_counts()
     for exc, text, call in cases:
@@ -277,8 +350,10 @@ def recorded_wrappers():
     each kernel.  Yields ``{kernel name: [argument tuple per call, ...]}``."""
     from repro_torch.kernels.anchor_intersect import ops as ai
     from repro_torch.kernels.fused_decode import ops as fd
+    from repro_torch.kernels.minhash_sig import ops as mh
 
-    homes = {"anchor_probe_sliced": ai, "decode_rows": fd, "probe_rows": fd}
+    homes = {"anchor_probe_sliced": ai, "decode_rows": fd, "probe_rows": fd,
+             "minhash_rows": mh}
     seen = {name: [] for name in homes}
     originals = {name: getattr(mod, name) for name, mod in homes.items()}
 
@@ -317,9 +392,9 @@ def main_path_inputs(server, kind: str, qt: np.ndarray, ql: np.ndarray,
         step(server.arrays, torch.from_numpy(qt).to(dev), torch.from_numpy(ql).to(dev),
              window * MAX_CAND_ROWS)
     want = {"fused": {"anchor_probe_sliced": qt.shape[1] - 1, "decode_rows": 1,
-                      "probe_rows": qt.shape[1] - 1},
+                      "probe_rows": qt.shape[1] - 1, "minhash_rows": 0},
             "dense": {"anchor_probe_sliced": qt.shape[1] - 1, "decode_rows": 0,
-                      "probe_rows": 0}}[server.layout]
+                      "probe_rows": 0, "minhash_rows": 0}}[server.layout]
     got = {name: len(calls) for name, calls in seen.items()}
     require(got == want, f"a {server.layout} step of width {qt.shape[1]} made the "
             f"kernel calls {got}, expected {want}")
@@ -426,6 +501,9 @@ def make_batch(docs, idx, rng, per_cell: int) -> list[tuple[str, str]]:
         out += [("docs", f"docs: {q}") for q in ands(nt, per_cell)]
         out += [("docs-phrase", q) for q in
                 sample_traffic("docs-phrase", per_cell, docs, words, rng, n_terms=nt)]
+    out += [("similar", f"similar:{int(d)}") for d in rng.integers(0, len(docs), per_cell)]
+    out += [("versions", f"versions-of:{int(d)}")
+            for d in rng.integers(0, len(docs), per_cell)]
     order = rng.permutation(len(out))
     return [out[i] for i in order]
 
@@ -433,17 +511,25 @@ def make_batch(docs, idx, rng, per_cell: int) -> list[tuple[str, str]]:
 def launch_counts() -> dict:
     from repro_torch.kernels.anchor_intersect.ops import anchor_probe_sliced
     from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
+    from repro_torch.kernels.minhash_sig.ops import minhash_rows
     return {"anchor_probe_sliced": anchor_probe_sliced.launches,
-            "decode_rows": decode_rows.launches, "probe_rows": probe_rows.launches}
+            "decode_rows": decode_rows.launches, "probe_rows": probe_rows.launches,
+            "minhash_rows": minhash_rows.launches}
 
 
 def reset_launch_counts() -> None:
     from repro_torch.kernels.anchor_intersect.ops import anchor_probe_sliced
     from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
+    from repro_torch.kernels.minhash_sig.ops import minhash_rows
     anchor_probe_sliced.launches = decode_rows.launches = probe_rows.launches = 0
+    minhash_rows.launches = 0
 
 
-def build_indexes(args) -> dict:
+def build_indexes(args, device: str) -> dict:
+    """The collection and its two indexes.  The non-positional build mines the
+    version structure on ``device``: that is the mining path, driven with the
+    launch counts set to 0 just before it and read just after, and with a
+    recorder in front of the signature wrapper (``built["mining_calls"]``)."""
     from repro_torch.core.index import NonPositionalIndex, PositionalIndex
     from repro_torch.data import generate_collection
 
@@ -452,18 +538,166 @@ def build_indexes(args) -> dict:
                               versions_per_article=args.versions,
                               words_per_doc=args.words, seed=args.seed)
     t1 = time.perf_counter()
-    idx = NonPositionalIndex.build(col.docs, store="repair_skip")
+    reset_launch_counts()
+    with recorded_wrappers() as seen:
+        idx = NonPositionalIndex.build(col.docs, store="repair_skip",
+                                       mine_similarity=True, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    mining_launches = launch_counts()
     t2 = time.perf_counter()
     pidx = PositionalIndex.build(col.docs, store="repair_skip")
     t3 = time.perf_counter()
+    if device != "cpu":
+        require(mining_launches["minhash_rows"] > 0,
+                f"minhash_rows was not launched on the mining path: {mining_launches}")
     return {"docs": col.docs, "idx": idx, "pidx": pidx,
+            "mining_launches": mining_launches, "mining_calls": seen["minhash_rows"],
             "info": {"articles": args.articles, "versions_per_article": args.versions,
                      "words_per_doc": args.words, "seed": args.seed,
                      "documents": len(col.docs), "tokens": int(pidx.n_tokens),
                      "collection_bytes": int(col.total_bytes),
                      "generate_s": round(t1 - t0, 3),
-                     "build_nonpositional_s": round(t2 - t1, 3),
+                     "build_nonpositional_mined_s": round(t2 - t1, 3),
                      "build_positional_s": round(t3 - t2, 3)}}
+
+
+def doc_terms(idx, docs) -> list[np.ndarray]:
+    """Each document's analyzed term ids, as the index build collects them
+    for mining."""
+    from repro_torch.data.text import tokenize
+
+    out = []
+    for doc in docs:
+        kept = (idx.analyzer.normalize(t) for t in tokenize(doc))
+        out.append(np.asarray([idx.vocab.get(w) for w in kept if w is not None],
+                              dtype=np.int64))
+    return out
+
+
+def mining_check(built: dict, device: str) -> dict:
+    """Mine the same documents twice more — on ``device`` step by step (host
+    seconds per step), and with the plain version on the CPU — and require the
+    three similarity indexes to be equal."""
+    from repro_torch.core.similarity import SimilarityIndex
+    from repro_torch.core.similarity.cluster import _elect_heads, cluster_union
+    from repro_torch.core.similarity.minhash import shingle_hashes, signature_matrix
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    mined = built["idx"].similarity
+    cfg = mined.config
+    terms = doc_terms(built["idx"], built["docs"])
+    t0 = time.perf_counter()
+    sets = [shingle_hashes(t, cfg.shingle) for t in terms]
+    t1 = time.perf_counter()
+    sigs = signature_matrix(sets, cfg, device=device)
+    sync()
+    t2 = time.perf_counter()
+    n_shingles = np.asarray([len(s) for s in sets], dtype=np.int64)
+    labels = cluster_union(sigs, n_shingles, cfg)
+    t3 = time.perf_counter()
+    heads = _elect_heads(sigs, labels)
+    t4 = time.perf_counter()
+    plain = SimilarityIndex.mine(terms, cfg, device="cpu")
+    t5 = time.perf_counter()
+    for name, got in (("sigs", sigs), ("n_shingles", n_shingles), ("labels", labels),
+                      ("heads", heads)):
+        want = getattr(mined, name)
+        require(np.array_equal(got, want) and np.array_equal(getattr(plain, name), want),
+                f"mined {name} differ between the index build on {device}, the "
+                f"step-by-step mining on {device} and the plain version on the CPU")
+    return {"documents": len(terms), "clusters": int(mined.n_clusters),
+            "live_shingles": int(n_shingles.sum()), "longest_row": int(n_shingles.max()),
+            "equal_device_plain": True,
+            "host_s": {"shingle": t1 - t0, "signatures_on_device": t2 - t1,
+                       "cluster_union": t3 - t2, "elect_heads": t4 - t3,
+                       "mining_total": t4 - t0, "plain_mining_on_cpu": t5 - t4},
+            "launches_on_mining_path": built["mining_launches"]}
+
+
+def rlz_path(built: dict, batch, device: str) -> dict:
+    """The rlz path, with the launch counts set to 0 just before it and read
+    just after: the store built on ``device``, then a session over it serving
+    the batch's AND / ``top10:`` / ``docs:`` queries.  Its store must equal the
+    one built with the plain version on the CPU, byte for byte, and its
+    answers the host-only session's."""
+    from repro_torch.core.index import NonPositionalIndex
+    from repro_torch.serving.session import Session
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    docs = built["docs"]
+    queries = [q for k, q in batch if k in ("and", "topk", "docs")]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_wrappers() as seen:
+        idx = NonPositionalIndex.build(docs, store="rlz", device=device)
+    sync()
+    t1 = time.perf_counter()
+    build_launches = launch_counts()
+    sess = Session.build(idx, device=device)
+    t2 = time.perf_counter()
+    got = sess.execute(queries)
+    sync()
+    t3 = time.perf_counter()
+    launches = launch_counts()
+    require(sess.server.layout == "dense",
+            f"the rlz server took the {sess.server.layout} layout, expected dense")
+    want = Session(idx).execute(queries)
+    t4 = time.perf_counter()
+    wrong = [q for q, a, b in zip(queries, got, want) if not np.array_equal(a, b)]
+    require(not wrong, f"{len(wrong)} rlz answers differ from the host session's, "
+            f"first: {wrong[:3]}")
+    cpu = NonPositionalIndex.build(docs, store="rlz", device="cpu")
+    t5 = time.perf_counter()
+    a, b = idx.store, cpu.store
+    require(a._data == b._data and a._payload_bits == b._payload_bits
+            and np.array_equal(a.bit_offsets, b.bit_offsets)
+            and np.array_equal(a.head_ref, b.head_ref)
+            and a.size_in_bits == b.size_in_bits,
+            "the rlz store built on the card differs from the one built on the CPU")
+    require(idx.store_kw == {}, f"the device leaked into store_kw: {idx.store_kw}")
+    if device != "cpu":
+        require(launches["minhash_rows"] > 0 and launches["anchor_probe_sliced"] > 0,
+                f"a kernel of the rlz path was not launched: {launches}")
+        require(all(t.is_cuda for t in sess.server.arrays.values()),
+                "an rlz server array is not a CUDA tensor")
+    return {"lists": a.n_lists, "heads": a.n_heads, "size_in_bits": a.size_in_bits,
+            "space_fraction": idx.space_fraction, "stores_equal_device_cpu": True,
+            "queries": len(queries), "answers_equal_host": True,
+            "nonempty_answers": sum(len(r) > 0 for r in want),
+            "layout": sess.server.layout, "device_bytes": sess.server.device_bytes(),
+            "build_s": t1 - t0, "session_build_s": t2 - t1, "serve_s": t3 - t2,
+            "host_session_s": t4 - t3, "build_on_cpu_s": t5 - t4,
+            "launches_build": build_launches, "launches": launches,
+            "calls": seen["minhash_rows"]}
+
+
+def minhash_at_mining(inputs: dict, reps: int) -> list[dict]:
+    """minhash_rows at the inputs the two paths handed it (documents, posting
+    lists): against its plain version (tolerance 0), timed beside the plain
+    version and the bound, and beside the host-to-device copy of the padded
+    shingle matrix that each call needs first."""
+    from repro_torch.kernels.minhash_sig.ops import minhash_rows, minhash_rows_torch
+
+    rows = []
+    for at, calls in inputs.items():
+        require(len(calls) == 1, f"the {at} build made {len(calls)} signature calls")
+        args = calls[0]
+        mism, err = diff_stats(minhash_rows(*args), minhash_rows_torch(*args))
+        (b_ms, b_by), live = minhash_bound(args[0], args[1], args[2])
+        host = args[0].cpu()
+        row = {"kernel": "minhash_rows", "at": at,
+               "shape": {"D": args[0].shape[0], "L": args[0].shape[1],
+                         "P": args[2].numel(), "live_lanes": live},
+               "mismatches": mism, "max_abs_err": err,
+               "ms": time_ms(lambda: minhash_rows(*args), reps),
+               "call_ms": time_ms(lambda: minhash_rows(*args), reps, preload=False),
+               "plain_ms": time_ms(lambda: minhash_rows_torch(*args), reps),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "copy_bytes": host.numel() * host.element_size(),
+               "copy_ms": time_ms(lambda: host.to(args[0].device), reps, preload=False)}
+        rows.append(row)
+    return rows
 
 
 def serve(built: dict, sessions: dict, batch: list[tuple[str, str]], device: str) -> dict:
@@ -542,7 +776,7 @@ def serve(built: dict, sessions: dict, batch: list[tuple[str, str]], device: str
                     for k in srv.arrays), f"{name}: an array is neither int32 nor bool")
         dev_bytes[name] = srv.device_bytes()
     if on_gpu:
-        require(all(v > 0 for v in fused_launches.values()),
+        require(all(fused_launches[k] > 0 for k in SERVE_KERNELS),
                 f"a kernel was not launched on the fused main path: {fused_launches}")
         require(dense_launches["anchor_probe_sliced"] > 0,
                 f"anchor_probe_sliced was not launched on the dense path: {dense_launches}")
@@ -629,18 +863,23 @@ def main() -> int:
          reused=info["reused"], sources=info["sources"],
          ptxas=[ln for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln])
 
-    built = build_indexes(args)
+    built = build_indexes(args, "cuda")  # the mining path
+    emit("mining", card=card, **mining_check(built, "cuda"))
     sessions, session_s = build_sessions(built, "cuda", "kernel")
     rng = np.random.default_rng(args.seed)
     batch = make_batch(built["docs"], built["idx"], rng, args.per_cell)
     require(len(batch) >= 256, f"mixed batch has {len(batch)} < 256 queries")
+    rlz = rlz_path(built, batch, "cuda")
+    rlz_calls = rlz.pop("calls")
+    emit("rlz", card=card, **rlz)
 
     # kernels, against their plain versions on the card: edge shapes, then what
     # a device step hands them on each path that launches one — both layouts,
-    # both indexes, 2-term and 3-4-term batches, first and last window.  The
-    # 2-term first-window steps are also timed.
+    # both indexes, 2-term and 3-4-term batches, first and last window — and
+    # what mining handed the signature kernel.  The 2-term first-window steps
+    # and both signature calls are also timed.
     dev = torch.device("cuda")
-    edges = edge_cases(dev, args.seed)
+    edges = edge_cases(dev, args.seed) + minhash_edge_cases(dev, args.seed)
     refusals = wrapper_refusals(dev)
     measured = []
     for layout in ("fused", "dense"):
@@ -657,6 +896,9 @@ def main() -> int:
                     inp = main_path_inputs(srv, mode, qt, ql, window)
                     measured += kernels_at_main_path(name, inp, args.reps, timed)
                     del inp
+    measured += minhash_at_mining({"mining/documents": built.pop("mining_calls"),
+                                   "rlz/posting-lists": rlz_calls}, args.reps)
+    del rlz_calls
     torch.cuda.synchronize()
     total_mism = sum(r["mismatches"] for r in edges + measured)
     emit("kernels", tolerance=0,
@@ -674,20 +916,34 @@ def main() -> int:
     result = serve(built, sessions, batch, "cuda")
     emit("serve", card=card, collection=built["info"], session_build_s=session_s, **result)
 
-    # one entry per kernel, at the positional fused shape (the path's most
-    # frequent); the per-shape list is in the "kernels" phase line above
+    # one entry per kernel: the serving kernels at the positional fused shape
+    # (the serve path's most frequent), the signature kernel at the documents
+    # of the mining path with its posting-list shape beside it; the per-shape
+    # list is in the "kernels" phase line above
     at = "fused/positional/phrase2"
+    max_err = lambda name: max(x["max_abs_err"] for x in edges + measured  # noqa: E731
+                               if x["kernel"] == name)
+    timing_keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = []
     for r in measured:
         if r["at"] != at or "ms" not in r:
             continue
         kernels.append({"name": r["kernel"], **KERNEL_META[r["kernel"]],
                         "launches": result["launches_fused"][r["kernel"]],
-                        "max_abs_err": max(x["max_abs_err"] for x in edges + measured
-                                           if x["kernel"] == r["kernel"]),
-                        "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"], "at": at})
+                        "max_abs_err": max_err(r["kernel"]),
+                        **{k: r[k] for k in timing_keys}, "at": at})
+    mh = {r["at"]: r for r in measured if r["kernel"] == "minhash_rows"}
+    by_path = {"mining": built["mining_launches"]["minhash_rows"],
+               "rlz": rlz["launches_build"]["minhash_rows"]}
+    kernels.append({"name": "minhash_rows", **KERNEL_META["minhash_rows"],
+                    "launches": sum(by_path.values()), "launches_by_path": by_path,
+                    "max_abs_err": max_err("minhash_rows"),
+                    **{k: mh["mining/documents"][k] for k in timing_keys},
+                    "copy_ms": mh["mining/documents"]["copy_ms"], "at": "mining/documents",
+                    "at_posting_lists": {k: mh["rlz/posting-lists"][k]
+                                         for k in timing_keys + ("copy_ms",)}})
+    require(len(kernels) == len(KERNEL_META), f"the kernels line lists {len(kernels)} "
+            f"kernels, expected {len(KERNEL_META)}")
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -15,7 +15,9 @@ with full query-batch parallelism.
 (anchors + shared prefix-summed rule pool) are the device-resident forms
 consumed by ``repro_torch.serving.engine``.  Every device array is **int32**
 (bool for masks), so ``device_bytes()`` is the sum of what the tensors hold;
-indices are widened with ``.long()`` only at a gather site.
+indices are widened with ``.long()`` only at a gather site.  The builders
+put their arrays on the GPU (``device="cuda"``, which raises without one)
+unless the caller asks for ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .repair import RePairStore
 
 #: elements one chunk of a row gather may hold (bounds the (rows, width)
@@ -74,7 +77,8 @@ class AnchoredIndex:
 
     @classmethod
     def from_store(cls, store: RePairStore, expand_len: int = 32,
-                   device="cpu") -> "AnchoredIndex":
+                   device="cuda") -> "AnchoredIndex":
+        device = resolve_device(device)
         n_lists = store.n_lists
         # widen the table to the longest phrase so probes are exact
         max_len = 1
@@ -108,9 +112,10 @@ class AnchoredIndex:
         )
 
     @classmethod
-    def from_numpy(cls, arrays: dict, device="cpu") -> "AnchoredIndex":
+    def from_numpy(cls, arrays: dict, device="cuda") -> "AnchoredIndex":
         """From a dict of NumPy arrays keyed like the fields (state carried
         across from another build of the same structure)."""
+        device = resolve_device(device)
         expand = np.asarray(arrays["expand"])
         return cls(
             anchors=_i32(arrays["anchors"], device),
@@ -127,10 +132,11 @@ class AnchoredIndex:
                        self.expand_valid, self.lengths)
 
 
-def build_anchored(lists: list[np.ndarray], expand_len: int = 32, device="cpu",
+def build_anchored(lists: list[np.ndarray], expand_len: int = 32, device="cuda",
                    **kw) -> AnchoredIndex:
     """Re-Pair compress, then anchor (expand table widened to the longest
     phrase so probes are exact)."""
+    device = resolve_device(device)
     store = RePairStore.build(lists, variant="skip", **kw)
     return AnchoredIndex.from_store(store, expand_len=expand_len, device=device)
 
@@ -166,7 +172,8 @@ class CompressedAnchoredIndex:
     max_phrase: int  # longest rule expansion (static decode bound)
 
     @classmethod
-    def from_store(cls, store: RePairStore, device="cpu") -> "CompressedAnchoredIndex":
+    def from_store(cls, store: RePairStore, device="cuda") -> "CompressedAnchoredIndex":
+        device = resolve_device(device)
         n_lists = store.n_lists
         offsets = store.c_offsets.astype(np.int64)
         sym_ptr: dict[int, tuple[int, int]] = {}  # symbol -> (ptr, len) in pool
@@ -211,9 +218,10 @@ class CompressedAnchoredIndex:
         )
 
     @classmethod
-    def from_numpy(cls, arrays: dict, device="cpu") -> "CompressedAnchoredIndex":
+    def from_numpy(cls, arrays: dict, device="cuda") -> "CompressedAnchoredIndex":
         """From a dict of NumPy arrays keyed like the fields, plus the int
         ``max_phrase`` (state carried across from another build)."""
+        device = resolve_device(device)
         return cls(
             anchors=_i32(arrays["anchors"], device),
             c_offsets=_i32(arrays["c_offsets"], device),
@@ -229,10 +237,11 @@ class CompressedAnchoredIndex:
                        self.pool, self.lengths)
 
 
-def build_compressed_anchored(lists: list[np.ndarray], device="cpu",
+def build_compressed_anchored(lists: list[np.ndarray], device="cuda",
                               **kw) -> CompressedAnchoredIndex:
     """Re-Pair compress, then anchor without expanding: the fused-layout
     counterpart of :func:`build_anchored`."""
+    device = resolve_device(device)
     store = RePairStore.build(lists, variant="skip", **kw)
     return CompressedAnchoredIndex.from_store(store, device=device)
 

@@ -8,9 +8,11 @@ arguments; the registry validates names and kwargs, so an unknown store or a
 stray kwarg is a clear ``ValueError``.
 
 Registered here: the Re-Pair family (device-resident — their grammar arrays
-anchor straight onto the device) and per-list ``vbyte`` (the non-resident
-representative: the batched server re-anchors it from decoded lists).  Any
-other store name raises the registry's ``ValueError`` listing these five.
+anchor straight onto the device), per-list ``vbyte`` (the non-resident
+representative: the batched server re-anchors it from decoded lists) and
+``rlz`` (referential lists against MinHash-mined heads; its build signs the
+lists on the ``device`` it is given).  Any other store name raises the
+registry's ``ValueError`` listing these six.
 """
 
 from __future__ import annotations
@@ -20,12 +22,14 @@ from .registry import (
     CAP_DEVICE_RESIDENT,
     CAP_DOC_LIST,
     CAP_INTERSECT_CANDIDATES,
+    CAP_REFERENTIAL,
     CAP_SEEK,
     FAMILY_INVERTED,
     BuildSource,
     register_backend,
 )
 from .repair import RePairStore
+from .rlz_store import RLZStore
 
 
 # ----------------------------------------------------------------------
@@ -80,3 +84,19 @@ def build_repair_skip_cm(source: BuildSource, k: int = 64):
                                               sampling=("st", B)))
 def build_repair_skip_st(source: BuildSource, B: int = 1024):
     return RePairStore.build(source.lists, variant="skip", sampling=("st", B))
+
+
+# ----------------------------------------------------------------------
+# RLZ referential store (§1 competitor) — the structure-aware counterpoint:
+# version structure is mined (MinHash-LSH over the lists themselves), then
+# each list is stored as a diff against its cluster head.  The mining runs a
+# kernel, so the build takes the device from its caller: the index build
+# passes its own, and the generic restore path (which rebuilds from decoded
+# lists and so mines again) needs ``device=`` among its keywords.  A device
+# is not part of an index and never lands in the persisted ``store_kw``.
+# ----------------------------------------------------------------------
+@register_backend("rlz", family=FAMILY_INVERTED, group="ours", paper="§1 (RLZ)",
+                  capabilities=(CAP_REFERENTIAL,),
+                  doc="referential lists vs MinHash-LSH mined cluster heads")
+def build_rlz(source: BuildSource, *, device):
+    return RLZStore.build(source.lists, device=device)

@@ -19,6 +19,12 @@ from the token-id stream of the same collection and answer the same
 queries (word / AND / phrase) through the same ``SearchBackend`` protocol.
 All query dispatch goes through declared capabilities — there is no
 store-type switching here.
+
+The builds run on the host except where a kernel runs: version mining
+(``mine_similarity=True``) and a backend whose build takes a ``device``
+(``rlz``, which MinHash-signs its lists).  There ``device`` is the GPU unless
+the caller asks for ``"cpu"``; every other build ignores it, so it needs no
+GPU.
 """
 
 from __future__ import annotations
@@ -35,6 +41,13 @@ from .registry import (
     build_backend,
     get_backend_spec,
 )
+
+
+def _build_store(spec, source: BuildSource, store_kw: dict, device):
+    """Build the backend, handing ``device`` only to a builder that takes
+    one (a device is not part of an index: it never joins ``store_kw``)."""
+    extra = {"device": device} if "device" in spec.build_kwargs else {}
+    return build_backend(spec.name, source, **store_kw, **extra)
 
 
 # ----------------------------------------------------------------------
@@ -147,13 +160,12 @@ class NonPositionalIndex(_StatsMixin):
     @classmethod
     def build(cls, docs: list[str], store: str = "repair_skip", case_fold: bool = True,
               drop_stopwords: bool = True, analyzer=None, mine_similarity: bool = False,
-              similarity_config=None, **store_kw) -> "NonPositionalIndex":
+              similarity_config=None, device="cuda", **store_kw) -> "NonPositionalIndex":
+        """Index ``docs`` with backend ``store``.  ``mine_similarity=True``
+        also mines the version structure (``similarity_config``: a
+        ``MinHashConfig`` or its dict), signing the documents on ``device``;
+        an ``rlz`` store signs its lists there too."""
         spec = get_backend_spec(store)  # unknown name -> ValueError up front
-        if mine_similarity:
-            raise NotImplementedError(
-                "mine_similarity=True needs core/similarity (MinHash-LSH "
-                "version mining), which this package does not hold yet: "
-                "ROADMAP.md, Queue A (the remaining backends and stores)")
         if analyzer is None:
             analyzer = Analyzer(case_fold=case_fold, drop_stopwords=drop_stopwords)
         else:
@@ -165,8 +177,11 @@ class NonPositionalIndex(_StatsMixin):
         stream: list[int] = []
         doc_starts = np.zeros(len(docs), dtype=np.int64)
         doc_lengths = np.zeros(len(docs), dtype=np.int64)
+        doc_terms: list[list[int]] | None = [] if mine_similarity else None
         for d, doc in enumerate(docs):
             doc_starts[d] = len(stream)
+            if doc_terms is not None:
+                doc_terms.append([])
             for tok in tokenize(doc):
                 w = analyzer.normalize(tok)
                 if w is None:
@@ -175,6 +190,8 @@ class NonPositionalIndex(_StatsMixin):
                 wid = vocab.add(w)
                 if need_stream:
                     stream.append(wid)
+                if doc_terms is not None:
+                    doc_terms[d].append(wid)
                 plist = postings.setdefault(wid, [])
                 tfs = tf_lists.setdefault(wid, [])
                 if plist and plist[-1] == d:
@@ -202,11 +219,22 @@ class NonPositionalIndex(_StatsMixin):
             stream=np.asarray(stream, dtype=np.int64) if need_stream else None,
             doc_starts=doc_starts if need_stream else None,
             doc_lists=True)
-        built = build_backend(store, source, **store_kw)
+        built = _build_store(spec, source, store_kw, device)
+        similarity = None
+        if mine_similarity:
+            from .similarity import MinHashConfig, SimilarityIndex
+
+            similarity = SimilarityIndex.mine(
+                [np.asarray(t, dtype=np.int64) for t in doc_terms],
+                MinHashConfig.from_config(similarity_config)
+                if not isinstance(similarity_config, MinHashConfig)
+                else similarity_config,
+                device=device)
         return cls(vocab=vocab, store=built, n_docs=len(docs),
                    collection_bytes=sum(len(d) for d in docs), store_name=store,
                    doc_starts=doc_starts if need_stream else None,
-                   store_kw=dict(store_kw), analyzer=analyzer, scoring=scoring)
+                   store_kw=dict(store_kw), analyzer=analyzer, scoring=scoring,
+                   similarity=similarity)
 
     def word_id(self, w: str) -> int | None:
         # exact vocabulary hit first: index terms are already analyzed and
@@ -269,7 +297,9 @@ class PositionalIndex(_StatsMixin):
 
     @classmethod
     def build(cls, docs: list[str], store: str = "repair_skip", keep_text: bool = False,
-              **store_kw) -> "PositionalIndex":
+              device="cuda", **store_kw) -> "PositionalIndex":
+        """Index the token stream of ``docs`` with backend ``store`` (an
+        ``rlz`` store signs its lists on ``device``)."""
         spec = get_backend_spec(store)  # unknown name -> ValueError up front
         vocab = Vocabulary()
         sep_id = vocab.add(DOC_SEP)
@@ -290,7 +320,7 @@ class PositionalIndex(_StatsMixin):
             lists=lists, n_docs=len(docs),
             stream=tok if spec.family == FAMILY_SELFINDEX else None,
             doc_starts=doc_starts, sep_id=sep_id)
-        built = build_backend(store, source, **store_kw)
+        built = _build_store(spec, source, store_kw, device)
         return cls(vocab=vocab, store=built, doc_starts=doc_starts, n_tokens=len(tok),
                    collection_bytes=sum(len(d) for d in docs), store_name=store,
                    token_stream=tok if keep_text else None,

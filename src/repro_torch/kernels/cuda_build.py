@@ -40,6 +40,8 @@ SIGNATURES = {
     "decode_rows_launch": (_P, _L, _P, _P, _P, _P, _P, _L, _I, _P),
     # (pool, pool_n, ptr, base, lens, targets, hit, rows, stream)
     "probe_rows_launch": (_P, _L, _P, _P, _P, _P, _P, _L, _P),
+    # (shingles, lens, a, b, out, D, L, P, stream)
+    "minhash_rows_launch": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -41,6 +41,7 @@ from ..core.anchors import (
     member_batch,
     member_batch_compressed,
 )
+from ..core.device import resolve_device
 from ..core.index import NonPositionalIndex, PositionalIndex
 from ..core.registry import CAP_DEVICE_RESIDENT, capabilities_of
 from .plan import (
@@ -51,17 +52,6 @@ from .plan import (
 )
 
 PROBES = ("kernel", "torch")
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device without a GPU raises
-    (nothing here carries on on the CPU by itself)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} was asked for but torch.cuda.is_available() "
-            f"is False; pass device='cpu' to serve on the CPU")
-    return dev
 
 
 def resolve_probe(probe: str | None, device: torch.device) -> str:

@@ -27,10 +27,12 @@ host execution operators.  Everything flows through two methods:
 ``Session(index, positional=pidx)`` with no servers is the host-only
 session: the paper's sequential algorithms, independent of the device steps.
 
+``similar:`` / ``versions-of:`` answer from the similarity index that
+``NonPositionalIndex.build(..., mine_similarity=True)`` mined.
+
 **Not in this package yet.** :meth:`Session.open` / :meth:`Session.refresh`
-(persisted artifacts, segmented collections) and the ``similar:`` /
-``versions-of:`` kinds raise ``NotImplementedError`` naming the ROADMAP queue
-that ports them.
+(persisted artifacts, segmented collections) raise ``NotImplementedError``
+naming the ROADMAP queue that ports them.
 """
 
 from __future__ import annotations
@@ -321,11 +323,25 @@ class Session:
 
     # -- host physical operators (the paper's sequential algorithms) ----
     def _similar(self, pq: ParsedQuery) -> np.ndarray:
-        """``similar:`` / ``versions-of:`` — not in this package yet."""
-        raise NotImplementedError(
-            f"{unparse(pq)!r} needs the mined similarity index "
-            f"(core/similarity), which this package does not hold yet: "
-            f"ROADMAP.md, Queue A (the remaining backends and stores)")
+        """``similar:`` / ``versions-of:`` from the mined signature index
+        (version-structure mining, ``repro_torch.core.similarity``)."""
+        if self.index is None:
+            raise ValueError(f"{unparse(pq)!r} requires the nonpositional "
+                             f"index")
+        sim = getattr(self.index, "similarity", None)
+        if sim is None:
+            raise ValueError(
+                f"cannot answer {unparse(pq)!r}: the served index has no "
+                f"similarity index — build with mine_similarity=True "
+                f"(NonPositionalIndex.build / IndexWriter) so version "
+                f"structure is mined and persisted")
+        if not 0 <= pq.doc < sim.n_docs:
+            raise ValueError(
+                f"doc id {pq.doc} in {unparse(pq)!r} is out of range: the "
+                f"collection has {sim.n_docs} documents (valid ids "
+                f"0..{sim.n_docs - 1}); {GRAMMAR}")
+        return (sim.versions_of(pq.doc) if pq.kind == VERSIONS
+                else sim.similar(pq.doc))
 
     def _word(self, w: str) -> np.ndarray:
         if self.index is None:

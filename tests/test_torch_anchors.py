@@ -88,7 +88,8 @@ def _same_index(port_idx, ref_idx, fields):
 def test_anchored_from_store_same_arrays(rep_lists, expand_len):
     store = RePairStore.build(rep_lists, variant="skip")
     ref_store = RefRePairStore.build(rep_lists, variant="skip")
-    a = port_anchors.AnchoredIndex.from_store(store, expand_len=expand_len)
+    a = port_anchors.AnchoredIndex.from_store(store, expand_len=expand_len,
+                                              device="cpu")
     b = ref_anchors.AnchoredIndex.from_store(ref_store, expand_len=expand_len)
     _same_index(a, b, DENSE)
     assert a.expand_len == b.expand_len
@@ -97,7 +98,7 @@ def test_anchored_from_store_same_arrays(rep_lists, expand_len):
 def test_compressed_from_store_same_arrays(rep_lists):
     store = RePairStore.build(rep_lists, variant="skip")
     ref_store = RefRePairStore.build(rep_lists, variant="skip")
-    a = port_anchors.CompressedAnchoredIndex.from_store(store)
+    a = port_anchors.CompressedAnchoredIndex.from_store(store, device="cpu")
     b = ref_anchors.CompressedAnchoredIndex.from_store(ref_store)
     _same_index(a, b, FUSED)
     assert a.max_phrase == b.max_phrase
@@ -109,9 +110,9 @@ def test_compressed_from_store_same_arrays(rep_lists):
 def test_build_helpers_and_empty_lists():
     lists = [np.asarray([2, 5, 9], np.int64), np.zeros(0, np.int64),
              np.asarray([0, 1, 2, 3, 4, 5, 6, 7], np.int64)]
-    _same_index(port_anchors.build_anchored(lists),
+    _same_index(port_anchors.build_anchored(lists, device="cpu"),
                 ref_anchors.build_anchored(lists), DENSE)
-    _same_index(port_anchors.build_compressed_anchored(lists),
+    _same_index(port_anchors.build_compressed_anchored(lists, device="cpu"),
                 ref_anchors.build_compressed_anchored(lists), FUSED)
 
 
@@ -119,11 +120,11 @@ def test_from_numpy_round_trip(rep_lists):
     ref = ref_anchors.build_compressed_anchored(rep_lists[:8])
     arrays = {k: np.asarray(getattr(ref, k)) for k in FUSED}
     got = port_anchors.CompressedAnchoredIndex.from_numpy(
-        {**arrays, "max_phrase": ref.max_phrase})
+        {**arrays, "max_phrase": ref.max_phrase}, device="cpu")
     _same_index(got, ref, FUSED)
     refd = ref_anchors.build_anchored(rep_lists[:8])
     gotd = port_anchors.AnchoredIndex.from_numpy(
-        {k: np.asarray(getattr(refd, k)) for k in DENSE})
+        {k: np.asarray(getattr(refd, k)) for k in DENSE}, device="cpu")
     _same_index(gotd, refd, DENSE)
     assert gotd.expand_len == refd.expand_len
 
@@ -133,13 +134,13 @@ def test_from_numpy_round_trip(rep_lists):
 def test_from_store_keeps_store_state(rep_lists, build):
     store = RePairStore.build(rep_lists[:6], variant="skip")
     assert store.memoize is False and store._memo == {}
-    build(store)
+    build(store, device="cpu")
     assert store.memoize is False, "build leaked memoize=True into the store"
     assert store._memo == {}, "build leaked its expansion cache into the store"
     store.memoize = True
     store.expand_symbol(int(store.c[0]))
     cached = dict(store._memo)
-    build(store)
+    build(store, device="cpu")
     assert store.memoize is True
     assert set(cached).issubset(store._memo)
 
@@ -164,7 +165,7 @@ def test_indexes_same_vocab_and_lists(small_collection, store):
 
 def test_registry_holds_this_slice_only(rep_lists):
     assert backend_names() == ["vbyte", "repair", "repair_skip", "repair_skip_cm",
-                               "repair_skip_st"]
+                               "repair_skip_st", "rlz"]
     with pytest.raises(ValueError, match="registered backends: repair, repair_skip"):
         build_backend("rlcsa", rep_lists)
     with pytest.raises(ValueError, match="unexpected build kwargs"):
@@ -172,8 +173,21 @@ def test_registry_holds_this_slice_only(rep_lists):
     store = build_backend("repair_skip_cm", rep_lists, k=16)
     back = restore_backend("repair_skip_cm", store.to_arrays(), k=16)
     assert np.array_equal(back.get_list(3), rep_lists[3])
+    # rlz mines on a device that its caller names: the generic restore
+    # rebuilds (and so mines again) with the device it is given
+    rlz = build_backend("rlz", rep_lists, device="cpu")
+    back = restore_backend("rlz", rlz.to_arrays(), device="cpu")
+    assert back._data == rlz._data and np.array_equal(back.head_ref, rlz.head_ref)
+    with pytest.raises(TypeError, match="device"):
+        restore_backend("rlz", rlz.to_arrays())
 
 
 def test_mine_similarity_is_a_later_slice(small_collection):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NonPositionalIndex.build(small_collection.docs[:4], mine_similarity=True)
+    """Version mining came with this slice: the mined index equals the
+    reference's, and the persisted ``store_kw`` holds no device."""
+    docs = small_collection.docs[:16]
+    got = NonPositionalIndex.build(docs, mine_similarity=True, device="cpu")
+    want = RefNonPositional.build(docs, mine_similarity=True)
+    for k in ("sigs", "n_shingles", "labels", "heads"):
+        assert np.array_equal(getattr(got.similarity, k), getattr(want.similarity, k)), k
+    assert got.store_kw == want.store_kw == {}

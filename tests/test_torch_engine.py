@@ -164,11 +164,11 @@ def test_phrase_probe_at_universe_top(layout):
     lists = [np.asarray([10, top - 3, top], dtype=np.int64),
              np.asarray([11, top - 2, top - 1], dtype=np.int64)]
     if layout == "fused":
-        idx = port_anchors.build_compressed_anchored(lists)
+        idx = port_anchors.build_compressed_anchored(lists, device="cpu")
         gen = engine.fused_candidates_for
         ref_idx, ref_gen = ref_build_compressed(lists), ref_engine.fused_candidates_for
     else:
-        idx = port_anchors.build_anchored(lists)
+        idx = port_anchors.build_anchored(lists, device="cpu")
         gen = engine.candidates_for
         ref_idx, ref_gen = ref_build_anchored(lists), ref_engine.candidates_for
     qt = torch.tensor([[0, 1]], dtype=torch.int32)
@@ -223,8 +223,9 @@ def test_phrase_sweep_at_exact_window_multiple():
     n = 4 * MAX_CAND_ROWS
     a = np.arange(n, dtype=np.int64) * 3
     b = a[::2] + 1
-    for idx in (port_anchors.build_anchored([a, b], max_rules=0),
-                port_anchors.build_compressed_anchored([a, b], max_rules=0)):
+    for idx in (port_anchors.build_anchored([a, b], max_rules=0, device="cpu"),
+                port_anchors.build_compressed_anchored([a, b], max_rules=0,
+                                                       device="cpu")):
         qt = torch.tensor([[0, 1]], dtype=torch.int32)
         ql = torch.tensor([2], dtype=torch.int32)
         hits = []

@@ -32,7 +32,12 @@ def test_module_list_covers_the_slice():
     for needed in ("repro_torch.core.anchors", "repro_torch.serving.engine",
                    "repro_torch.serving.session", "repro_torch.kernels.cuda_build",
                    "repro_torch.kernels.anchor_intersect.ops",
-                   "repro_torch.kernels.fused_decode.ops", "repro_torch.data.queries"):
+                   "repro_torch.kernels.fused_decode.ops", "repro_torch.data.queries",
+                   "repro_torch.core.device", "repro_torch.core.similarity",
+                   "repro_torch.core.similarity.minhash",
+                   "repro_torch.core.similarity.cluster", "repro_torch.core.rlz_store",
+                   "repro_torch.core.codecs.bitio", "repro_torch.kernels.minhash_sig.ops",
+                   "repro_torch.kernels.minhash_sig.ref"):
         assert needed in MODULES, needed
 
 

@@ -169,11 +169,11 @@ def test_member_batch_vs_reference(seed):
     ref_comp = ref_anchors.CompressedAnchoredIndex.from_store(store)
     dense = port_anchors.AnchoredIndex.from_numpy(
         {k: np.asarray(getattr(ref_dense, k)) for k in
-         ("anchors", "c_offsets", "expand", "expand_valid", "lengths")})
+         ("anchors", "c_offsets", "expand", "expand_valid", "lengths")}, device="cpu")
     comp = port_anchors.CompressedAnchoredIndex.from_numpy(
         {**{k: np.asarray(getattr(ref_comp, k)) for k in
             ("anchors", "c_offsets", "c_ptr", "c_len", "pool", "lengths")},
-         "max_phrase": ref_comp.max_phrase})
+         "max_phrase": ref_comp.max_phrase}, device="cpu")
     ids = rng.integers(0, len(lists), 400).astype(np.int32)
     vals = rng.integers(-1, 500, 400).astype(np.int32)
     want = np.asarray(ref_anchors.member_batch(ref_dense, jnp.asarray(ids), jnp.asarray(vals)))
@@ -195,7 +195,7 @@ def test_member_batch_compressed_without_entries():
     """anchors.shape[0] == 0 (every list empty): nothing matches, nothing is
     gathered."""
     comp = port_anchors.build_compressed_anchored(
-        [np.zeros(0, np.int64), np.zeros(0, np.int64)])
+        [np.zeros(0, np.int64), np.zeros(0, np.int64)], device="cpu")
     assert comp.anchors.shape[0] == 0
     got = port_anchors.member_batch_compressed(comp, t32([0, 1, 0]), t32([0, 5, 9]))
     assert got.tolist() == [False, False, False]
@@ -210,7 +210,7 @@ def test_row_compare_chunks(monkeypatch):
     """The dense row compare stages its gather in chunks; a tiny chunk size
     must not change the answer."""
     rng = np.random.default_rng(3)
-    idx = port_anchors.build_anchored(_member_lists(rng))
+    idx = port_anchors.build_anchored(_member_lists(rng), device="cpu")
     ids = t32(rng.integers(0, 12, 500))
     vals = t32(rng.integers(0, 450, 500))
     whole = port_anchors.member_batch(idx, ids, vals)
@@ -220,13 +220,17 @@ def test_row_compare_chunks(monkeypatch):
 
 def test_launch_counts_stay_zero_on_cpu():
     """A CPU tensor takes the plain version and never counts as a launch."""
-    before = (ai_ops.anchor_probe_sliced.launches, fd_ops.decode_rows.launches,
-              fd_ops.probe_rows.launches)
+    from repro_torch.kernels.minhash_sig import ops as mh_ops
+
+    counts = lambda: (ai_ops.anchor_probe_sliced.launches,  # noqa: E731
+                      fd_ops.decode_rows.launches, fd_ops.probe_rows.launches,
+                      mh_ops.minhash_rows.launches)
+    before = counts()
     ai_ops.anchor_probe_sliced(t32([1]), t32([0]), t32([1]), t32([1]))
     fd_ops.decode_rows(t32([1, 0]), t32([0]), t32([0]), t32([1]), 1)
     fd_ops.probe_rows(t32([1, 0]), t32([0]), t32([0]), t32([1]), t32([1]))
-    assert before == (ai_ops.anchor_probe_sliced.launches, fd_ops.decode_rows.launches,
-                      fd_ops.probe_rows.launches)
+    mh_ops.minhash_rows(t32([[5, 6]]), t32([2]), t32([3]), t32([1]))
+    assert before == counts()
 
 
 def test_kernel_probe_needs_a_cuda_device():
@@ -267,7 +271,8 @@ def test_kernel_sources_are_in_the_package():
     from repro_torch.kernels import cuda_build
 
     names = {p.name for p in cuda_build.CSRC_DIR.glob("*.cu")}
-    assert {"anchor_intersect.cu", "fused_decode.cu", "common.cu"} <= names
+    assert {"anchor_intersect.cu", "fused_decode.cu", "minhash_sig.cu",
+            "common.cu"} <= names
     text = "".join(p.read_text() for p in cuda_build.CSRC_DIR.glob("*.cu"))
     for entry in cuda_build.SIGNATURES:
         assert f" {entry}(" in text, entry  # every bound entry point exists

@@ -169,15 +169,22 @@ def test_build_arguments(built):
 
 
 def test_later_slices_raise_not_implemented(built, tmp_path):
-    idx, pidx, _, _ = built["repair_skip"]
+    """Artifacts and segments are a later slice; ``similar:`` /
+    ``versions-of:`` came with version mining and, over an index built
+    without it, raise the reference's ``ValueError``."""
+    idx, pidx, ref_idx, ref_pidx = built["repair_skip"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Session.open(tmp_path)
     sess = Session(idx, positional=pidx)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sess.refresh()
+    ref = RefSession(ref_idx, positional=ref_pidx)
     for q in ("similar:0", "versions-of:1"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="mine_similarity=True") as got:
             sess.execute(q)
+        with pytest.raises(ValueError) as want:
+            ref.execute(q)
+        assert str(got.value) == str(want.value)
 
 
 def test_extract_equals_reference(collection):
