@@ -14,6 +14,16 @@ launch counts set to 0 just before it and read just after:
   posting lists on the card (the store equals the one built on the CPU, byte
   for byte), and ``Session.build`` serves AND / ``top10:`` / ``docs:`` over it
   on the card (dense layout);
+* backends — the 14 inverted backends of the third slice (``rice`` …
+  ``vbyte_lzend``), each built from the non-positional posting lists with
+  ``build_backend`` and served by ``Session.build(..., device="cuda")``
+  (dense layout) on the batch's AND / ``top10:`` / ``docs:`` queries;
+* dgap — ``repro_torch.kernels.dgap_decode`` on the positional index's
+  posting lists: each long list alone, then the whole concatenated d-gap
+  stream in one call (its running sum passes 2^31 and wraps);
+* anchor_probe — ``repro_torch.kernels.anchor_probe`` with the positional
+  index's longest list as the anchors and the next lists' positions as the
+  queries;
 * serve — one mixed query batch through ``Session.execute``, fused and dense
   device layouts, ``similar:`` / ``versions-of:`` over the mined index
   included.
@@ -22,10 +32,11 @@ Every answer is compared with the host-only session's, and each kernel is held
 against its plain PyTorch version on the card (integers and bools: tolerance
 0) at edge shapes and at the inputs the paths handed it.  Each phase prints one
 JSON line; any failure ends the run with a non-zero exit code.  The last line
-is ``{"ok": true, "device": {...}}``; the line before it lists every kernel
-with its launches on its path, its error against the plain version, its time,
-the plain version's time, the card's lower bound for the same work and, where
-one PyTorch call computes the same function, that call's time.
+is ``{"ok": true, "device": {...}}``, after the card's name and power limit; the
+line before those lists every kernel with its launches on its path, its error
+against the plain version, its time, the plain version's time, the card's
+lower bound for the same work and, where one PyTorch call computes the same
+function, that call's time.
 
 It imports ``torch``, ``numpy`` and ``repro_torch`` only.
 """
@@ -34,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -65,8 +77,18 @@ KERNEL_META = {
     "minhash_rows": {
         "route": "cuda", "source": "src/repro_torch/csrc/minhash_sig.cu",
         "replaces": "src/repro/kernels/minhash_sig/kernel.py:61"},
+    "anchor_probe": {
+        "route": "cuda", "source": "src/repro_torch/csrc/anchor_intersect.cu",
+        "replaces": "src/repro/kernels/anchor_intersect/kernel.py:107"},
+    "dgap_decode": {
+        "route": "cuda", "source": "src/repro_torch/csrc/dgap_decode.cu",
+        "replaces": "src/repro/kernels/dgap_decode/kernel.py:49"},
 }
 SERVE_KERNELS = ("anchor_probe_sliced", "decode_rows", "probe_rows")
+#: the inverted backends of the third slice; each serves through the dense layout
+NEW_BACKENDS = ("rice", "rice_runs", "simple9", "pfordelta", "opt_pfd", "elias_fano",
+                "ef_opt", "interpolative", "vbyte_lzma", "vbyte_cm", "vbyte_st",
+                "vbyte_cmb", "vbyte_stb", "vbyte_lzend")
 
 
 def emit(phase: str, **kw) -> None:
@@ -315,13 +337,23 @@ def minhash_edge_cases(dev, seed: int) -> list[dict]:
 def wrapper_refusals(dev) -> int:
     """The wrappers take contiguous int32 tensors on one CUDA device and raise
     on anything else; returns how many refusals were checked."""
-    from repro_torch.kernels.anchor_intersect.ops import anchor_probe_sliced
+    from repro_torch.kernels.anchor_intersect.ops import anchor_probe, anchor_probe_sliced
+    from repro_torch.kernels.dgap_decode.ops import dgap_decode
     from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
     from repro_torch.kernels.minhash_sig.ops import minhash_rows
 
     q = torch.zeros(4, dtype=torch.int32, device=dev)
     s = torch.zeros((4, 4), dtype=torch.int32, device=dev)
+    meta = torch.zeros(4, dtype=torch.int32, device="meta")
     cases = [
+        (TypeError, "int32", lambda: anchor_probe(q.long(), q)),
+        (ValueError, "lies on", lambda: anchor_probe(q, q.cpu())),
+        (ValueError, "contiguous", lambda: anchor_probe(q, q[::2])),
+        (ValueError, "dimension", lambda: anchor_probe(s, q)),
+        (TypeError, "int32", lambda: dgap_decode(q.long())),
+        (ValueError, "lies on", lambda: dgap_decode(meta)),
+        (ValueError, "contiguous", lambda: dgap_decode(q[::2])),
+        (ValueError, "dimension", lambda: dgap_decode(s)),
         (TypeError, "int32", lambda: anchor_probe_sliced(q.long(), q, q, q)),
         (ValueError, "lies on", lambda: anchor_probe_sliced(q, q.cpu(), q, q)),
         (ValueError, "contiguous", lambda: probe_rows(q, q[::2], q[::2], q[::2], q[::2])),
@@ -469,6 +501,265 @@ def kernels_at_main_path(name: str, inp: dict, reps: int, timed: bool) -> list[d
 
 
 # ----------------------------------------------------------------------
+# backends phase
+# ----------------------------------------------------------------------
+def backends_path(built: dict, batch, device: str) -> dict:
+    """The 14 inverted backends of the third slice, each built from the
+    non-positional index's posting lists (the collection is not tokenised
+    again) and served, each with the launch counts set to 0 just before its
+    session is built and read just after it served: ``Session.build(...,
+    device)`` re-anchors the store into the dense layout and answers the
+    batch's AND / ``top10:`` / ``docs:`` queries, which must equal the
+    host-only session's (the backend's own capability route).  Every list
+    must equal the source list."""
+    from repro_torch.core.registry import BuildSource, build_backend
+    from repro_torch.serving.session import Session
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    base = built["idx"]
+    lists = [base.store.get_list(i) for i in range(base.store.n_lists)]
+    source = BuildSource.from_lists(lists)
+    queries = [q for k, q in batch if k in ("and", "topk", "docs")]
+    rows = {}
+    for name in NEW_BACKENDS:
+        t0 = time.perf_counter()
+        store = build_backend(name, source)
+        t1 = time.perf_counter()
+        bad = [i for i, want in enumerate(lists) if not np.array_equal(store.get_list(i), want)]
+        require(not bad, f"{name}: {len(bad)} lists differ from the source, first {bad[:3]}")
+        t2 = time.perf_counter()
+        idx = dataclasses.replace(base, store=store, store_name=name, store_kw={},
+                                  similarity=None)
+        reset_launch_counts()
+        sess = Session.build(idx, device=device)
+        t3 = time.perf_counter()
+        got = sess.execute(queries)
+        sync()
+        t4 = time.perf_counter()
+        launches = launch_counts()
+        require(sess.server.layout == "dense",
+                f"the {name} server took the {sess.server.layout} layout, expected dense")
+        host = Session(idx)
+        want = host.execute(queries)
+        t5 = time.perf_counter()
+        wrong = [q for q, a, b in zip(queries, got, want) if not np.array_equal(a, b)]
+        require(not wrong, f"{len(wrong)} {name} answers differ from the host session's, "
+                f"first: {wrong[:3]}")
+        if device != "cpu":
+            require(launches["anchor_probe_sliced"] > 0,
+                    f"anchor_probe_sliced was not launched serving {name}: {launches}")
+            require(all(t.is_cuda for t in sess.server.arrays.values()),
+                    f"a {name} server array is not a CUDA tensor")
+        rows[name] = {"build_s": t1 - t0, "lists_equal": len(lists), "check_lists_s": t2 - t1,
+                      "size_in_bits": int(store.size_in_bits),
+                      "space_fraction": idx.space_fraction,
+                      "queries": len(queries), "answers_equal_host": len(queries),
+                      "nonempty_answers": sum(len(r) > 0 for r in want),
+                      "host_strategies": sorted({host.plan(q).strategy for q in queries}),
+                      "session_build_s": t3 - t2, "serve_s": t4 - t3,
+                      "host_session_s": t5 - t4, "launches": launches}
+        del sess, got
+    return rows
+
+
+# ----------------------------------------------------------------------
+# dgap_decode and anchor_probe phases: the public entry points
+# ----------------------------------------------------------------------
+#: edge lengths of the d-gap scan
+DGAP_LENGTHS = (0, 1, 2, 255, 256, 257, 4095, 4096, 4097, 65535, 65536, 65537, 2**24 + 13)
+#: edge shapes of the whole-array anchor probe
+PROBE_NQ = (0, 1, 255, 256, 257, 2**20)
+PROBE_NA = (0, 1, 2047, 2048, 2049)
+INT32_MAX = 2**31 - 1
+
+
+def _wrap_sub(a: torch.Tensor, b) -> torch.Tensor:
+    """``a - b`` in int32 wraparound, as int64 in [0, 2^32)."""
+    return (a.long() - b) & 0xFFFFFFFF
+
+
+def dgap_edge_cases(dev, seed: int) -> list[dict]:
+    """dgap_decode against its plain version at every edge length, on three
+    gap streams each: the full int32 range (negative gaps, wraps), positive
+    gaps below 2^16 (a long stream wraps) and gaps of 2^30 (wraps at once)."""
+    from repro_torch.kernels.dgap_decode.ops import dgap_decode, dgap_decode_torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for n in DGAP_LENGTHS:
+        streams = {
+            "full_range": torch.randint(-2**31, 2**31, (n,), generator=g, device=dev,
+                                        dtype=torch.int64).to(torch.int32),
+            "positive": torch.randint(1, 2**16, (n,), generator=g, device=dev,
+                                      dtype=torch.int32),
+            "huge": torch.full((n,), 2**30, dtype=torch.int32, device=dev)}
+        for kind, gaps in streams.items():
+            want = dgap_decode_torch(gaps)
+            mism, err = diff_stats(dgap_decode(gaps), want)
+            wraps = n > 1 and bool((gaps.long().cumsum(0) > INT32_MAX).any().item())
+            out.append({"kernel": "dgap_decode", "shape": {"n": n, "gaps": kind},
+                        "wraps": wraps, "mismatches": mism, "max_abs_err": err})
+    require(any(r["wraps"] for r in out), "no d-gap edge stream wraps")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def dgap_path(built: dict, dev, reps: int) -> dict:
+    """The d-gap decode entry point on the positional index's posting lists,
+    with the launch counts set to 0 just before and read just after: every
+    list of 4096 positions or more decoded from its d-gaps on its own, then
+    the whole concatenated d-gap stream in one call, every list recovered
+    from it by subtracting (int32 wraparound) the value just before its
+    offset.  All must equal the host's lists.  Then timed at the whole
+    stream beside the plain version, the bound and ``torch.cumsum``."""
+    from repro_torch.core.dgaps import to_dgaps
+    from repro_torch.kernels.dgap_decode.ops import dgap_decode, dgap_decode_torch
+
+    store = built["pidx"].store
+    lists = [store.get_list(i) for i in range(store.n_lists)]
+    lens = np.asarray([len(x) for x in lists], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    stream = np.concatenate([to_dgaps(x) for x in lists])
+    require(stream.max() <= INT32_MAX, "a d-gap does not fit int32")
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)  # noqa: E731
+    long_ids = [i for i in range(len(lists)) if lens[i] >= 4096]
+    inputs = {i: as_t(stream[offsets[i]:offsets[i + 1]]) for i in long_ids}
+    whole = as_t(stream)
+    reset_launch_counts()
+    decoded = {i: dgap_decode(g) for i, g in inputs.items()}
+    dec_whole = dgap_decode(whole)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    bad = [i for i, d in decoded.items() if not np.array_equal(d.cpu().numpy(), lists[i])]
+    require(not bad, f"{len(bad)} long lists decode differently from the host's, first {bad[:3]}")
+    # list k is S[o_k + m] - S[o_k - 1] - 1 where S = dec_whole + 1
+    off = torch.from_numpy(offsets).to(dev)
+    prev = torch.where(off[:-1] > 0, dec_whole[(off[:-1] - 1).clamp(min=0)].long() + 1, 0)
+    seg = torch.repeat_interleave(torch.arange(len(lists), device=dev),
+                                  torch.from_numpy(lens).to(dev))
+    recovered = _wrap_sub(dec_whole, prev[seg]).cpu().numpy()
+    wrong = [k for k in range(len(lists))
+             if not np.array_equal(recovered[offsets[k]:offsets[k + 1]], lists[k])]
+    require(not wrong, f"{len(wrong)} lists recovered from the whole stream differ")
+    running = np.cumsum(stream)
+    if dev.type == "cuda":
+        require(launches["dgap_decode"] == len(long_ids) + 1,
+                f"dgap_decode launches on its path: {launches}")
+    # the function, timed at the whole stream
+    mism, err = diff_stats(dgap_decode(whole), dgap_decode_torch(whole))
+    lib = lambda: torch.cumsum(whole, 0, dtype=torch.int32)  # noqa: E731
+    lib_agrees = bool(torch.equal(_wrap_sub(lib(), 1), _wrap_sub(dec_whole, 0)))
+    n = whole.numel()
+    b_ms, b_by = bound(8 * n, n)
+    row = {"kernel": "dgap_decode", "at": "dgap/positional-stream", "shape": {"n": n},
+           "mismatches": mism, "max_abs_err": err,
+           "library": "torch.cumsum(x, 0, dtype=torch.int32)", "library_agrees": lib_agrees,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "two_thirds_ceiling_ms": b_ms * 1.5}
+    if dev.type == "cuda":
+        row.update(ms=time_ms(lambda: dgap_decode(whole), reps),
+                   call_ms=time_ms(lambda: dgap_decode(whole), reps, preload=False),
+                   plain_ms=time_ms(lambda: dgap_decode_torch(whole), reps),
+                   library_ms=time_ms(lib, reps))
+    return {"lists": len(lists), "positions": int(n), "longest_list": int(lens.max()),
+            "long_lists_decoded_alone": len(long_ids),
+            "lists_recovered_from_whole_stream": len(lists),
+            "running_sum_max": int(running.max()), "wraps": bool(running.max() > INT32_MAX),
+            "launches": launches, "row": row}
+
+
+def anchor_probe_edge_cases(dev, seed: int) -> list[dict]:
+    """anchor_probe against its plain version at every (NQ, NA) edge shape:
+    sorted anchors with runs of duplicates, the top ones equal to 2^31 - 1
+    where NA > 2, queries below the first anchor, above the last, on
+    anchors and between them."""
+    from repro_torch.kernels.anchor_intersect.ops import anchor_probe, anchor_probe_torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)  # noqa: E731
+    out = []
+    for na in PROBE_NA:
+        anchors = np.sort(rng.integers(-10**6, 10**6, na))
+        if na > 8:
+            anchors[na // 3: na // 3 + 5] = anchors[na // 3]  # a run of duplicates
+        if na > 2:
+            anchors[-2:] = INT32_MAX
+        for nq in PROBE_NQ:
+            q = rng.integers(-10**6 - 5, 10**6 + 5, nq)
+            if na:
+                q[1::3] = rng.choice(anchors, len(q[1::3]))  # hits
+            q[::7] = -2**31  # below every anchor
+            q[3::11] = INT32_MAX - 1  # above every anchor below 2^31 - 1
+            args = (t(q), t(anchors))
+            got, want = anchor_probe(*args), anchor_probe_torch(*args)
+            mism, err = diff_stats(got, want)
+            out.append({"kernel": "anchor_probe", "shape": {"NQ": nq, "NA": na},
+                        "mismatches": mism, "max_abs_err": err,
+                        "hits": int(want[1].sum().item())})
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def anchor_probe_path(built: dict, dev, reps: int, n_query_lists: int = 4) -> dict:
+    """The anchor probe entry point on real positions, with the launch
+    counts set to 0 just before and read just after: the positional index's
+    longest list as the anchors; as the queries, every position of the next
+    few longest lists, and each of them less 1 (a phrase probe's shift: a
+    hit is the anchors' term followed by the query's).  ``idx`` must equal
+    ``np.searchsorted(..., side="right")`` and ``found`` ``np.isin``.  Then
+    timed beside the plain version, the bound and ``torch.searchsorted`` with
+    the ``found`` gather."""
+    from repro_torch.kernels.anchor_intersect.ops import anchor_probe, anchor_probe_torch
+
+    store = built["pidx"].store
+    by_len = sorted(range(store.n_lists), key=lambda i: -store.list_length(i))
+    anchors_np = store.get_list(by_len[0])
+    positions = np.concatenate([store.get_list(i) for i in by_len[1:1 + n_query_lists]])
+    queries_np = np.concatenate([positions, positions - 1])
+    anchors = torch.from_numpy(anchors_np.astype(np.int32)).to(dev)
+    queries = torch.from_numpy(queries_np.astype(np.int32)).to(dev)
+    reset_launch_counts()
+    idx, found = anchor_probe(queries, anchors)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    require(np.array_equal(idx.cpu().numpy(), np.searchsorted(anchors_np, queries_np,
+                                                              side="right")),
+            "anchor_probe idx differs from np.searchsorted(side='right')")
+    require(np.array_equal(found.cpu().numpy().astype(bool), np.isin(queries_np, anchors_np)),
+            "anchor_probe found differs from np.isin")
+    if dev.type == "cuda":
+        require(launches["anchor_probe"] == 1, f"anchor_probe launches on its path: {launches}")
+    args = (queries, anchors)
+    mism, err = diff_stats(anchor_probe(*args), anchor_probe_torch(*args))
+
+    def lib():
+        i = torch.searchsorted(anchors, queries, right=True)
+        return i, (i > 0) & (anchors[(i - 1).clamp(min=0)] == queries)
+
+    li, lf = lib()
+    lib_agrees = bool(torch.equal(li.to(torch.int32), idx)
+                      and torch.equal(lf.to(torch.int32), found))
+    nq, na = queries.numel(), anchors.numel()
+    steps = nq * int(np.ceil(np.log2(na + 1)))
+    b_ms, b_by = bound(12 * nq + 4 * min(na, steps), steps + nq)
+    row = {"kernel": "anchor_probe", "at": "anchor_probe/positional-lists",
+           "shape": {"NQ": nq, "NA": na}, "mismatches": mism, "max_abs_err": err,
+           "library": "torch.searchsorted(right=True) + the found gather",
+           "library_agrees": lib_agrees, "bound_ms": b_ms, "bound_by": b_by}
+    if dev.type == "cuda":
+        row.update(ms=time_ms(lambda: anchor_probe(*args), reps),
+                   call_ms=time_ms(lambda: anchor_probe(*args), reps, preload=False),
+                   plain_ms=time_ms(lambda: anchor_probe_torch(*args), reps),
+                   library_ms=time_ms(lib, reps))
+    return {"anchors": na, "queries": nq, "query_lists": n_query_lists,
+            "hits": int(found.sum().item()), "launches": launches, "row": row}
+
+
+# ----------------------------------------------------------------------
 # serve phase
 # ----------------------------------------------------------------------
 def make_batch(docs, idx, rng, per_cell: int) -> list[tuple[str, str]]:
@@ -508,21 +799,24 @@ def make_batch(docs, idx, rng, per_cell: int) -> list[tuple[str, str]]:
     return [out[i] for i in order]
 
 
-def launch_counts() -> dict:
-    from repro_torch.kernels.anchor_intersect.ops import anchor_probe_sliced
+def _wrappers() -> dict:
+    """Every kernel wrapper by its kernel's name (each counts its launches)."""
+    from repro_torch.kernels.anchor_intersect.ops import anchor_probe, anchor_probe_sliced
+    from repro_torch.kernels.dgap_decode.ops import dgap_decode
     from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
     from repro_torch.kernels.minhash_sig.ops import minhash_rows
-    return {"anchor_probe_sliced": anchor_probe_sliced.launches,
-            "decode_rows": decode_rows.launches, "probe_rows": probe_rows.launches,
-            "minhash_rows": minhash_rows.launches}
+    return {"anchor_probe_sliced": anchor_probe_sliced, "decode_rows": decode_rows,
+            "probe_rows": probe_rows, "minhash_rows": minhash_rows,
+            "anchor_probe": anchor_probe, "dgap_decode": dgap_decode}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels.anchor_intersect.ops import anchor_probe_sliced
-    from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
-    from repro_torch.kernels.minhash_sig.ops import minhash_rows
-    anchor_probe_sliced.launches = decode_rows.launches = probe_rows.launches = 0
-    minhash_rows.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def build_indexes(args, device: str) -> dict:
@@ -872,13 +1166,33 @@ def main() -> int:
     rlz = rlz_path(built, batch, "cuda")
     rlz_calls = rlz.pop("calls")
     emit("rlz", card=card, **rlz)
+    emit("backends", card=card, backends=backends_path(built, batch, "cuda"))
+
+    # the two public entry points of this slice, each against its plain version
+    # at edge shapes, then on its path (launch counts read around it) and timed
+    dev = torch.device("cuda")
+    entry = {}
+    for phase, name, edge_fn, path_fn in (
+            ("dgap", "dgap_decode", dgap_edge_cases, dgap_path),
+            ("anchor_probe", "anchor_probe", anchor_probe_edge_cases, anchor_probe_path)):
+        edges_here = edge_fn(dev, args.seed)
+        path = path_fn(built, dev, args.reps)
+        row = path.pop("row")
+        mism = sum(r["mismatches"] for r in edges_here) + row["mismatches"]
+        emit(phase, card=card, tolerance=0,
+             edge_cases=len(edges_here), mismatches=mism,
+             edge_mismatches=[r for r in edges_here if r["mismatches"]], path=path,
+             at_path=row)
+        require(mism == 0, f"{mism} elements differ between {name} and its plain version")
+        require(row["library_agrees"], f"the library yardstick disagrees with {name}")
+        entry[name] = {"row": row, "launches": path["launches"][name],
+                       "max_abs_err": max(r["max_abs_err"] for r in edges_here + [row])}
 
     # kernels, against their plain versions on the card: edge shapes, then what
     # a device step hands them on each path that launches one — both layouts,
     # both indexes, 2-term and 3-4-term batches, first and last window — and
     # what mining handed the signature kernel.  The 2-term first-window steps
     # and both signature calls are also timed.
-    dev = torch.device("cuda")
     edges = edge_cases(dev, args.seed) + minhash_edge_cases(dev, args.seed)
     refusals = wrapper_refusals(dev)
     measured = []
@@ -942,6 +1256,10 @@ def main() -> int:
                     "copy_ms": mh["mining/documents"]["copy_ms"], "at": "mining/documents",
                     "at_posting_lists": {k: mh["rlz/posting-lists"][k]
                                          for k in timing_keys + ("copy_ms",)}})
+    for name, e in entry.items():
+        kernels.append({"name": name, **KERNEL_META[name], "launches": e["launches"],
+                        "max_abs_err": e["max_abs_err"],
+                        **{k: e["row"][k] for k in timing_keys}, "at": e["row"]["at"]})
     require(len(kernels) == len(KERNEL_META), f"the kernels line lists {len(kernels)} "
             f"kernels, expected {len(KERNEL_META)}")
     emit("done", seconds=round(time.perf_counter() - t_start, 1))

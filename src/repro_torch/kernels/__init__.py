@@ -2,4 +2,24 @@
 PyTorch wrappers.  Each family keeps three files: ``ops.py`` (the wrapper,
 its launch count and the plain PyTorch version of the same function),
 ``ref.py`` (a NumPy oracle) and the ``.cu`` source.  Nothing here builds or
-loads a kernel at import: that happens inside the first launch."""
+loads a kernel at import: that happens inside the first launch.
+
+* dgap_decode      — device-wide prefix sum: posting-list decompression
+* anchor_intersect — anchor probes: whole-array searchsorted (``anchor_probe``)
+                     and the serving path's per-slice lower bound
+* fused_decode     — per-row bounded rule expansion (+ fused membership
+                     probe) for the fused device layout
+* minhash_sig      — batched MinHash signatures (version-structure mining)
+
+The public ops are the reference's index-side ones.  Its five model-side ops
+(``cin_layer``, ``embedding_bag``, ``flash_attention_tpu``, ``flash_decode``,
+``moe_gemm``) are not ported yet and are absent here.
+"""
+
+from .anchor_intersect.ops import anchor_probe
+from .dgap_decode.ops import dgap_decode
+from .fused_decode.ops import decode_rows, probe_rows
+from .minhash_sig.ops import hash_params, minhash_signatures
+
+__all__ = ["anchor_probe", "decode_rows", "dgap_decode", "hash_params",
+           "minhash_signatures", "probe_rows"]

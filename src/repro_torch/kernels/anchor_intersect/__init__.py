@@ -1,1 +1,1 @@
-"""Per-query lower bound inside a list's anchor slice (``csrc/anchor_intersect.cu``)."""
+"""Anchor probes: per-slice lower bound and whole-array searchsorted (``csrc/anchor_intersect.cu``)."""

@@ -36,6 +36,10 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # (q, lo, hi, anchors, out, nq, stream)
     "anchor_probe_sliced_launch": (_P, _P, _P, _P, _P, _L, _P),
+    # (q, anchors, idx, found, nq, na, stream)
+    "anchor_probe_launch": (_P, _P, _P, _P, _L, _L, _P),
+    # (gaps, out, workspace, workspace_len, n, stream)
+    "dgap_decode_launch": (_P, _P, _P, _L, _L, _P),
     # (pool, pool_n, ptr, base, lens, values, valid, rows, L, stream)
     "decode_rows_launch": (_P, _L, _P, _P, _P, _P, _P, _L, _I, _P),
     # (pool, pool_n, ptr, base, lens, targets, hit, rows, stream)
@@ -158,3 +162,11 @@ def require_int32(name: str, t, ndim: int = 1) -> None:
         raise ValueError(f"{name}: expected {ndim} dimension(s), got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_cuda(name: str, t) -> None:
+    """A wrapper takes the plain version for a CPU tensor and launches for a
+    CUDA one; a tensor on any other device is refused."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} lies on {t.device}: the kernel takes CUDA tensors "
+                         f"(a CPU tensor takes the plain version)")

@@ -9,6 +9,8 @@ import torch
 from repro.core import anchors as ref_anchors
 from repro.core.index import NonPositionalIndex as RefNonPositional
 from repro.core.index import PositionalIndex as RefPositional
+from repro.core.registry import backend_names as ref_backend_names
+from repro.core.registry import build_backend as ref_build_backend
 from repro.core.repair import RePairStore as RefRePairStore
 from repro.data import generate_collection as ref_generate_collection
 from repro.data.queries import sample_traffic as ref_sample_traffic
@@ -146,7 +148,8 @@ def test_from_store_keeps_store_state(rep_lists, build):
 
 
 @pytest.mark.parametrize("store", ["repair", "repair_skip", "repair_skip_cm",
-                                   "repair_skip_st", "vbyte"])
+                                   "repair_skip_st", "vbyte", "vbyte_cm", "elias_fano",
+                                   "rlcsa"])
 def test_indexes_same_vocab_and_lists(small_collection, store):
     docs = small_collection.docs[:16]
     a, b = NonPositionalIndex.build(docs, store=store), RefNonPositional.build(docs, store=store)
@@ -164,10 +167,18 @@ def test_indexes_same_vocab_and_lists(small_collection, store):
 
 
 def test_registry_holds_this_slice_only(rep_lists):
-    assert backend_names() == ["vbyte", "repair", "repair_skip", "repair_skip_cm",
-                               "repair_skip_st", "rlz"]
-    with pytest.raises(ValueError, match="registered backends: repair, repair_skip"):
-        build_backend("rlcsa", rep_lists)
+    """The port registers the reference's 24 backends, in its order."""
+    assert backend_names() == [
+        "vbyte", "rice", "rice_runs", "simple9", "pfordelta", "opt_pfd", "elias_fano",
+        "ef_opt", "interpolative", "vbyte_lzma", "vbyte_cm", "vbyte_st", "vbyte_cmb",
+        "vbyte_stb", "repair", "repair_skip", "repair_skip_cm", "repair_skip_st",
+        "vbyte_lzend", "rlz", "rlcsa", "wcsa", "lz77_idx", "lzend_idx"]
+    assert backend_names() == ref_backend_names()
+    with pytest.raises(ValueError, match="registered backends: ef_opt, elias_fano") as got:
+        build_backend("no_such_store", rep_lists)
+    with pytest.raises(ValueError) as want:
+        ref_build_backend("no_such_store", rep_lists)
+    assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="unexpected build kwargs"):
         build_backend("repair_skip", rep_lists, k=3)
     store = build_backend("repair_skip_cm", rep_lists, k=16)

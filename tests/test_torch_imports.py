@@ -37,7 +37,17 @@ def test_module_list_covers_the_slice():
                    "repro_torch.core.similarity.minhash",
                    "repro_torch.core.similarity.cluster", "repro_torch.core.rlz_store",
                    "repro_torch.core.codecs.bitio", "repro_torch.kernels.minhash_sig.ops",
-                   "repro_torch.kernels.minhash_sig.ref"):
+                   "repro_torch.kernels.minhash_sig.ref", "repro_torch.kernels",
+                   "repro_torch.kernels.dgap_decode.ops", "repro_torch.kernels.dgap_decode.ref",
+                   "repro_torch.kernels.anchor_intersect.ref",
+                   "repro_torch.core.backends", "repro_torch.core.sampled_store",
+                   "repro_torch.core.suffix", "repro_torch.core.lz",
+                   "repro_torch.core.lz_store", "repro_torch.core.selfindex",
+                   "repro_torch.core.selfindex.adapter", "repro_torch.core.selfindex.csa",
+                   "repro_torch.core.selfindex.lzidx", "repro_torch.core.selfindex.slp",
+                   *(f"repro_torch.core.codecs.{m}" for m in (
+                       "rice", "simple9", "pfordelta", "elias_fano", "interpolative",
+                       "elias", "lz_codecs"))):
         assert needed in MODULES, needed
 
 

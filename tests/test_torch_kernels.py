@@ -12,13 +12,17 @@ import torch
 from repro.core import anchors as ref_anchors
 from repro.core.repair import RePairStore as RefRePairStore
 from repro.kernels.anchor_intersect import ops as ref_ai_ops
+from repro.kernels.anchor_intersect.ref import anchor_probe_ref as ref_probe_oracle
 from repro.kernels.anchor_intersect.ref import anchor_probe_sliced_ref as ref_sliced_ref
+from repro.kernels.dgap_decode import ops as ref_dg_ops
 from repro.kernels.fused_decode import ops as ref_fd_ops
 from repro.kernels.fused_decode.ref import decode_rows_ref as ref_decode_ref
 from repro.kernels.fused_decode.ref import probe_rows_ref as ref_probe_ref
 from repro_torch.core import anchors as port_anchors
 from repro_torch.kernels.anchor_intersect import ops as ai_ops
-from repro_torch.kernels.anchor_intersect.ref import anchor_probe_sliced_ref
+from repro_torch.kernels.anchor_intersect.ref import anchor_probe_ref, anchor_probe_sliced_ref
+from repro_torch.kernels.dgap_decode import ops as dg_ops
+from repro_torch.kernels.dgap_decode.ref import dgap_decode_ref
 from repro_torch.kernels.fused_decode import ops as fd_ops
 from repro_torch.kernels.fused_decode.ref import decode_rows_ref, probe_rows_ref
 
@@ -224,9 +228,12 @@ def test_launch_counts_stay_zero_on_cpu():
 
     counts = lambda: (ai_ops.anchor_probe_sliced.launches,  # noqa: E731
                       fd_ops.decode_rows.launches, fd_ops.probe_rows.launches,
-                      mh_ops.minhash_rows.launches)
+                      mh_ops.minhash_rows.launches, ai_ops.anchor_probe.launches,
+                      dg_ops.dgap_decode.launches)
     before = counts()
     ai_ops.anchor_probe_sliced(t32([1]), t32([0]), t32([1]), t32([1]))
+    ai_ops.anchor_probe(t32([1, 5]), t32([1, 2, 3]))
+    dg_ops.dgap_decode(t32([1, 2, 3]))
     fd_ops.decode_rows(t32([1, 0]), t32([0]), t32([0]), t32([1]), 1)
     fd_ops.probe_rows(t32([1, 0]), t32([0]), t32([0]), t32([1]), t32([1]))
     mh_ops.minhash_rows(t32([[5, 6]]), t32([2]), t32([3]), t32([1]))
@@ -271,8 +278,130 @@ def test_kernel_sources_are_in_the_package():
     from repro_torch.kernels import cuda_build
 
     names = {p.name for p in cuda_build.CSRC_DIR.glob("*.cu")}
-    assert {"anchor_intersect.cu", "fused_decode.cu", "minhash_sig.cu",
+    assert {"anchor_intersect.cu", "fused_decode.cu", "minhash_sig.cu", "dgap_decode.cu",
             "common.cu"} <= names
     text = "".join(p.read_text() for p in cuda_build.CSRC_DIR.glob("*.cu"))
     for entry in cuda_build.SIGNATURES:
         assert f" {entry}(" in text, entry  # every bound entry point exists
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 255, 4095, 4096, 4097, 65535, 65536, 65537,
+                               131072 + 13])
+def test_dgap_decode_vs_jax_and_oracle(n):
+    """n over the port's 4096-value tile and the reference's 65,536-value
+    tile, ± 1, plus the n <= 1 shortcuts."""
+    rng = np.random.default_rng(4000 + n)
+    g = rng.integers(1, 2**20, n).astype(np.int32)
+    got = dg_ops.dgap_decode(t32(g))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (n,)
+    want = np.asarray(ref_dg_ops.dgap_decode(jnp.asarray(g), interpret=True))
+    assert want.dtype == np.int32 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), dgap_decode_ref(g) - 1)
+
+
+@pytest.mark.parametrize("case", ["wraps", "negative", "int64_input"])
+def test_dgap_decode_wraps_like_the_reference(case):
+    """70,000 gaps of 40,000 sum past 2^31: both sides wrap in int32; so do
+    negative gaps below -2^31.  An int64 input is cast to int32 first, as
+    the reference op casts."""
+    rng = np.random.default_rng(7)
+    if case == "wraps":
+        g = np.full(70_000, 40_000, np.int32)
+    elif case == "negative":
+        g = rng.integers(-2**31, 2**31, 70_001).astype(np.int32)
+    else:
+        g = rng.integers(-2**31, 2**31, 5000).astype(np.int64)
+    got = dg_ops.dgap_decode(torch.from_numpy(g))
+    want = np.asarray(ref_dg_ops.dgap_decode(jnp.asarray(g.astype(np.int32)),
+                                             interpret=True))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    if case == "wraps":
+        assert int(got[-1]) == (70_000 * 40_000 - 1) - 2**32
+    assert np.array_equal(got.numpy(), dgap_decode_ref(g.astype(np.int32)) - 1)
+
+
+def _probe_case(rng, nq, na, dups=False):
+    anchors = np.sort(rng.integers(0, 10**6, na)) if dups else \
+        np.unique(rng.integers(0, 10**6, na))
+    if dups and na > 4:
+        anchors[na // 2: na // 2 + 4] = anchors[na // 2]  # a run of equal anchors
+    half = rng.choice(anchors, nq // 2 + 1) if na else rng.integers(0, 10**6, nq // 2 + 1)
+    queries = np.concatenate([rng.integers(-5, 10**6 + 5, nq // 2), half])[:nq]
+    if nq > 3:
+        queries[:3] = [-2**31, 2**31 - 2, anchors[na // 2] if na else 0]
+    return queries.astype(np.int32), anchors.astype(np.int32)
+
+
+@pytest.mark.parametrize("nq,na,dups", [(1, 1, False), (7, 100, False), (300, 5000, False),
+                                        (1024, 2048, False), (257, 2049, True),
+                                        (300, 17, True)])
+def test_anchor_probe_vs_jax_and_oracles(nq, na, dups):
+    rng = np.random.default_rng(5000 + nq + na)
+    queries, anchors = _probe_case(rng, nq, na, dups)
+    idx, found = ai_ops.anchor_probe(t32(queries), t32(anchors))
+    assert idx.dtype == found.dtype == torch.int32
+    assert tuple(idx.shape) == tuple(found.shape) == (nq,)
+    jidx, jfound = ref_ai_ops.anchor_probe(jnp.asarray(queries), jnp.asarray(anchors),
+                                           interpret=True)
+    assert np.array_equal(idx.numpy(), np.asarray(jidx))
+    assert np.array_equal(found.numpy(), np.asarray(jfound))
+    ridx, rfound = ref_probe_oracle(jnp.asarray(queries), jnp.asarray(anchors))
+    assert np.array_equal(idx.numpy(), np.asarray(ridx))
+    assert np.array_equal(found.numpy(), np.asarray(rfound))
+    pidx, pfound = anchor_probe_ref(queries, anchors)
+    assert np.array_equal(idx.numpy(), pidx) and np.array_equal(found.numpy(), pfound)
+    assert np.array_equal(idx.numpy(), np.searchsorted(anchors, queries, side="right"))
+    assert np.array_equal(found.numpy().astype(bool), np.isin(queries, anchors))
+
+
+def test_anchor_probe_empty_inputs():
+    e = t32(np.zeros(0))
+    idx, found = ai_ops.anchor_probe(t32([3, -1, 7]), e)  # NA == 0
+    assert idx.tolist() == found.tolist() == [0, 0, 0]
+    assert idx.dtype == found.dtype == torch.int32
+    pidx, pfound = anchor_probe_ref([3, -1, 7], [])
+    assert pidx.tolist() == pfound.tolist() == [0, 0, 0]
+    idx, found = ai_ops.anchor_probe(e, t32([1, 2]))  # NQ == 0
+    assert idx.numel() == found.numel() == 0 and idx.dtype == torch.int32
+
+
+def test_new_wrappers_refuse_other_devices():
+    """A CPU tensor takes the plain version, a CUDA tensor the kernel; a
+    tensor on any other device is refused, and counts no launch."""
+    before = (ai_ops.anchor_probe.launches, dg_ops.dgap_decode.launches)
+    meta = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="lies on meta"):
+        dg_ops.dgap_decode(meta)
+    with pytest.raises(ValueError, match="lies on meta"):
+        ai_ops.anchor_probe(meta, meta)
+    assert before == (ai_ops.anchor_probe.launches, dg_ops.dgap_decode.launches)
+
+
+def test_package_exports_the_index_side_ops():
+    """``repro_torch.kernels`` exports the reference's index-side public ops
+    (the model-side five wait for their slice), and importing it builds and
+    loads nothing."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import repro.kernels as ref_kernels
+    import repro_torch.kernels as kernels
+
+    model_side = {"cin_layer", "embedding_bag", "flash_attention_tpu", "flash_decode",
+                  "moe_gemm"}
+    assert sorted(kernels.__all__) == sorted(set(ref_kernels.__all__) - model_side)
+    for name in kernels.__all__:
+        assert callable(getattr(kernels, name)), name
+    assert kernels.anchor_probe is ai_ops.anchor_probe
+    assert kernels.dgap_decode is dg_ops.dgap_decode
+    src = Path(__file__).resolve().parent.parent / "src"
+    code = ("import sys, repro_torch.kernels as k\n"
+            "from repro_torch.kernels import cuda_build\n"
+            "assert cuda_build._lib is None and not cuda_build.build_info\n"
+            "assert 'jax' not in sys.modules\n"
+            "print(len(k.__all__))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(src), "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "6"

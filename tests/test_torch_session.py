@@ -16,7 +16,7 @@ from repro_torch.data.queries import sample_traffic
 from repro_torch.serving.plan import parse_query
 from repro_torch.serving.session import Session
 
-STORES = ("repair_skip", "repair", "vbyte")
+STORES = ("repair_skip", "repair", "vbyte", "vbyte_cm", "elias_fano")
 
 
 @pytest.fixture(scope="module")
