@@ -26,11 +26,24 @@ launch counts set to 0 just before it and read just after:
   queries;
 * serve — one mixed query batch through ``Session.execute``, fused and dense
   device layouts, ``similar:`` / ``versions-of:`` over the mined index
-  included.
+  included;
+* lm_serve — LM serving of qwen3-8b at full width (depth cut only by
+  ``--lm-layers``), random bf16 weights drawn on the card: 4 prompts of 2,048
+  tokens from ``lm_batches`` prefilled through ``make_lm_prefill_step`` (the
+  ``flash_attention_tpu`` kernel, once per layer), the cache padded, then 32
+  greedy steps through ``make_lm_decode_step`` (``flash_decode``, once per
+  layer per step); the same model through the plain attention path,
+  teacher-forced on the kernel run's tokens, must give logits within
+  ``LM_LOGIT_TOL`` and the same greedy tokens but where the plain path's
+  logit of the kernel's token lies within one bf16 step of its maximum.
 
 Every answer is compared with the host-only session's, and each kernel is held
-against its plain PyTorch version on the card (integers and bools: tolerance
-0) at edge shapes and at the inputs the paths handed it.  Each phase prints one
+against its plain PyTorch version on the card at edge shapes and at the inputs
+the paths handed it: the six integer kernels with tolerance 0, the two
+attention kernels with an elementwise limit per kernel and output dtype
+(``ATTENTION_TOL``: float32 sums in another order; a bf16 output one rounding
+apart), their path inputs widened to float32 as well.  float32 matrix
+products run without TF32.  Each phase prints one
 JSON line; any failure ends the run with a non-zero exit code.  The last line
 is ``{"ok": true, "device": {...}}``, after the card's name and power limit; the
 line before those lists every kernel with its launches on its path, its error
@@ -47,6 +60,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -59,10 +73,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published peaks of one H100 SXM (NVIDIA data sheet): device memory rate, and
-# the float32 rate outside the tensor cores, taken here for int32 ALU work
+# published peaks of one H100 SXM (NVIDIA data sheet): device memory rate, the
+# float32 rate outside the tensor cores (taken too for int32 ALU work), and the
+# dense bf16 tensor-core rate (the peak for bf16 attention)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 KERNEL_META = {
     "anchor_probe_sliced": {
@@ -83,8 +99,38 @@ KERNEL_META = {
     "dgap_decode": {
         "route": "cuda", "source": "src/repro_torch/csrc/dgap_decode.cu",
         "replaces": "src/repro/kernels/dgap_decode/kernel.py:49"},
+    "flash_attention_tpu": {
+        "route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:83"},
+    "flash_decode": {
+        "route": "cuda", "source": "src/repro_torch/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode/kernel.py:84"},
 }
+#: the kernels whose outputs are integers or bools, held to tolerance 0
+INTEGER_KERNELS = ("anchor_probe_sliced", "decode_rows", "probe_rows", "minhash_rows",
+                   "anchor_probe", "dgap_decode")
+#: the attention kernels' limits against their plain versions, by kernel and
+#: output dtype, elementwise: |got - want| <= rel * |want| + abs.  Both sides
+#: widen their inputs to float32 and compute in float32; they differ only in
+#: the order of their float32 sums, which moves an output (a weighted mean of
+#: v rows) by well under ATTENTION_F32_ABS at these magnitudes (|v| up to ~5
+#: at the edge shapes; the path's own v at qwen3-8b widths).  A bf16 output is
+#: one rounding of such a float32 value, so the two may round to neighbours:
+#: one bf16 step is at most 2^-7 of the value (8 significant bits), plus the
+#: float32 difference where the value is near 0.
+ATTENTION_F32_ABS = 1e-5
+ATTENTION_TOL = {name: {torch.float32: (0.0, ATTENTION_F32_ABS),
+                        torch.bfloat16: (2.0 ** -7, ATTENTION_F32_ABS)}
+                 for name in ("flash_attention_tpu", "flash_decode")}
 SERVE_KERNELS = ("anchor_probe_sliced", "decode_rows", "probe_rows")
+#: the lm_serve phase's request: the model (full width), prompts per batch,
+#: tokens per prompt and greedy decode steps
+LM_CONFIG = "qwen3-8b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+#: its bound on |kernel logits - plain logits| for the bf16 model: the
+#: reference's own bf16 tolerance for decode against forward
+#: (tests/test_models.py:70)
+LM_LOGIT_TOL = 0.15
 #: the inverted backends of the third slice; each serves through the dense layout
 NEW_BACKENDS = ("rice", "rice_runs", "simple9", "pfordelta", "opt_pfd", "elias_fano",
                 "ef_opt", "interpolative", "vbyte_lzma", "vbyte_cm", "vbyte_st",
@@ -134,11 +180,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 2, preload: bool = True) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+def bound(bytes_moved: int, ops: int, peak_ops: float = PEAK_OPS_PER_S) -> tuple[float, str]:
     """Least time (ms) the card could take: the larger of bytes over the
-    memory rate and operations over the peak rate, and which one it is."""
+    memory rate and operations over the peak rate for their type, and which
+    one it is."""
     by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_OPS_PER_S * 1e3
+    by_ops = ops / peak_ops * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -335,16 +382,23 @@ def minhash_edge_cases(dev, seed: int) -> list[dict]:
 
 
 def wrapper_refusals(dev) -> int:
-    """The wrappers take contiguous int32 tensors on one CUDA device and raise
-    on anything else; returns how many refusals were checked."""
+    """The index kernels' wrappers take contiguous int32 tensors on one CUDA
+    device, the attention kernels' float32 / bf16 tensors of the head dims
+    they are built for, and each raises on anything else; returns how many
+    refusals were checked."""
     from repro_torch.kernels.anchor_intersect.ops import anchor_probe, anchor_probe_sliced
     from repro_torch.kernels.dgap_decode.ops import dgap_decode
+    from repro_torch.kernels.flash_attention.ops import flash_attention_tpu
+    from repro_torch.kernels.flash_decode.ops import flash_decode
     from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
     from repro_torch.kernels.minhash_sig.ops import minhash_rows
 
     q = torch.zeros(4, dtype=torch.int32, device=dev)
     s = torch.zeros((4, 4), dtype=torch.int32, device=dev)
     meta = torch.zeros(4, dtype=torch.int32, device="meta")
+    a = torch.zeros((2, 8, 4, 32), device=dev)  # (B, T or S, heads, hd)
+    a48 = torch.zeros((2, 8, 4, 48), device=dev)
+    wide = torch.zeros((2, 8, 34, 64), device=dev)[..., :32]  # 34 heads, strided
     cases = [
         (TypeError, "int32", lambda: anchor_probe(q.long(), q)),
         (ValueError, "lies on", lambda: anchor_probe(q, q.cpu())),
@@ -362,6 +416,19 @@ def wrapper_refusals(dev) -> int:
         (ValueError, "lies on", lambda: minhash_rows(s, q.cpu(), q, q)),
         (ValueError, "contiguous", lambda: minhash_rows(s.t(), q, q, q)),
         (ValueError, "rows", lambda: minhash_rows(s, q[:3], q, q)),
+        (TypeError, "float32 or bfloat16", lambda: flash_attention_tpu(a.half(), a, a)),
+        (TypeError, "one dtype", lambda: flash_attention_tpu(a, a.bfloat16(), a)),
+        (ValueError, "head_dim", lambda: flash_attention_tpu(a48, a48, a48)),
+        (ValueError, "lies on", lambda: flash_attention_tpu(a, a.cpu(), a)),
+        (ValueError, "contiguous", lambda: flash_attention_tpu(wide[..., ::2], a, a)),
+        (NotImplementedError, "no backward", lambda: flash_attention_tpu(
+            a.clone().requires_grad_(), a, a)),
+        (TypeError, "int32", lambda: flash_decode(a[:, :1], a, a, q[:2].long())),
+        (TypeError, "one cache dtype", lambda: flash_decode(a[:, :1], a, a.bfloat16(),
+                                                             q[:2])),
+        (ValueError, "at most 16", lambda: flash_decode(wide[:, :1], a[..., :1, :], a[..., :1, :],
+                                                        q[:2])),
+        (ValueError, "lies on", lambda: flash_decode(a[:, :1], a, a, q[:2].cpu())),
     ]
     before = launch_counts()
     for exc, text, call in cases:
@@ -760,6 +827,489 @@ def anchor_probe_path(built: dict, dev, reps: int, n_query_lists: int = 4) -> di
 
 
 # ----------------------------------------------------------------------
+# lm_serve phase: prefill + greedy decode of an LM, and the attention kernels
+# ----------------------------------------------------------------------
+#: edge shapes of the attention kernels: head dims, lengths (T == S for
+#: flash_attention, cache rows S for flash_decode), query heads per KV head
+ATTN_HEAD_DIMS = (16, 32, 64, 128)
+ATTN_LENGTHS = (1, 7, 300, 513)
+DECODE_LENGTHS = (1, 7, 300, 513, 2080)
+ATTN_GROUPS = (1, 3, 4)
+
+
+def _tolerance(kernel: str) -> dict:
+    return {str(d).split(".")[-1]: {"rel": rel, "abs": floor}
+            for d, (rel, floor) in ATTENTION_TOL[kernel].items()}
+
+
+def _attention_row(rows: list, kernel: str, shape: dict, got, want) -> None:
+    """One comparison of an attention kernel with its plain version: the max
+    abs difference, the largest share of its elementwise limit any element
+    takes (``ATTENTION_TOL`` for the output's dtype), and whether every
+    element is within it (shapes and dtypes equal, values finite)."""
+    rel, floor = ATTENTION_TOL[kernel][want.dtype]
+    ok = got.shape == want.shape and got.dtype == want.dtype
+    err = used = 0.0
+    if ok and want.numel():
+        g, w = got.float(), want.float()
+        diff = (g - w).abs()
+        err = float(diff.max())
+        used = float((diff / (rel * w.abs() + floor)).max())
+        ok = bool(torch.isfinite(g).all()) and used <= 1.0
+    rows.append({"kernel": kernel, "shape": shape, "dtype": str(want.dtype).split(".")[-1],
+                 "max_abs_err": err, "limit_used": used, "within_tolerance": ok})
+
+
+def attention_edge_cases(dev, seed: int) -> list[dict]:
+    """Both attention kernels against their plain versions at edge shapes:
+    float32 and bf16, every head dim the kernels are built for, lengths that
+    are no multiple of a tile, causal and not, 1, 3 and 4 query heads per KV
+    head; decode at positions 0, S - 1 and a random one, with a float32 q
+    meeting a bf16 cache too.  Besides: the prefill's own shape (T = S =
+    ``LM_PROMPT``, 8 KV heads of 4 query heads, hd 128), q read by strides (a
+    head slice of a wider tensor), a causal call with T != S, and a layer's
+    slice of a stacked cache read in place."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_torch, flash_attention_tpu
+    from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda shape, dtype: torch.randn(  # noqa: E731
+        shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+    out: list = []
+    kh = 2
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in ATTN_HEAD_DIMS:
+            for t in ATTN_LENGTHS:
+                for grp in ATTN_GROUPS:
+                    b = 2 if t < 300 else 1
+                    q = randn((b, t, kh * grp, hd), dtype)
+                    k, v = randn((b, t, kh, hd), dtype), randn((b, t, kh, hd), dtype)
+                    for causal in (True, False):
+                        _attention_row(out, "flash_attention_tpu",
+                                       {"B": b, "T": t, "H": kh * grp, "K": kh, "hd": hd,
+                                        "causal": causal},
+                                       flash_attention_tpu(q, k, v, causal),
+                                       flash_attention_torch(q, k, v, causal))
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn((1, LM_PROMPT, 32, 128), dtype)
+        k, v = randn((1, LM_PROMPT, 8, 128), dtype), randn((1, LM_PROMPT, 8, 128), dtype)
+        for causal in (True, False):
+            _attention_row(out, "flash_attention_tpu",
+                           {"B": 1, "T": LM_PROMPT, "H": 32, "K": 8, "hd": 128,
+                            "causal": causal},
+                           flash_attention_tpu(q, k, v, causal),
+                           flash_attention_torch(q, k, v, causal))
+        del q, k, v
+    wide = randn((2, 100, 12, 64), torch.bfloat16)
+    q, k, v = wide[:, :, 2:10], randn((2, 100, 2, 64), torch.bfloat16), randn(
+        (2, 100, 2, 64), torch.bfloat16)
+    _attention_row(out, "flash_attention_tpu", {"B": 2, "T": 100, "H": 8, "K": 2, "hd": 64,
+                                                "causal": True, "q": "strided heads"},
+                   flash_attention_tpu(q, k, v), flash_attention_torch(q, k, v))
+    q, k, v = (randn((2, n, h, 32), torch.float32) for n, h in ((64, 4), (200, 2), (200, 2)))
+    for causal in (True, False):
+        _attention_row(out, "flash_attention_tpu", {"B": 2, "T": 64, "S": 200, "H": 4, "K": 2,
+                                                    "hd": 32, "causal": causal},
+                       flash_attention_tpu(q, k, v, causal), flash_attention_torch(q, k, v, causal))
+    for q_dtype, kv_dtype in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                              (torch.float32, torch.bfloat16)):
+        for hd in ATTN_HEAD_DIMS:
+            for s in DECODE_LENGTHS:
+                for grp in ATTN_GROUPS:
+                    q = randn((3, 1, kh * grp, hd), q_dtype)
+                    kc, vc = randn((3, s, kh, hd), kv_dtype), randn((3, s, kh, hd), kv_dtype)
+                    pos = torch.tensor([0, s - 1, int(torch.randint(0, s, (1,), generator=g,
+                                                                    device=dev))],
+                                       dtype=torch.int32, device=dev)
+                    _attention_row(out, "flash_decode",
+                                   {"B": 3, "S": s, "H": kh * grp, "K": kh, "hd": hd,
+                                    "q": str(q_dtype).split(".")[-1],
+                                    "cache": str(kv_dtype).split(".")[-1],
+                                    "positions": pos.tolist()},
+                                   flash_decode(q, kc, vc, pos), flash_decode_torch(q, kc, vc, pos))
+    stacked = randn((2, 2, 3, 64, 2, 32), torch.bfloat16)
+    q, pos = randn((3, 1, 8, 32), torch.float32), torch.tensor([63, 5, 40], dtype=torch.int32,
+                                                              device=dev)
+    kc, vc = stacked[1, 0], stacked[1, 1]
+    _attention_row(out, "flash_decode", {"B": 3, "S": 64, "H": 8, "K": 2, "hd": 32,
+                                         "cache": "a layer's slice of a stacked cache"},
+                   flash_decode(q, kc, vc, pos), flash_decode_torch(q, kc, vc, pos))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+@contextlib.contextmanager
+def recorded_attention(keep: dict):
+    """Put a recorder in front of the transformer's two attention kernel
+    wrappers for the time of the block.  The calls whose index (per kernel,
+    from 0) is in ``keep[name]`` have their arguments cloned into the yielded
+    ``{name: {index: (args, kwargs)}}``; the launch counts stay on the
+    wrappers themselves."""
+    from repro_torch.models import transformer as tf
+
+    seen = {name: {} for name in keep}
+    calls = {name: 0 for name in keep}
+    originals = {name: getattr(tf, name) for name in keep}
+
+    def recorder(name):
+        def rec(*a, **kw):
+            if calls[name] in keep[name]:
+                seen[name][calls[name]] = (
+                    tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a), kw)
+            calls[name] += 1
+            return originals[name](*a, **kw)
+        return rec
+
+    for name in keep:
+        setattr(tf, name, recorder(name))
+    try:
+        yield seen
+    finally:
+        for name in keep:
+            setattr(tf, name, originals[name])
+
+
+@contextlib.contextmanager
+def reordered_plain_attention():
+    """The model's plain attention with its float32 sums in another order, for
+    the time of the block: prefill KV blocks of 512 keys (not
+    ``min(1024, T)``), and decode through ``flash_decode_torch`` (one
+    sentinel-masked softmax) in place of ``layers.decode_attention``."""
+    from repro_torch.kernels.flash_decode.ops import flash_decode_torch
+    from repro_torch.models import transformer as tf
+
+    flash, decode = tf.flash_attention, tf.decode_attention
+    tf.flash_attention = lambda q, k, v, causal, block_kv: flash(q, k, v, causal, 512)
+    tf.decode_attention = flash_decode_torch
+    try:
+        yield
+    finally:
+        tf.flash_attention, tf.decode_attention = flash, decode
+
+
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 numbers at magnitude ``|x|`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def decode_host_and_device(decode, params, tokens: list, step_pos, cache,
+                           traced: int = 3) -> dict:
+    """Where a decode step's time goes, on a card: the steps of the run
+    again (same tokens at the same positions, so the cache keeps its
+    values), as they are and with the host waiting for the card before each
+    step (what a host-side position check costs), in the order A B B A; then
+    ``traced`` steps under ``torch.profiler`` (device activity only): kernel
+    time and kernels per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(n: int, wait: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            pos = step_pos(i)
+            if wait:
+                bool((pos < 0).any())
+            decode(params, tokens[i][:, None].to(torch.int32), pos, cache)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    n = len(tokens) - 1
+    order = [("no_wait", False), ("wait", True), ("wait", True), ("no_wait", False)]
+    ab = [(name, run(n, wait)) for name, wait in order]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(traced, False)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / traced / 1e3
+    attn = sum(e.self_device_time_total for e in kernels
+               if "flash_decode" in e.key) / traced / 1e3
+    require(busy > 0, "torch.profiler saw no device time in the decode steps")
+    step_ms = statistics.median(ms for name, ms in ab if name == "no_wait")
+    return {"ms_per_step_abba": ab, "device_busy_ms_per_step": busy,
+            "flash_decode_ms_per_step": attn,
+            "device_ops_per_step": sum(e.count for e in kernels) / traced,
+            "device_idle_share": 1 - busy / step_ms,
+            "what": f"the run's {n} steps again, without and with a host wait per "
+                    f"step (A B B A); device time from torch.profiler over {traced} "
+                    f"steps against the median step without waits"}
+
+
+def lm_serve_path(args, dev) -> tuple[dict, dict]:
+    """The LM serving path at full width: ``LM_CONFIG`` (depth cut to
+    ``args.lm_layers`` when given) with random bf16 weights drawn on ``dev``
+    from ``args.seed``, ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens from
+    ``lm_batches`` prefilled through ``make_lm_prefill_step``, the cache
+    padded by ``LM_NEW`` rows, then ``LM_NEW`` greedy steps through
+    ``make_lm_decode_step`` — the kernels on a card, with the
+    launch counts set to 0 just before and read just after.  Then the same
+    model through the plain path (``attention="torch"``), teacher-forced on
+    the kernel run's tokens: its prefill and step logits must be within
+    ``LM_LOGIT_TOL`` of the kernel run's, and its greedy tokens equal but at
+    ties (within one bf16 step, :func:`bf16_step`).
+    Returns the phase's line and what the path handed each kernel (the first
+    prefill call, and the first call of the last decode step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipelines import lm_batches
+    from repro_torch.models import steps
+
+    on_gpu = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_gpu else (lambda: None)
+    cfg = get_config(LM_CONFIG)
+    if args.lm_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.lm_layers)
+    b, t, new, n_layers = LM_BATCH, LM_PROMPT, LM_NEW, cfg.n_layers
+    if on_gpu:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = steps.init_model_params(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                                     dev)
+    sync()
+    t1 = time.perf_counter()
+    prompts = next(lm_batches(cfg, b, t, seed=args.seed))["tokens"]
+    tokens = torch.from_numpy(prompts).to(dev)
+    t2 = time.perf_counter()
+    prefill, decode = steps.make_lm_prefill_step(cfg), steps.make_lm_decode_step(cfg)
+    plain_prefill = steps.make_lm_prefill_step(cfg, attention="torch")
+    plain_decode = steps.make_lm_decode_step(cfg, attention="torch")
+    pad = lambda c: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, new))  # noqa: E731
+    step_pos = lambda i: torch.full((b,), t + i, dtype=torch.int32, device=dev)  # noqa: E731
+
+    # warm-up of both paths on a short prompt (library handles, allocator)
+    for pf, dc in ((prefill, decode), (plain_prefill, plain_decode)):
+        lg, c = pf(params, tokens[:1, :16])
+        dc(params, lg.argmax(-1)[:, None].to(torch.int32),
+           torch.full((1,), 16, dtype=torch.int32, device=dev), torch.nn.functional.pad(
+               c, (0, 0, 0, 0, 0, 1)))
+    del lg, c
+    sync()
+
+    keep = {"flash_attention_tpu": {0}, "flash_decode": {(new - 1) * n_layers}}
+    reset_launch_counts()
+    with recorded_attention(keep) as seen:
+        t3 = time.perf_counter()
+        logits, cache = prefill(params, tokens)
+        sync()
+        t4 = time.perf_counter()
+        cache = pad(cache)
+        sync()
+        t5 = time.perf_counter()
+        tok = logits.argmax(-1)
+        out_tokens, out_logits = [tok], [logits]
+        for i in range(new):
+            logits, cache = decode(params, tok[:, None].to(torch.int32), step_pos(i), cache)
+            tok = logits.argmax(-1)
+            out_tokens.append(tok)
+            out_logits.append(logits)
+        sync()
+        t6 = time.perf_counter()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_gpu else None
+    cache_shape, cache_bytes = list(cache.shape), cache.numel() * cache.element_size()
+    split = (decode_host_and_device(decode, params, out_tokens, step_pos, cache)
+             if on_gpu else None)
+    del cache
+
+    # the plain path, teacher-forced on the kernel run's tokens; then, as a
+    # control, the plain path again with its float32 sums taken in another
+    # order (prefill KV blocks of 512 keys, the kernel's plain decode)
+    def teacher_forced() -> list:
+        p_logits, p_cache = plain_prefill(params, tokens)
+        logits_by_step = [p_logits]
+        p_cache = pad(p_cache)
+        for i in range(new):
+            p_logits, p_cache = plain_decode(params, out_tokens[i][:, None].to(torch.int32),
+                                             step_pos(i), p_cache)
+            logits_by_step.append(p_logits)
+        sync()
+        return logits_by_step
+
+    if on_gpu:
+        torch.cuda.empty_cache()
+    before_plain = launch_counts()
+    t7 = time.perf_counter()
+    plain = teacher_forced()
+    t8 = time.perf_counter()
+    plain_launches = {k: n - before_plain[k] for k, n in launch_counts().items()}
+    with reordered_plain_attention():
+        control = teacher_forced()
+    errs = [float((a.float() - w.float()).abs().max()) for a, w in zip(out_logits, plain)]
+    control_errs = [float((a.float() - w.float()).abs().max()) for a, w in zip(control, plain)]
+    control_differ = sum(int(w[r].float().argmax()) != int(c[r].float().argmax())
+                         for c, w in zip(control, plain) for r in range(b))
+    scale = max(float(w.float().abs().max()) for w in plain)
+    # (step, row, how far the plain logit of the kernel's token lies below the
+    # plain maximum, one bf16 step at that maximum)
+    top2 = [w.float().topk(2, dim=-1).values for w in plain]
+    differ = [(i, r, float(top2[i][r, 0] - w[r].float()[out_tokens[i][r]]),
+               bf16_step(float(top2[i][r, 0])))
+              for i, w in enumerate(plain)
+              for r in range(b) if int(w[r].float().argmax()) != int(out_tokens[i][r])]
+    # tokens where the exemption could apply: plain best two within one step
+    near_ties = sum(float(x[r, 0] - x[r, 1]) <= bf16_step(float(x[r, 0]))
+                    for x in top2 for r in range(b))
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in out_logits + plain)
+    del params
+    if on_gpu:
+        torch.cuda.empty_cache()
+
+    require(finite, "non-finite logits on the LM serving path")
+    require(all(tuple(x.shape) == (b, cfg.vocab_size) for x in out_logits + plain),
+            "logits of the wrong shape on the LM serving path")
+    if on_gpu:
+        want = {name: 0 for name in launches}
+        want.update(flash_attention_tpu=n_layers, flash_decode=n_layers * new)
+        require(launches == want, f"kernel launches on the lm_serve path: {launches}, "
+                f"expected {want}")
+        require(not any(plain_launches.values()), "the plain path launched a kernel")
+    line = {
+        "config": {k: getattr(cfg, k) for k in (
+            "name", "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+            "vocab_size", "qk_norm", "rope_theta", "dtype")},
+        "full_depth": get_config(LM_CONFIG).n_layers,
+        "params": cfg.n_params() + (2 * cfg.head_dim * n_layers if cfg.qk_norm else 0),
+        "weight_bytes": 2 * cfg.n_params(),
+        "batch": b, "prompt_tokens": t, "new_tokens": new,
+        "cache_shape": cache_shape, "cache_bytes": cache_bytes,
+        "init_s": t1 - t0, "prompts_s": t2 - t1,
+        "prefill_s": t4 - t3, "prefill_tokens_per_s": b * t / (t4 - t3),
+        "pad_cache_s": t5 - t4,
+        "decode_s": t6 - t5, "decode_ms_per_step": (t6 - t5) / new * 1e3,
+        "decode_tokens_per_s": b * new / (t6 - t5), "decode_step_split": split,
+        "max_memory_allocated": peak, "launches": launches,
+        "plain_path": {"prefill_and_decode_s": t8 - t7, "launches": plain_launches},
+        "control": {"what": "the plain path with prefill KV blocks of 512 keys and the "
+                            "kernel's plain decode, against the plain path",
+                    "logits_max_abs_err": max(control_errs),
+                    "greedy_tokens_differ": control_differ},
+        "logits_max_abs_err": max(errs), "logits_max_abs_err_by_step": errs,
+        "logits_max_abs": scale, "logits_tolerance": LM_LOGIT_TOL,
+        "greedy_tokens": b * (new + 1), "tokens_equal": b * (new + 1) - len(differ),
+        "tokens_differ_at": differ, "near_ties": near_ties,
+        "near_tie_share": near_ties / (b * (new + 1)),
+        "first_tokens": [x.tolist() for x in out_tokens[:3]],
+    }
+    require(max(errs) <= LM_LOGIT_TOL,
+            f"kernel and plain logits differ by {max(errs)} > {LM_LOGIT_TOL}")
+    # Both paths round bf16 logits (0.031 apart at 4 <= |x| < 8) from float32
+    # sums taken in another order, so where the plain path's best two logits
+    # tie, the kernel path may take the other one.  A greedy token may differ
+    # only there: its plain logit at most one bf16 step below the plain maximum.
+    far = [d for d in differ if d[2] > d[3]]
+    require(not far, f"{len(far)} greedy tokens differ between the kernel and the plain "
+            f"path away from a near-tie (step, row, plain gap, bound): {far[:5]}")
+    return line, seen
+
+
+def attention_at_path_f32(seen: dict) -> list[dict]:
+    """Both attention kernels against their plain versions at the inputs the
+    lm_serve path handed them, widened to float32 (the bf16 path's own limit
+    is one bf16 rounding; float32 outputs hold the kernels to their float32
+    sums): the prefill call, the decode call, and the decode call with a
+    float32 q meeting the path's bf16 cache."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_torch, flash_attention_tpu
+    from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
+
+    rows: list = []
+    (args, kw), = seen["flash_attention_tpu"].values()
+    q, k, v = (x.float() for x in args)
+    causal = kw.get("causal", True)
+    b, t, h, hd = q.shape
+    _attention_row(rows, "flash_attention_tpu",
+                   {"B": b, "T": t, "H": h, "K": k.shape[2], "hd": hd, "causal": causal,
+                    "at": "lm_serve/prefill, layer 0, widened to float32"},
+                   flash_attention_tpu(q, k, v, causal), flash_attention_torch(q, k, v, causal))
+    del q, k, v
+    (args, kw), = seen["flash_decode"].values()
+    q, kc, vc, pos = args
+    q = q.float()
+    for cache in ("float32", "bfloat16"):
+        if cache == "float32":
+            kc, vc = kc.float(), vc.float()
+        else:
+            kc, vc = args[1], args[2]
+        _attention_row(rows, "flash_decode",
+                       {"B": q.shape[0], "S": kc.shape[1], "H": q.shape[2], "K": kc.shape[2],
+                        "hd": q.shape[3], "q": "float32", "cache": cache,
+                        "at": "lm_serve/last decode step, layer 0, q widened to float32"},
+                       flash_decode(q, kc, vc, pos), flash_decode_torch(q, kc, vc, pos))
+    return rows
+
+
+def attention_at_path(seen: dict, reps: int, on_gpu: bool) -> list[dict]:
+    """Each attention kernel at the inputs the lm_serve path handed it (the
+    first prefill layer; the first layer of the last decode step) against its
+    plain version; on a card timed beside the plain version, the bound and
+    ``scaled_dot_product_attention`` (causal, or with the length mask),
+    which the port never calls."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_torch, flash_attention_tpu
+    from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    size = lambda x: x.numel() * x.element_size()  # noqa: E731
+    rows = []
+    (args, kw), = seen["flash_attention_tpu"].values()
+    q, k, v = args
+    causal = kw.get("causal", True)
+    b, t, h, hd = q.shape
+    s = k.shape[1]
+    got = flash_attention_tpu(q, k, v, causal)
+    keys = (sum(min(i + 1, s) for i in range(t)) if causal else t * s) * b * h
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_OPS_PER_S
+    b_ms, b_by = bound(size(q) + size(k) + size(v) + size(got), 4 * keys * hd, peak)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)  # noqa: E731
+    fa = []
+    _attention_row(fa, "flash_attention_tpu", {"B": b, "T": t, "H": h, "K": k.shape[2],
+                                               "hd": hd, "causal": causal},
+                   got, flash_attention_torch(q, k, v, causal))
+    row = {**fa[0], "at": "lm_serve/prefill, layer 0", "flops": 4 * keys * hd,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library": "torch.nn.functional.scaled_dot_product_attention(is_causal, "
+                      "enable_gqa)",
+           "library_max_abs_err": float((lib().transpose(1, 2).float() - got.float())
+                                        .abs().max())}
+    if on_gpu:
+        row.update(ms=time_ms(lambda: flash_attention_tpu(q, k, v, causal), reps),
+                   call_ms=time_ms(lambda: flash_attention_tpu(q, k, v, causal), reps,
+                                   preload=False),
+                   plain_ms=time_ms(lambda: flash_attention_torch(q, k, v, causal), reps),
+                   library_ms=time_ms(lib, reps))
+    rows.append(row)
+
+    (args, kw), = seen["flash_decode"].values()
+    q, kc, vc, pos = args
+    b, _, h, hd = q.shape
+    s, kh = kc.shape[1], kc.shape[2]
+    got = flash_decode(q, kc, vc, pos)
+    live = int((pos.long() + 1).clamp(0, s).sum())
+    b_ms, b_by = bound(2 * live * kh * hd * kc.element_size() + size(q) + size(got),
+                       4 * live * h * hd)
+    qt, kt, vt = q.transpose(1, 2).contiguous(), kc.transpose(1, 2).contiguous(), \
+        vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device=q.device)[None, :] <= pos.long()[:, None])[:, None, None, :]
+    lib = lambda: sdpa(qt.to(kt.dtype), kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    fd = []
+    _attention_row(fd, "flash_decode", {"B": b, "S": s, "H": h, "K": kh, "hd": hd,
+                                        "positions": pos.tolist()},
+                   got, flash_decode_torch(q, kc, vc, pos))
+    row = {**fd[0], "at": "lm_serve/last decode step, layer 0", "cache_rows_read": live,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library": "torch.nn.functional.scaled_dot_product_attention(attn_mask=length "
+                      "mask, enable_gqa)",
+           "library_max_abs_err": float((lib().transpose(1, 2).float() - got.float())
+                                        .abs().max())}
+    if on_gpu:
+        row.update(ms=time_ms(lambda: flash_decode(q, kc, vc, pos), reps),
+                   call_ms=time_ms(lambda: flash_decode(q, kc, vc, pos), reps, preload=False),
+                   plain_ms=time_ms(lambda: flash_decode_torch(q, kc, vc, pos), reps),
+                   library_ms=time_ms(lib, reps))
+    rows.append(row)
+    return rows
+
+
+# ----------------------------------------------------------------------
 # serve phase
 # ----------------------------------------------------------------------
 def make_batch(docs, idx, rng, per_cell: int) -> list[tuple[str, str]]:
@@ -803,11 +1353,14 @@ def _wrappers() -> dict:
     """Every kernel wrapper by its kernel's name (each counts its launches)."""
     from repro_torch.kernels.anchor_intersect.ops import anchor_probe, anchor_probe_sliced
     from repro_torch.kernels.dgap_decode.ops import dgap_decode
+    from repro_torch.kernels.flash_attention.ops import flash_attention_tpu
+    from repro_torch.kernels.flash_decode.ops import flash_decode
     from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
     from repro_torch.kernels.minhash_sig.ops import minhash_rows
     return {"anchor_probe_sliced": anchor_probe_sliced, "decode_rows": decode_rows,
             "probe_rows": probe_rows, "minhash_rows": minhash_rows,
-            "anchor_probe": anchor_probe, "dgap_decode": dgap_decode}
+            "anchor_probe": anchor_probe, "dgap_decode": dgap_decode,
+            "flash_attention_tpu": flash_attention_tpu, "flash_decode": flash_decode}
 
 
 def launch_counts() -> dict:
@@ -1133,6 +1686,9 @@ def main() -> int:
                     help="queries per (kind, term count) cell of the mixed batch")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--lm-layers", type=int, default=None,
+                    help="cut the lm_serve phase's model to this many layers "
+                         "(default: full depth)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1140,6 +1696,10 @@ def main() -> int:
               "runs the port on a CUDA device and has no CPU mode", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    # float32 products in full float32 (no TF32), so that the float32
+    # comparisons on the card mean what they say
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import cuda_build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1215,7 +1775,7 @@ def main() -> int:
     del rlz_calls
     torch.cuda.synchronize()
     total_mism = sum(r["mismatches"] for r in edges + measured)
-    emit("kernels", tolerance=0,
+    emit("kernels", tolerance={name: 0 for name in INTEGER_KERNELS},
          timing=f"CUDA events, median of {args.reps} after warm-up; ms, plain_ms, library_ms: "
                 f"device time (card kept busy while the call is queued); call_ms: the "
                 f"wrapper as a waiting caller sees it",
@@ -1229,6 +1789,28 @@ def main() -> int:
 
     result = serve(built, sessions, batch, "cuda")
     emit("serve", card=card, collection=built["info"], session_build_s=session_s, **result)
+    del sessions
+    torch.cuda.empty_cache()
+
+    # the LM serving path (qwen3-8b at full width) with both attention kernels,
+    # then the kernels at edge shapes and at the inputs the path handed them
+    lm, seen = lm_serve_path(args, dev)
+    emit("lm_serve", card=card, **lm)
+    attn_edges = attention_edge_cases(dev, args.seed) + attention_at_path_f32(seen)
+    attn_path = attention_at_path(seen, args.reps, True)
+    del seen
+    torch.cuda.empty_cache()
+    bad = [r for r in attn_edges + attn_path if not r["within_tolerance"]]
+    by_dtype = lambda key: {k: {d: max([r[key] for r in attn_edges + attn_path  # noqa: E731
+                                        if r["kernel"] == k and r["dtype"] == d], default=None)
+                                for d in ("float32", "bfloat16")} for k in ATTENTION_TOL}
+    emit("attention_kernels", card=card,
+         tolerance={k: _tolerance(k) for k in ATTENTION_TOL},
+         edge_cases=len(attn_edges), outside_tolerance=bad,
+         max_abs_err=by_dtype("max_abs_err"), limit_used=by_dtype("limit_used"),
+         widened_path=attn_edges[-3:], at_path=attn_path)
+    require(not bad, f"{len(bad)} attention kernel outputs outside their tolerance, "
+            f"first {bad[:2]}")
 
     # one entry per kernel: the serving kernels at the positional fused shape
     # (the serve path's most frequent), the signature kernel at the documents
@@ -1260,6 +1842,13 @@ def main() -> int:
         kernels.append({"name": name, **KERNEL_META[name], "launches": e["launches"],
                         "max_abs_err": e["max_abs_err"],
                         **{k: e["row"][k] for k in timing_keys}, "at": e["row"]["at"]})
+    for r in attn_path:
+        name = r["kernel"]
+        kernels.append({"name": name, **KERNEL_META[name], "launches": lm["launches"][name],
+                        "max_abs_err": max(x["max_abs_err"] for x in attn_edges + attn_path
+                                           if x["kernel"] == name),
+                        "tolerance": _tolerance(name),
+                        **{k: r[k] for k in timing_keys}, "at": r["at"]})
     require(len(kernels) == len(KERNEL_META), f"the kernels line lists {len(kernels)} "
             f"kernels, expected {len(KERNEL_META)}")
     emit("done", seconds=round(time.perf_counter() - t_start, 1))

@@ -10,16 +10,20 @@ loads a kernel at import: that happens inside the first launch.
 * fused_decode     — per-row bounded rule expansion (+ fused membership
                      probe) for the fused device layout
 * minhash_sig      — batched MinHash signatures (version-structure mining)
+* flash_attention  — causal / non-causal GQA attention forward (LM prefill)
+* flash_decode     — one-token attention over a KV cache (LM decode)
 
-The public ops are the reference's index-side ones.  Its five model-side ops
-(``cin_layer``, ``embedding_bag``, ``flash_attention_tpu``, ``flash_decode``,
-``moe_gemm``) are not ported yet and are absent here.
+The public ops are the reference's, under its names, except the three
+model-side ops whose slices have not come yet (``cin_layer``,
+``embedding_bag``, ``moe_gemm``).
 """
 
 from .anchor_intersect.ops import anchor_probe
 from .dgap_decode.ops import dgap_decode
+from .flash_attention.ops import flash_attention_tpu
+from .flash_decode.ops import flash_decode
 from .fused_decode.ops import decode_rows, probe_rows
 from .minhash_sig.ops import hash_params, minhash_signatures
 
-__all__ = ["anchor_probe", "decode_rows", "dgap_decode", "hash_params",
-           "minhash_signatures", "probe_rows"]
+__all__ = ["anchor_probe", "decode_rows", "dgap_decode", "flash_attention_tpu",
+           "flash_decode", "hash_params", "minhash_signatures", "probe_rows"]

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: C entry point -> argument types (every pointer and the stream are
 #: ``c_void_p``: a bare Python int would be cut to 32 bits)
@@ -46,6 +47,14 @@ SIGNATURES = {
     "probe_rows_launch": (_P, _L, _P, _P, _P, _P, _P, _L, _P),
     # (shingles, lens, a, b, out, D, L, P, stream)
     "minhash_rows_launch": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
+    # (q, k, v, out, B, T, S, H, K, hd, dtype, causal, scale,
+    #  q strides b/t/h, k strides b/s/k, v strides b/s/k, stream)
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _P),
+    # (q, k, v, positions, out, B, S, H, K, hd, q dtype, kv dtype, scale,
+    #  q strides b/h, k strides b/s/k, v strides b/s/k, stream)
+    "flash_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _L, _L, _L, _L, _L, _L, _L, _L, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -162,6 +171,27 @@ def require_int32(name: str, t, ndim: int = 1) -> None:
         raise ValueError(f"{name}: expected {ndim} dimension(s), got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+#: the attention kernels' element types, by the code their launch functions take
+FLOAT_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+
+
+def require_float(name: str, t, ndim: int) -> int:
+    """The attention kernels take float32 or bfloat16 tensors of ``ndim``
+    dimensions, read by strides, whose last dimension is contiguous; returns
+    the element type's code for the launch function."""
+    import torch
+
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+    if str(t.dtype) not in FLOAT_CODES:
+        raise TypeError(f"{name}: expected float32 or bfloat16, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dimensions, got shape {tuple(t.shape)}")
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: expected a contiguous last dimension")
+    return FLOAT_CODES[str(t.dtype)]
 
 
 def require_cuda(name: str, t) -> None:

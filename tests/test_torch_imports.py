@@ -47,7 +47,16 @@ def test_module_list_covers_the_slice():
                    "repro_torch.core.selfindex.lzidx", "repro_torch.core.selfindex.slp",
                    *(f"repro_torch.core.codecs.{m}" for m in (
                        "rice", "simple9", "pfordelta", "elias_fano", "interpolative",
-                       "elias", "lz_codecs"))):
+                       "elias", "lz_codecs")),
+                   "repro_torch.configs", "repro_torch.configs.base",
+                   "repro_torch.configs.archs", "repro_torch.data.pipelines",
+                   "repro_torch.models", "repro_torch.models.layers",
+                   "repro_torch.models.flash", "repro_torch.models.transformer",
+                   "repro_torch.models.steps", "repro_torch.kernels.flash_attention",
+                   "repro_torch.kernels.flash_attention.ops",
+                   "repro_torch.kernels.flash_attention.ref",
+                   "repro_torch.kernels.flash_decode", "repro_torch.kernels.flash_decode.ops",
+                   "repro_torch.kernels.flash_decode.ref"):
         assert needed in MODULES, needed
 
 
