@@ -35,14 +35,30 @@ launch counts set to 0 just before it and read just after:
   layer per step); the same model through the plain attention path,
   teacher-forced on the kernel run's tokens, must give logits within
   ``LM_LOGIT_TOL`` and the same greedy tokens but where the plain path's
-  logit of the kernel's token lies within one bf16 step of its maximum.
+  logit of the kernel's token lies within one bf16 step of its maximum;
+* recsys_serve — xDeepFM at full width (39 fields, 3,008,562 table rows of
+  10, CIN 200-200-200, MLP 400-400), random float32 weights drawn on the
+  card, serving the registry's ``serve_p99`` (512 rows), ``serve_bulk``
+  (262,144) and ``retrieval_cand`` (1,000,000 candidate rows) inputs from
+  ``recsys_batches`` through ``make_recsys_serve_step`` (``embedding_bag``
+  twice and ``cin_layer`` once per CIN layer per call), then the same inputs
+  through the plain path; FM, SASRec and two-tower (20.5 GB of tables) serve
+  one ``serve_p99`` batch each and are freed;
+* moe_serve — moonshot-v1-16b-a3b at full width and depth (48 layers, 64
+  experts, top-6; 56.1 GB of bf16 weights),
+  served as lm_serve is (``moe_gemm`` three times a layer besides the two
+  attention kernels); the plain path is teacher-forced on the kernel run's
+  tokens and expert choices, and the choices its own router would have made
+  otherwise are counted, as are the tokens dropped at capacity.
 
 Every answer is compared with the host-only session's, and each kernel is held
 against its plain PyTorch version on the card at edge shapes and at the inputs
-the paths handed it: the six integer kernels with tolerance 0, the two
-attention kernels with an elementwise limit per kernel and output dtype
-(``ATTENTION_TOL``: float32 sums in another order; a bf16 output one rounding
-apart), their path inputs widened to float32 as well.  float32 matrix
+the paths handed it: the six integer kernels and ``embedding_bag`` with
+tolerance 0, the two attention kernels with an elementwise limit per kernel
+and output dtype (``ATTENTION_TOL``: float32 sums in another order; a bf16
+output one rounding apart), their path inputs widened to float32 as well,
+``cin_layer`` and ``moe_gemm`` within the textbook bound of a float32 sum
+taken in another order (:func:`gamma`).  float32 matrix
 products run without TF32.  Each phase prints one
 JSON line; any failure ends the run with a non-zero exit code.  The last line
 is ``{"ok": true, "device": {...}}``, after the card's name and power limit; the
@@ -65,6 +81,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -105,6 +122,15 @@ KERNEL_META = {
     "flash_decode": {
         "route": "cuda", "source": "src/repro_torch/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode/kernel.py:84"},
+    "embedding_bag": {
+        "route": "cuda", "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:52"},
+    "cin_layer": {
+        "route": "cuda", "source": "src/repro_torch/csrc/cin_interaction.cu",
+        "replaces": "src/repro/kernels/cin_interaction/kernel.py:49"},
+    "moe_gemm": {
+        "route": "cuda", "source": "src/repro_torch/csrc/moe_gemm.cu",
+        "replaces": "src/repro/kernels/moe_gemm/kernel.py:51"},
 }
 #: the kernels whose outputs are integers or bools, held to tolerance 0
 INTEGER_KERNELS = ("anchor_probe_sliced", "decode_rows", "probe_rows", "minhash_rows",
@@ -131,6 +157,30 @@ LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 #: reference's own bf16 tolerance for decode against forward
 #: (tests/test_models.py:70)
 LM_LOGIT_TOL = 0.15
+#: the recsys_serve phase: the model at full width and the registry's shapes
+#: it serves (``RECSYS_SHAPES`` of configs/base.py); the other three recsys
+#: models serve one serve_p99 batch each
+RECSYS_CONFIG = "xdeepfm"
+RECSYS_SERVE = ("serve_p99", "serve_bulk", "retrieval_cand")
+RECSYS_OTHERS = ("fm", "sasrec", "two-tower-retrieval")
+#: its bound on |kernel logits - plain logits| / max |plain logit| (float32
+#: model; the CIN sums differ only in order): the bound the port's float32
+#: model tests hold against the reference
+RECSYS_LOGIT_REL = 1e-4
+#: the moe_serve phase's model (full width), served like lm_serve
+MOE_CONFIG = "moonshot-v1-16b-a3b"
+#: the model-side kernels of the fifth slice and how each is held against its
+#: plain version: embedding_bag sums each bag in the plain version's order
+#: (tolerance 0, NaN where a row is out of range); the two float32 products
+#: differ from theirs only in the order of their float32 sums, so each
+#: element lies within 2 * gamma_n * (the plain version on |inputs|), the
+#: textbook bound on a float32 sum of n products taken in any order
+#: (gamma_n = n u / (1 - n u), u = 2^-24; n = D + 1 for moe_gemm, m * Hk + 2
+#: for cin_layer, whose z = x0 * xk is one rounding more)
+MODEL_KERNELS = ("embedding_bag", "cin_layer", "moe_gemm")
+#: calls slower than this are timed with MIN_REPS repetitions, not --reps
+SLOW_CALL_MS = 100.0
+MIN_REPS = 3
 #: the inverted backends of the third slice; each serves through the dense layout
 NEW_BACKENDS = ("rice", "rice_runs", "simple9", "pfordelta", "opt_pfd", "elias_fano",
                 "ef_opt", "interpolative", "vbyte_lzma", "vbyte_cm", "vbyte_st",
@@ -178,6 +228,18 @@ def time_ms(fn, reps: int = 20, warmup: int = 2, preload: bool = True) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def time_any(fn, reps: int, preload: bool = True) -> float:
+    """``time_ms`` for calls of any length: a call over ``SLOW_CALL_MS`` is
+    timed with ``MIN_REPS`` repetitions after one warm-up."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if (time.perf_counter() - t0) * 1e3 > SLOW_CALL_MS:
+        return time_ms(fn, MIN_REPS, warmup=0, preload=preload)
+    return time_ms(fn, reps, preload=preload)
 
 
 def bound(bytes_moved: int, ops: int, peak_ops: float = PEAK_OPS_PER_S) -> tuple[float, str]:
@@ -994,13 +1056,15 @@ def bf16_step(x: float) -> float:
 
 
 def decode_host_and_device(decode, params, tokens: list, step_pos, cache,
-                           traced: int = 3) -> dict:
+                           traced: int = 3, named: tuple = ("flash_decode",)) -> dict:
     """Where a decode step's time goes, on a card: the steps of the run
     again (same tokens at the same positions, so the cache keeps its
     values), as they are and with the host waiting for the card before each
     step (what a host-side position check costs), in the order A B B A; then
     ``traced`` steps under ``torch.profiler`` (device activity only): kernel
-    time and kernels per step."""
+    time and kernels per step, and the device time of the kernels whose name
+    holds one of ``named``.  One step runs under torch's sync debug mode
+    first: it must make the host wait for the card no time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1015,6 +1079,17 @@ def decode_host_and_device(decode, params, tokens: list, step_pos, cache,
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / n * 1e3
 
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            decode(params, tokens[0][:, None].to(torch.int32), step_pos(0), cache)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    waits = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    require(not waits, f"a decode step waits for the card {len(waits)} times: {waits[:2]}")
     n = len(tokens) - 1
     order = [("no_wait", False), ("wait", True), ("wait", True), ("no_wait", False)]
     ab = [(name, run(n, wait)) for name, wait in order]
@@ -1022,42 +1097,81 @@ def decode_host_and_device(decode, params, tokens: list, step_pos, cache,
         run(traced, False)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / traced / 1e3
-    attn = sum(e.self_device_time_total for e in kernels
-               if "flash_decode" in e.key) / traced / 1e3
     require(busy > 0, "torch.profiler saw no device time in the decode steps")
     step_ms = statistics.median(ms for name, ms in ab if name == "no_wait")
     return {"ms_per_step_abba": ab, "device_busy_ms_per_step": busy,
-            "flash_decode_ms_per_step": attn,
+            **{f"{name}_ms_per_step": sum(e.self_device_time_total for e in kernels
+                                          if name in e.key) / traced / 1e3
+               for name in named},
             "device_ops_per_step": sum(e.count for e in kernels) / traced,
-            "device_idle_share": 1 - busy / step_ms,
+            "device_idle_share": 1 - busy / step_ms, "host_waits_per_step": len(waits),
             "what": f"the run's {n} steps again, without and with a host wait per "
                     f"step (A B B A); device time from torch.profiler over {traced} "
                     f"steps against the median step without waits"}
 
 
-def lm_serve_path(args, dev) -> tuple[dict, dict]:
-    """The LM serving path at full width: ``LM_CONFIG`` (depth cut to
-    ``args.lm_layers`` when given) with random bf16 weights drawn on ``dev``
+@contextlib.contextmanager
+def routed(record: list | None = None, forced: list | None = None):
+    """Put a wrapper in front of the MoE router (``layers.moe_router``) for
+    the time of the block.  With ``record``, each call's (token, slot)
+    expert choices are appended to it.  With ``forced`` (a recorded run's
+    choices), call i routes by ``forced[i]`` — the gates its own
+    probabilities at those experts, renormalised — and yields, per call,
+    how many of the (token, slot) choices its own router made otherwise."""
+    from repro_torch.models import layers
+
+    original = layers.moe_router
+    differ: list = []
+
+    def router(x, router_w, top_k):
+        probs, gates, experts = original(x, router_w, top_k)
+        if record is not None:
+            record.append(experts)
+        if forced is not None:
+            want = forced[len(differ)]
+            same = (experts[:, :, None] == want[:, None, :]).any(dim=-1).sum()
+            differ.append(want.numel() - same)
+            gates = torch.gather(probs, 1, want)
+            gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+            experts = want
+        return probs, gates, experts
+
+    layers.moe_router = router
+    try:
+        yield differ
+    finally:
+        layers.moe_router = original
+
+
+def lm_serve_path(args, dev, name: str = LM_CONFIG, n_layers: int | None = None,
+                  control: bool = True) -> tuple[dict, dict]:
+    """The LM serving path at full width: ``name`` (depth cut to
+    ``n_layers`` when given) with random bf16 weights drawn on ``dev``
     from ``args.seed``, ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens from
     ``lm_batches`` prefilled through ``make_lm_prefill_step``, the cache
     padded by ``LM_NEW`` rows, then ``LM_NEW`` greedy steps through
     ``make_lm_decode_step`` — the kernels on a card, with the
     launch counts set to 0 just before and read just after.  Then the same
     model through the plain path (``attention="torch"``), teacher-forced on
-    the kernel run's tokens: its prefill and step logits must be within
+    the kernel run's tokens — and, in a MoE model, on its expert choices
+    (:func:`routed`; the choices the plain router would have made otherwise
+    are counted): its prefill and step logits must be within
     ``LM_LOGIT_TOL`` of the kernel run's, and its greedy tokens equal but at
-    ties (within one bf16 step, :func:`bf16_step`).
+    ties (within one bf16 step, :func:`bf16_step`).  With ``control``, the
+    plain path once more with its float32 sums reordered, against itself.
     Returns the phase's line and what the path handed each kernel (the first
-    prefill call, and the first call of the last decode step)."""
+    prefill call, and the first call of the last decode step; of
+    ``moe_gemm`` also the third of each, layer 0's ``w_down`` product)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipelines import lm_batches
     from repro_torch.models import steps
+    from repro_torch.models.layers import MoEDims, moe_dispatch
 
     on_gpu = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_gpu else (lambda: None)
-    cfg = get_config(LM_CONFIG)
-    if args.lm_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.lm_layers)
+    cfg = get_config(name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     b, t, new, n_layers = LM_BATCH, LM_PROMPT, LM_NEW, cfg.n_layers
     if on_gpu:
         torch.cuda.empty_cache()
@@ -1067,6 +1181,8 @@ def lm_serve_path(args, dev) -> tuple[dict, dict]:
                                      dev)
     sync()
     t1 = time.perf_counter()
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     prompts = next(lm_batches(cfg, b, t, seed=args.seed))["tokens"]
     tokens = torch.from_numpy(prompts).to(dev)
     t2 = time.perf_counter()
@@ -1086,8 +1202,12 @@ def lm_serve_path(args, dev) -> tuple[dict, dict]:
     sync()
 
     keep = {"flash_attention_tpu": {0}, "flash_decode": {(new - 1) * n_layers}}
+    if cfg.moe:
+        keep["moe_gemm"] = {0, 2, 3 * n_layers * new, 3 * n_layers * new + 2}
+    choices: list = []
     reset_launch_counts()
-    with recorded_attention(keep) as seen:
+    with recorded_attention(keep) as seen, \
+            routed(record=choices) if cfg.moe else contextlib.nullcontext():
         t3 = time.perf_counter()
         logits, cache = prefill(params, tokens)
         sync()
@@ -1107,7 +1227,9 @@ def lm_serve_path(args, dev) -> tuple[dict, dict]:
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() if on_gpu else None
     cache_shape, cache_bytes = list(cache.shape), cache.numel() * cache.element_size()
-    split = (decode_host_and_device(decode, params, out_tokens, step_pos, cache)
+    split = (decode_host_and_device(decode, params, out_tokens, step_pos, cache,
+                                    named=("flash_decode", "moe_gemm") if cfg.moe
+                                    else ("flash_decode",))
              if on_gpu else None)
     del cache
 
@@ -1125,19 +1247,56 @@ def lm_serve_path(args, dev) -> tuple[dict, dict]:
         sync()
         return logits_by_step
 
+    moe = None
+    if cfg.moe:
+        # tokens the kernel run dropped at capacity, and the plain router's own
+        # choices against the kernel run's, in prefill and per decode step
+        dims = MoEDims(cfg.moe.n_experts, cfg.moe.top_k)
+        dropped = torch.stack([(~moe_dispatch(c, dims, cfg.moe_groups)["keep"]).sum()
+                               for c in choices]).tolist()
+        moe = {"experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+               "capacity_factor": dims.capacity_factor,
+               "capacity": {"prefill": moe_dispatch(choices[0], dims, cfg.moe_groups)["cap"],
+                            "decode": moe_dispatch(choices[-1], dims, cfg.moe_groups)["cap"]},
+               "router_calls": len(choices),
+               "dropped_prefill": sum(dropped[:n_layers]),
+               "choices_prefill": choices[0].numel() * n_layers,
+               "dropped_per_decode_step": [sum(dropped[n_layers * (i + 1):n_layers * (i + 2)])
+                                           for i in range(new)],
+               "choices_per_decode_step": choices[-1].numel() * n_layers}
+
     if on_gpu:
         torch.cuda.empty_cache()
     before_plain = launch_counts()
     t7 = time.perf_counter()
-    plain = teacher_forced()
+    with routed(forced=choices) if cfg.moe else contextlib.nullcontext() as router_differ:
+        plain = teacher_forced()
     t8 = time.perf_counter()
     plain_launches = {k: n - before_plain[k] for k, n in launch_counts().items()}
-    with reordered_plain_attention():
-        control = teacher_forced()
+    if cfg.moe:
+        router_differ = torch.stack(router_differ).tolist()
+        moe.update(
+            plain_router_differs_prefill=sum(router_differ[:n_layers]),
+            plain_router_differs_decode=sum(router_differ[n_layers:]),
+            plain_router_differ_share=sum(router_differ) / (
+                moe["choices_prefill"] + new * moe["choices_per_decode_step"]),
+            what="(token, slot) expert choices: dropped at capacity on the kernel run; "
+                 "chosen otherwise by the plain path's own router, which then routes "
+                 "by the kernel run's choices")
+        del choices
+    control_line = None
+    if control:
+        with reordered_plain_attention():
+            ctrl = teacher_forced()
+        control_line = {
+            "what": "the plain path with prefill KV blocks of 512 keys and the kernel's plain "
+                    "decode, against the plain path",
+            "logits_max_abs_err": max(float((a.float() - w.float()).abs().max())
+                                      for a, w in zip(ctrl, plain)),
+            "greedy_tokens_differ": sum(int(w[r].float().argmax()) != int(c[r].float().argmax())
+                                        for c, w in zip(ctrl, plain) for r in range(b))}
+        del ctrl
     errs = [float((a.float() - w.float()).abs().max()) for a, w in zip(out_logits, plain)]
-    control_errs = [float((a.float() - w.float()).abs().max()) for a, w in zip(control, plain)]
-    control_differ = sum(int(w[r].float().argmax()) != int(c[r].float().argmax())
-                         for c, w in zip(control, plain) for r in range(b))
     scale = max(float(w.float().abs().max()) for w in plain)
     # (step, row, how far the plain logit of the kernel's token lies below the
     # plain maximum, one bf16 step at that maximum)
@@ -1158,18 +1317,19 @@ def lm_serve_path(args, dev) -> tuple[dict, dict]:
     require(all(tuple(x.shape) == (b, cfg.vocab_size) for x in out_logits + plain),
             "logits of the wrong shape on the LM serving path")
     if on_gpu:
-        want = {name: 0 for name in launches}
+        want = {k: 0 for k in launches}
         want.update(flash_attention_tpu=n_layers, flash_decode=n_layers * new)
-        require(launches == want, f"kernel launches on the lm_serve path: {launches}, "
-                f"expected {want}")
+        if cfg.moe:
+            want.update(moe_gemm=3 * n_layers * (new + 1))
+        require(launches == want, f"kernel launches on the {cfg.name} serving path: "
+                f"{launches}, expected {want}")
         require(not any(plain_launches.values()), "the plain path launched a kernel")
     line = {
         "config": {k: getattr(cfg, k) for k in (
             "name", "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
             "vocab_size", "qk_norm", "rope_theta", "dtype")},
-        "full_depth": get_config(LM_CONFIG).n_layers,
-        "params": cfg.n_params() + (2 * cfg.head_dim * n_layers if cfg.qk_norm else 0),
-        "weight_bytes": 2 * cfg.n_params(),
+        "full_depth": get_config(name).n_layers,
+        "params": n_params, "weight_bytes": weight_bytes,
         "batch": b, "prompt_tokens": t, "new_tokens": new,
         "cache_shape": cache_shape, "cache_bytes": cache_bytes,
         "init_s": t1 - t0, "prompts_s": t2 - t1,
@@ -1179,10 +1339,7 @@ def lm_serve_path(args, dev) -> tuple[dict, dict]:
         "decode_tokens_per_s": b * new / (t6 - t5), "decode_step_split": split,
         "max_memory_allocated": peak, "launches": launches,
         "plain_path": {"prefill_and_decode_s": t8 - t7, "launches": plain_launches},
-        "control": {"what": "the plain path with prefill KV blocks of 512 keys and the "
-                            "kernel's plain decode, against the plain path",
-                    "logits_max_abs_err": max(control_errs),
-                    "greedy_tokens_differ": control_differ},
+        "control": control_line, "moe": moe,
         "logits_max_abs_err": max(errs), "logits_max_abs_err_by_step": errs,
         "logits_max_abs": scale, "logits_tolerance": LM_LOGIT_TOL,
         "greedy_tokens": b * (new + 1), "tokens_equal": b * (new + 1) - len(differ),
@@ -1234,6 +1391,24 @@ def attention_at_path_f32(seen: dict) -> list[dict]:
                         "hd": q.shape[3], "q": "float32", "cache": cache,
                         "at": "lm_serve/last decode step, layer 0, q widened to float32"},
                        flash_decode(q, kc, vc, pos), flash_decode_torch(q, kc, vc, pos))
+    return rows
+
+
+@torch.no_grad()
+def attention_at_moe_path(seen: dict) -> list[dict]:
+    """Both attention kernels against their plain versions at the inputs the
+    moe_serve path handed them (16 query heads on 16 KV heads, bf16)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_torch, flash_attention_tpu
+    from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
+
+    rows: list = []
+    for name, kernel, plain, at in (
+            ("flash_attention_tpu", flash_attention_tpu, flash_attention_torch, "prefill"),
+            ("flash_decode", flash_decode, flash_decode_torch, "last decode step")):
+        (args, kw), = seen[name].values()
+        _attention_row(rows, name, {"at": f"moe_serve/{at}, layer 0",
+                                    "q": list(args[0].shape), "k": list(args[1].shape)},
+                       kernel(*args, **kw), plain(*args, **kw))
     return rows
 
 
@@ -1310,6 +1485,460 @@ def attention_at_path(seen: dict, reps: int, on_gpu: bool) -> list[dict]:
 
 
 # ----------------------------------------------------------------------
+# model-side kernels: embedding_bag, cin_layer, moe_gemm
+# ----------------------------------------------------------------------
+def gamma(n: int) -> float:
+    """The textbook bound n u / (1 - n u) on the relative error of a float32
+    sum of n terms in any order (u = 2^-24), over the sum of |terms|."""
+    u = 2.0 ** -24
+    return n * u / (1 - n * u)
+
+
+def _model_row(rows: list, kernel: str, shape: dict, got, want, limit=None) -> None:
+    """One comparison of a model-side kernel with its plain version: NaN at
+    the same places, every other element equal (``limit`` None) or within
+    the elementwise ``limit``; records the max abs difference and the
+    largest share of its limit an element takes."""
+    ok = got.shape == want.shape and got.dtype == want.dtype
+    err = used = 0.0
+    if ok and want.numel():
+        g, w = got.float(), want.float()
+        nan = torch.isnan(w)
+        ok = bool(torch.equal(torch.isnan(g), nan))
+        diff = torch.where(nan, 0.0, (g - w).abs())
+        err = float(diff.max())
+        if limit is None:
+            ok = ok and err == 0.0
+        else:
+            used = float((diff / limit.clamp(min=1e-38)).max())
+            ok = ok and used <= 1.0
+        del g, w, diff
+    rows.append({"kernel": kernel, "shape": shape, "max_abs_err": err, "limit_used": used,
+                 "within_tolerance": ok})
+
+
+def embedding_bag_check(rows: list, shape: dict, idx, table, bag: int) -> None:
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag, embedding_bag_torch
+
+    _model_row(rows, "embedding_bag", shape, embedding_bag(idx, table, bag),
+               embedding_bag_torch(idx, table, bag))
+
+
+def cin_check(rows: list, shape: dict, x0, xk, w) -> None:
+    from repro_torch.kernels.cin_interaction.ops import cin_layer, cin_layer_torch
+
+    n = x0.shape[1] * xk.shape[1] + 2
+    limit = 2 * gamma(n) * cin_layer_torch(x0.abs(), xk.abs(), w.abs())
+    _model_row(rows, "cin_layer", shape, cin_layer(x0, xk, w), cin_layer_torch(x0, xk, w), limit)
+
+
+def moe_gemm_check(rows: list, shape: dict, buf, w) -> None:
+    from repro_torch.kernels.moe_gemm.ops import moe_gemm, moe_gemm_torch
+
+    limit = 2 * gamma(buf.shape[2] + 1) * moe_gemm_torch(buf.abs(), w.abs())
+    _model_row(rows, "moe_gemm", shape, moe_gemm(buf, w), moe_gemm_torch(buf, w), limit)
+
+
+EB_DIMS = (1, 10, 128, 130)
+EB_BAGS = (1, 3, 39)
+CIN_SHAPES = ((1, 1, 1, 1, 1), (3, 4, 6, 7, 1), (2, 5, 8, 41, 130), (300, 3, 7, 5, 10),
+              (17, 39, 39, 200, 10), (9, 39, 200, 200, 10), (0, 3, 4, 5, 10), (4, 2, 3, 0, 10))
+MOE_SHAPES = ((1, 1, 1, 1), (3, 1, 2048, 1408), (2, 4, 33, 257), (4, 5, 64, 200),
+              (2, 130, 70, 129), (3, 4, 0, 5), (2, 64, 16, 300))
+
+
+@torch.no_grad()
+def model_kernel_edge_cases(dev, seed: int) -> list[dict]:
+    """The three model-side kernels against their plain versions at edge
+    shapes: embedding_bag at D 1, 10, 128, 130, bags of 1, 3 and 39, 0, 1 and
+    1,000 bags, float32 and bf16 tables, rows out of range (NaN bags), 2-D and
+    int64 indices, rows read by stride (``linear[:, None]``) and bags of 0;
+    cin_layer at one element, D 1, ragged H / N tiles, the path's (m, Hk, H)
+    at small batches, and empty outputs; moe_gemm at one element, C 1 with
+    F 1,408 (decode), ragged tiles, D 0, every dtype pair, and an expert
+    whose rows are all zero."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda *shape, dtype=torch.float32: torch.randn(  # noqa: E731
+        shape, generator=g, device=dev).to(dtype)
+    randint = lambda lo, hi, *shape: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=g, device=dev, dtype=torch.int32)
+    rows: list = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in EB_DIMS:
+            table = randn(1000, d, dtype=dtype)
+            for bag in EB_BAGS:
+                for n_bags in (0, 1, 1000):
+                    embedding_bag_check(rows, {"V": 1000, "D": d, "bag": bag, "n_bags": n_bags,
+                                               "dtype": str(dtype).split(".")[-1]},
+                                        randint(0, 1000, n_bags * bag), table, bag)
+    table = randn(50, 10)
+    idx = randint(-3, 53, 40, 4)
+    embedding_bag_check(rows, {"indices": "(40, 4), some outside [0, 50)"}, idx, table, 1)
+    embedding_bag_check(rows, {"indices": "int64"}, idx.long().clamp(0, 49).reshape(-1),
+                        table, 4)
+    embedding_bag_check(rows, {"table": "linear[:, None] of 300", "bag": 39},
+                        randint(0, 300, 64 * 39), randn(300)[:, None], 39)
+    embedding_bag_check(rows, {"indices": "(5, 0)"},
+                        torch.zeros((5, 0), dtype=torch.int32, device=dev), table, 1)
+    for b, m, hk, h, d in CIN_SHAPES:
+        cin_check(rows, {"B": b, "m": m, "Hk": hk, "H": h, "D": d},
+                  randn(b, m, d), randn(b, hk, d), randn(m * hk, h))
+    cin_check(rows, {"B": 6, "m": 5, "Hk": 7, "H": 9, "D": 10, "dtype": "bfloat16 inputs"},
+              randn(6, 5, 10, dtype=torch.bfloat16), randn(6, 7, 10, dtype=torch.bfloat16),
+              randn(35, 9))
+    for e, c, d, f in MOE_SHAPES:
+        for bt, wt in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                       (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+            moe_gemm_check(rows, {"E": e, "C": c, "D": d, "F": f,
+                                  "dtypes": f"{str(bt).split('.')[-1]} x {str(wt).split('.')[-1]}"},
+                           randn(e, c, d, dtype=bt), randn(e, d, f, dtype=wt))
+    buf = randn(3, 17, 64, dtype=torch.bfloat16)
+    buf[1] = 0
+    moe_gemm_check(rows, {"E": 3, "C": 17, "D": 64, "F": 96, "empty expert": 1}, buf,
+                   randn(3, 64, 96, dtype=torch.bfloat16))
+    return rows
+
+
+def embedding_bag_bound(idx, table, bag: int):
+    """4 B per index, one table row per index and 4 B per output element
+    (the rows an index names, once each); one add per element read."""
+    n, d = idx.numel(), table.shape[1]
+    return bound(4 * n + n * d * table.element_size() + 4 * (n // max(bag, 1)) * d, n * d)
+
+
+def cin_bound(x0, xk, w):
+    """x0, xk, w in and out once, in float32; 2 H K N FLOPs of the product and
+    K N multiplies of the outer product (K = m Hk, N = B D)."""
+    b, m, d = x0.shape
+    hk, h = xk.shape[1], w.shape[1]
+    k, n = m * hk, b * d
+    return bound(4 * (x0.numel() + xk.numel() + w.numel() + b * h * d), 2 * h * k * n + k * n)
+
+
+def moe_gemm_bound(buf, w):
+    """buf and w in once, the float32 output once; 2 E C D F FLOPs at the
+    tensor cores' bf16 peak for bf16 operands, else the float32 peak."""
+    e, c, d = buf.shape
+    f = w.shape[2]
+    peak = (PEAK_BF16_FLOPS if buf.dtype == w.dtype == torch.bfloat16 else PEAK_OPS_PER_S)
+    size = lambda x: x.numel() * x.element_size()  # noqa: E731
+    return bound(size(buf) + size(w) + 4 * e * c * f, 2 * e * c * d * f, peak)
+
+
+def _cin_library(x0, xk, w):
+    """The library yardstick of cin_layer: one three-operand ``torch.einsum``
+    per batch chunk of the plain version (a whole serve_bulk batch's outer
+    product, which einsum forms first, would be 81.8 GB)."""
+    from repro_torch.kernels.cin_interaction.ops import plain_chunk_rows
+
+    b, m, d = x0.shape
+    hk, h = xk.shape[1], w.shape[1]
+    w3 = w.view(m, hk, h)
+    step = plain_chunk_rows(m, hk, d)
+    out = torch.empty((b, h, d), dtype=torch.float32, device=x0.device)
+    for s in range(0, b, step):
+        out[s:s + step] = torch.einsum("bid,bjd,ijh->bhd", x0[s:s + step], xk[s:s + step], w3)
+    return out
+
+
+@torch.no_grad()
+def model_kernel_at_path(kernel: str, args: tuple, at: str, reps: int, timed: bool = True
+                         ) -> dict:
+    """One model-side kernel at a call its path made: against its plain
+    version (the tolerance of the edge cases), and, when ``timed``, timed
+    beside its plain version, the bound and one library call that computes
+    the same function (``F.embedding_bag(mode="sum")``, a three-operand
+    ``torch.einsum``, ``torch.bmm`` in the operands' dtype); the port never
+    calls the library."""
+    from repro_torch.kernels.cin_interaction.ops import (cin_layer, cin_layer_torch,
+                                                         plain_chunk_rows)
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag, embedding_bag_torch
+    from repro_torch.kernels.moe_gemm.ops import moe_gemm, moe_gemm_torch
+
+    rows: list = []
+    if kernel == "embedding_bag":
+        idx, table, bag = args
+        shape = {"n_bags": idx.numel() // bag, "bag": bag, "V": table.shape[0],
+                 "D": table.shape[1], "dtype": str(table.dtype).split(".")[-1]}
+        embedding_bag_check(rows, shape, idx, table, bag)
+        fn = lambda: embedding_bag(idx, table, bag)  # noqa: E731
+        plain = lambda: embedding_bag_torch(idx, table, bag)  # noqa: E731
+        bags = idx.reshape(-1, bag)
+        lib = lambda: torch.nn.functional.embedding_bag(bags, table, mode="sum")  # noqa: E731
+        lib_name = 'torch.nn.functional.embedding_bag(mode="sum")'
+        b_ms, b_by = embedding_bag_bound(idx, table, bag)
+    elif kernel == "cin_layer":
+        x0, xk, w = args
+        shape = {"B": x0.shape[0], "m": x0.shape[1], "Hk": xk.shape[1], "H": w.shape[1],
+                 "D": x0.shape[2]}
+        cin_check(rows, shape, x0, xk, w)
+        fn = lambda: cin_layer(x0, xk, w)  # noqa: E731
+        plain = lambda: cin_layer_torch(x0, xk, w)  # noqa: E731
+        lib = lambda: _cin_library(x0, xk, w)  # noqa: E731
+        rows_per_call = plain_chunk_rows(x0.shape[1], xk.shape[1], x0.shape[2])
+        calls = -(-x0.shape[0] // rows_per_call)
+        lib_name = (f'torch.einsum("bid,bjd,ijh->bhd"), one call per batch chunk of '
+                    f'{rows_per_call} rows ({calls} calls)')
+        b_ms, b_by = cin_bound(x0, xk, w)
+    else:
+        buf, w = args
+        shape = {"E": buf.shape[0], "C": buf.shape[1], "D": buf.shape[2], "F": w.shape[2],
+                 "dtype": str(buf.dtype).split(".")[-1]}
+        moe_gemm_check(rows, shape, buf, w)
+        fn = lambda: moe_gemm(buf, w)  # noqa: E731
+        plain = lambda: moe_gemm_torch(buf, w)  # noqa: E731
+        lib = lambda: torch.bmm(buf, w)  # noqa: E731
+        lib_name = f"torch.bmm in {str(buf.dtype).split('.')[-1]} (its output rounded to it)"
+        b_ms, b_by = moe_gemm_bound(buf, w)
+    row = {**rows[0], "at": at, "bound_ms": b_ms, "bound_by": b_by, "library": lib_name}
+    if timed:
+        row["library_max_abs_err"] = float((lib().float() - fn()).abs().nan_to_num().max())
+        row.update(ms=time_any(fn, reps), call_ms=time_any(fn, reps, preload=False),
+                   plain_ms=time_any(plain, reps), library_ms=time_any(lib, reps))
+    return row
+
+
+def model_refusals(dev) -> int:
+    """The model-side wrappers refuse what their kernels do not take (a
+    float16 table, indices elsewhere, float indices, a non-contiguous or
+    ill-fitting operand, an integer tensor); returns how many were checked."""
+    from repro_torch.kernels.cin_interaction.ops import cin_layer
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.moe_gemm.ops import moe_gemm
+
+    t = torch.zeros((10, 4), device=dev)
+    i = torch.zeros(6, dtype=torch.int32, device=dev)
+    x = torch.zeros((2, 3, 5), device=dev)
+    b = torch.zeros((2, 4, 8), device=dev)
+    w = torch.zeros((2, 8, 6), device=dev)
+    cases = [
+        (TypeError, "float32 or bfloat16", lambda: embedding_bag(i, t.half(), 2)),
+        (ValueError, "lie on", lambda: embedding_bag(i.cpu(), t, 2)),
+        (TypeError, "integer", lambda: embedding_bag(i.float(), t, 2)),
+        (ValueError, "bags of", lambda: embedding_bag(i, t, 4)),
+        (ValueError, "lies on", lambda: cin_layer(x, x.cpu(), torch.zeros((9, 2), device=dev))),
+        (TypeError, "float tensor", lambda: cin_layer(x.int(), x, torch.zeros((9, 2), device=dev))),
+        (ValueError, "do not fit", lambda: cin_layer(x, x, torch.zeros((8, 2), device=dev))),
+        (ValueError, "contiguous", lambda: moe_gemm(b, w.transpose(1, 2).contiguous().transpose(1, 2))),
+        (ValueError, "lies on", lambda: moe_gemm(b, w.cpu())),
+        (TypeError, "float tensor", lambda: moe_gemm(b.int(), w)),
+        (ValueError, "do not fit", lambda: moe_gemm(b, w[:, :7])),
+    ]
+    before = launch_counts()
+    for exc, text, call in cases:
+        try:
+            call()
+        except exc as e:
+            require(text in str(e), f"refusal says {e!r}, expected {text!r} in it")
+        else:
+            raise SmokeFailure(f"a model-side wrapper took what its kernel does not take ({text})")
+    require(launch_counts() == before, "a refused call counted as a launch")
+    return len(cases)
+
+
+# ----------------------------------------------------------------------
+# recsys_serve phase
+# ----------------------------------------------------------------------
+@contextlib.contextmanager
+def recsys_kernels(plain: bool = False, seen: list | None = None):
+    """For the time of the block, the recsys models' two kernel names point
+    at the plain versions (``plain``), or at recorders that append each
+    call's ``(kernel, args)`` to ``seen`` (by reference: the models never
+    change a kernel's inputs) and call the wrapper."""
+    from repro_torch.kernels.cin_interaction.ops import cin_layer_torch
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_torch
+    from repro_torch.models import recsys
+
+    originals = {"embedding_bag": recsys.embedding_bag, "cin_layer": recsys.cin_layer}
+    if plain:
+        swap = {"embedding_bag": embedding_bag_torch, "cin_layer": cin_layer_torch}
+    else:
+        def recorder(name):
+            def rec(*a):
+                seen.append((name, a))
+                return originals[name](*a)
+            return rec
+        swap = {name: recorder(name) for name in originals}
+    for name, fn in swap.items():
+        setattr(recsys, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(recsys, name, fn)
+
+
+def _recsys_inputs(cfg, shape: str, seed: int, dev) -> tuple[dict, int]:
+    """The inputs of one of the registry's recsys shapes from the port's
+    ``recsys_batches`` (the candidates of a retrieval shape are a click-log
+    batch of ``n_candidates`` rows), and its row count."""
+    from repro_torch.data.pipelines import recsys_batches
+
+    spec = cfg.shapes[shape]
+    if spec.kind == "retrieval":
+        n = spec.dims["n_candidates"]
+        cand = next(recsys_batches(cfg, n, seed=seed))["fields"]
+        return {"candidates": torch.from_numpy(cand).to(dev)}, n
+    b = spec.dims["batch"]
+    batch = next(recsys_batches(cfg, b, seed=seed))
+    keys = {"fm-2way": ("fields",), "cin": ("fields",), "self-attn-seq": ("hist", "target"),
+            "dot": ("user_feats", "item_ids")}[cfg.interaction]
+    return {k: torch.from_numpy(batch[k]).to(dev) for k in keys}, b
+
+
+def _n_params(model) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def recsys_serve_path(args, dev) -> tuple[dict, list]:
+    """The recsys serving path at full width: ``RECSYS_CONFIG`` with random
+    float32 weights drawn on ``dev`` from ``args.seed``, serving each shape
+    of ``RECSYS_SERVE`` from ``recsys_batches`` through
+    ``make_recsys_serve_step`` — the kernels on a card, with the launch
+    counts set to 0 just before and read just after the run over all shapes
+    — then the same inputs through the plain path (the models' kernel names
+    pointing at the plain versions): logits within ``RECSYS_LOGIT_REL`` of
+    the plain path's largest.  Then each of ``RECSYS_OTHERS`` serves one
+    serve_p99 batch the same two ways and is freed.  Returns the phase's
+    line and the kernel calls of the serve_bulk run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import steps
+
+    on_gpu = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_gpu else (lambda: None)
+    cfg = get_config(RECSYS_CONFIG)
+    if on_gpu:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = steps.init_model_params(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                                     dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    serve = {kind: steps.make_recsys_serve_step(cfg, retrieval=kind == "retrieval")
+             for kind in ("serve", "retrieval")}
+    warm, _ = _recsys_inputs(cfg, "serve_p99", args.seed + 1, dev)
+    serve["serve"](params, **warm)
+    with recsys_kernels(plain=True):
+        serve["serve"](params, **warm)
+    sync()
+
+    inputs = {shape: _recsys_inputs(cfg, shape, args.seed, dev) for shape in RECSYS_SERVE}
+    by_shape: dict = {}
+    seen: list = []
+    reset_launch_counts()
+    for shape in RECSYS_SERVE:
+        inp, rows = inputs[shape]
+        step = serve[cfg.shapes[shape].kind]
+        if on_gpu:
+            torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        with recsys_kernels(seen=seen) if shape == "serve_bulk" else contextlib.nullcontext():
+            sync()
+            t1 = time.perf_counter()
+            logits = step(params, **inp)
+            sync()
+            secs = time.perf_counter() - t1
+        by_shape[shape] = {"rows": rows, "seconds": secs, "rows_per_s": rows / secs,
+                           "launches": {k: n - before[k] for k, n in launch_counts().items()
+                                        if n - before[k]},
+                           "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                                    if on_gpu else None)}
+        by_shape[shape]["logits"] = logits
+    launches = launch_counts()
+    for shape in RECSYS_SERVE:
+        inp, _ = inputs[shape]
+        with recsys_kernels(plain=True):
+            sync()
+            t1 = time.perf_counter()
+            plain = serve[cfg.shapes[shape].kind](params, **inp)
+            sync()
+            plain_s = time.perf_counter() - t1
+        got = by_shape[shape].pop("logits")
+        err, scale = float((got - plain).abs().max()), float(plain.abs().max())
+        require(bool(torch.isfinite(got).all()) and tuple(got.shape) == (by_shape[shape]["rows"],),
+                f"recsys {shape}: logits of shape {tuple(got.shape)} or not finite")
+        require(err <= RECSYS_LOGIT_REL * scale, f"recsys {shape}: kernel and plain logits "
+                f"differ by {err} > {RECSYS_LOGIT_REL} x {scale}")
+        by_shape[shape].update(plain_s=plain_s, logits_max_abs_err=err, logits_max_abs=scale,
+                               first_logits=got[:4].tolist())
+        del got, plain
+    if on_gpu:
+        n = len(RECSYS_SERVE)
+        want = {name: 0 for name in launches}
+        want.update(embedding_bag=2 * n, cin_layer=len(cfg.cin_layers) * n)
+        require(launches == want, f"kernel launches on the recsys_serve path: {launches}, "
+                f"expected {want}")
+    line = {"config": {"name": cfg.name, "embed_dim": cfg.embed_dim, "n_fields": cfg.n_fields,
+                       "table_rows": sum(cfg.field_vocab_sizes),
+                       "cin_layers": list(cfg.cin_layers), "mlp_dims": list(cfg.mlp_dims)},
+            "params": _n_params(params), "n_params_config": cfg.n_params(), "init_s": init_s,
+            "logits_tolerance_rel": RECSYS_LOGIT_REL, "launches": launches,
+            "shapes": by_shape}
+    del params, inputs
+    if on_gpu:
+        torch.cuda.empty_cache()
+
+    others = {}
+    for name in RECSYS_OTHERS:
+        ocfg = get_config(name)
+        if on_gpu:
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        oparams = steps.init_model_params(
+            ocfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+        sync()
+        t2 = time.perf_counter()
+        step = steps.make_recsys_serve_step(ocfg)
+        inp, rows = _recsys_inputs(ocfg, "serve_p99", args.seed, dev)
+        step(oparams, **inp)  # warm-up
+        before = launch_counts()
+        sync()
+        t3 = time.perf_counter()
+        got = step(oparams, **inp)
+        sync()
+        t4 = time.perf_counter()
+        olaunches = {k: n - before[k] for k, n in launch_counts().items() if n - before[k]}
+        with recsys_kernels(plain=True):
+            plain = step(oparams, **inp)
+        err, scale = float((got - plain).abs().max()), float(plain.abs().max())
+        require(bool(torch.isfinite(got).all()) and tuple(got.shape) == (rows,),
+                f"{name}: scores of shape {tuple(got.shape)} or not finite")
+        require(err <= RECSYS_LOGIT_REL * scale,
+                f"{name}: kernel and plain scores differ by {err} > {RECSYS_LOGIT_REL} x {scale}")
+        if on_gpu:
+            require(olaunches.get("embedding_bag", 0) > 0,
+                    f"{name}: embedding_bag was not launched: {olaunches}")
+        others[name] = {"params": _n_params(oparams), "n_params_config": ocfg.n_params(),
+                        "rows": rows, "init_s": t2 - t1, "seconds": t4 - t3,
+                        "rows_per_s": rows / (t4 - t3), "launches": olaunches,
+                        "max_abs_err": err, "max_abs": scale,
+                        "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                                 if on_gpu else None)}
+        del oparams, got, plain
+        if on_gpu:
+            torch.cuda.empty_cache()
+    line["others_serve_p99"] = others
+    return line, seen
+
+
+def recsys_kernels_at_path(seen: list, reps: int) -> list[dict]:
+    """The recsys path's serve_bulk kernel calls against their plain
+    versions: the x0 lookup (bags of 1) and the linear term (bags of
+    n_fields), each CIN layer; timed: the x0 lookup and CIN layers 1 and 2
+    (layer 3 has layer 2's shape)."""
+    rows = []
+    names = [name for name, _ in seen]
+    require(names == ["embedding_bag", "embedding_bag", "cin_layer", "cin_layer", "cin_layer"],
+            f"the serve_bulk run made the kernel calls {names}")
+    labels = ["recsys_serve/serve_bulk/x0 lookup", "recsys_serve/serve_bulk/linear term",
+              "recsys_serve/serve_bulk/CIN layer 1", "recsys_serve/serve_bulk/CIN layer 2",
+              "recsys_serve/serve_bulk/CIN layer 3"]
+    for i, ((name, args), at) in enumerate(zip(seen, labels)):
+        rows.append(model_kernel_at_path(name, args, at, reps, timed=i in (0, 2, 3)))
+    return rows
+
+
+# ----------------------------------------------------------------------
 # serve phase
 # ----------------------------------------------------------------------
 def make_batch(docs, idx, rng, per_cell: int) -> list[tuple[str, str]]:
@@ -1357,10 +1986,14 @@ def _wrappers() -> dict:
     from repro_torch.kernels.flash_decode.ops import flash_decode
     from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
     from repro_torch.kernels.minhash_sig.ops import minhash_rows
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.cin_interaction.ops import cin_layer
+    from repro_torch.kernels.moe_gemm.ops import moe_gemm
     return {"anchor_probe_sliced": anchor_probe_sliced, "decode_rows": decode_rows,
             "probe_rows": probe_rows, "minhash_rows": minhash_rows,
             "anchor_probe": anchor_probe, "dgap_decode": dgap_decode,
-            "flash_attention_tpu": flash_attention_tpu, "flash_decode": flash_decode}
+            "flash_attention_tpu": flash_attention_tpu, "flash_decode": flash_decode,
+            "embedding_bag": embedding_bag, "cin_layer": cin_layer, "moe_gemm": moe_gemm}
 
 
 def launch_counts() -> dict:
@@ -1794,7 +2427,7 @@ def main() -> int:
 
     # the LM serving path (qwen3-8b at full width) with both attention kernels,
     # then the kernels at edge shapes and at the inputs the path handed them
-    lm, seen = lm_serve_path(args, dev)
+    lm, seen = lm_serve_path(args, dev, LM_CONFIG, args.lm_layers)
     emit("lm_serve", card=card, **lm)
     attn_edges = attention_edge_cases(dev, args.seed) + attention_at_path_f32(seen)
     attn_path = attention_at_path(seen, args.reps, True)
@@ -1810,6 +2443,48 @@ def main() -> int:
          max_abs_err=by_dtype("max_abs_err"), limit_used=by_dtype("limit_used"),
          widened_path=attn_edges[-3:], at_path=attn_path)
     require(not bad, f"{len(bad)} attention kernel outputs outside their tolerance, "
+            f"first {bad[:2]}")
+
+    # the recsys serving path (xDeepFM at full width, then FM, SASRec and
+    # two-tower at serve_p99), the MoE LM serving path (moonshot-v1-16b-a3b
+    # at full width), and the three model-side kernels at edge shapes and at
+    # the inputs the two paths handed them
+    rec, rec_calls = recsys_serve_path(args, dev)
+    rec_path = recsys_kernels_at_path(rec_calls, args.reps)
+    del rec_calls
+    torch.cuda.empty_cache()
+    emit("recsys_serve", card=card, **rec)
+    moe, moe_seen = lm_serve_path(args, dev, MOE_CONFIG, None, control=False)
+    moe_attn = attention_at_moe_path(moe_seen)
+    # layer 0's w_gate and w_down products (D 2,048 / 1,408), the first timed
+    moe_path = [model_kernel_at_path("moe_gemm", moe_seen["moe_gemm"][i][0], at, args.reps,
+                                     timed=at.endswith("w_gate"))
+                for at, i in zip(("moe_serve/prefill, layer 0, w_gate",
+                                  "moe_serve/prefill, layer 0, w_down",
+                                  "moe_serve/last decode step, layer 0, w_gate",
+                                  "moe_serve/last decode step, layer 0, w_down"),
+                                 sorted(moe_seen["moe_gemm"]))]
+    del moe_seen
+    torch.cuda.empty_cache()
+    emit("moe_serve", card=card, attention_at_path=moe_attn, **moe)
+    require(all(r["within_tolerance"] for r in moe_attn),
+            f"an attention kernel at the moe_serve path is outside its tolerance: {moe_attn}")
+    model_edges = model_kernel_edge_cases(dev, args.seed)
+    model_path = rec_path + moe_path
+    bad = [r for r in model_edges + model_path if not r["within_tolerance"]]
+    emit("model_kernels", card=card,
+         tolerance={"embedding_bag": 0, "cin_layer": "2 gamma(m Hk + 2) x plain(|x0|, |xk|, |w|)",
+                    "moe_gemm": "2 gamma(D + 1) x plain(|buf|, |w|)"},
+         timing=f"CUDA events, median of {args.reps} (of {MIN_REPS} for calls over "
+                f"{SLOW_CALL_MS} ms) after warm-up",
+         edge_cases=len(model_edges), wrapper_refusals=model_refusals(dev),
+         outside_tolerance=bad,
+         max_abs_err={k: max(r["max_abs_err"] for r in model_edges + model_path
+                             if r["kernel"] == k) for k in MODEL_KERNELS},
+         limit_used={k: max(r["limit_used"] for r in model_edges + model_path
+                            if r["kernel"] == k) for k in MODEL_KERNELS},
+         at_path=model_path)
+    require(not bad, f"{len(bad)} model-side kernel outputs outside their tolerance, "
             f"first {bad[:2]}")
 
     # one entry per kernel: the serving kernels at the positional fused shape
@@ -1849,6 +2524,15 @@ def main() -> int:
                                            if x["kernel"] == name),
                         "tolerance": _tolerance(name),
                         **{k: r[k] for k in timing_keys}, "at": r["at"]})
+    for name, at in (("embedding_bag", "recsys_serve/serve_bulk/x0 lookup"),
+                     ("cin_layer", "recsys_serve/serve_bulk/CIN layer 2"),
+                     ("moe_gemm", "moe_serve/prefill, layer 0, w_gate")):
+        r, = [x for x in model_path if x["at"] == at]
+        kernels.append({"name": name, **KERNEL_META[name],
+                        "launches": (rec if name != "moe_gemm" else moe)["launches"][name],
+                        "max_abs_err": max(x["max_abs_err"] for x in model_edges + model_path
+                                           if x["kernel"] == name),
+                        **{k: r[k] for k in timing_keys}, "at": at})
     require(len(kernels) == len(KERNEL_META), f"the kernels line lists {len(kernels)} "
             f"kernels, expected {len(KERNEL_META)}")
     emit("done", seconds=round(time.perf_counter() - t_start, 1))

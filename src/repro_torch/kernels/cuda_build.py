@@ -55,6 +55,12 @@ SIGNATURES = {
     #  q strides b/h, k strides b/s/k, v strides b/s/k, stream)
     "flash_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _L, _L, _L, _L, _L, _L, _L, _L, _P),
+    # (idx, table, out, n_bags, bag, D, V, row stride, dtype, stream)
+    "embedding_bag_launch": (_P, _P, _P, _L, _I, _I, _L, _L, _I, _P),
+    # (x0, xk, w, out, B, m, Hk, H, D, stream)
+    "cin_layer_launch": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # (buf, w, out, E, C, D, F, buf dtype, w dtype, stream)
+    "moe_gemm_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -173,12 +179,13 @@ def require_int32(name: str, t, ndim: int = 1) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-#: the attention kernels' element types, by the code their launch functions take
+#: the floating-point kernels' element types, by the code their launch
+#: functions take (``csrc/floats.cuh``)
 FLOAT_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 
 
 def require_float(name: str, t, ndim: int) -> int:
-    """The attention kernels take float32 or bfloat16 tensors of ``ndim``
+    """The floating-point kernels take float32 or bfloat16 tensors of ``ndim``
     dimensions, read by strides, whose last dimension is contiguous; returns
     the element type's code for the launch function."""
     import torch
@@ -200,3 +207,12 @@ def require_cuda(name: str, t) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} lies on {t.device}: the kernel takes CUDA tensors "
                          f"(a CPU tensor takes the plain version)")
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """The kernels have no backward (it comes with the training slice): a
+    call that autograd would have to differentiate is refused."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name} has no backward yet; call it under torch.no_grad()")

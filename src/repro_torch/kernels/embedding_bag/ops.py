@@ -1,0 +1,88 @@
+"""EmbeddingBag: ``out[b] = sum_{s < bag} table[indices[b * bag + s]]``, in
+float32, for a table of any float dtype.
+
+On a CUDA tensor ``embedding_bag`` launches ``csrc/embedding_bag.cu`` (or
+raises); on a CPU tensor it runs ``embedding_bag_torch``, the plain PyTorch
+version of the same function.  Both sum each bag from 0 in the order of its
+indices, one float32 add at a time, so they agree bit for bit.  A row
+outside ``[0, V)`` is never read: its bag comes out NaN, as the reference's
+``jnp.take`` fills such rows with NaN (callers that want an error check
+their indices first, as ``models.recsys`` does).  Unlike the reference's
+op, the table is not padded to 128 columns.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import cuda_build
+
+
+def _flat(indices: torch.Tensor, table: torch.Tensor, bag_size: int):
+    """(flat indices, n_bags, bag) from the reference op's two forms:
+    (n_bags, bag) indices, or flat indices with ``bag_size``."""
+    if indices.is_floating_point() or indices.is_complex() or indices.dtype == torch.bool:
+        raise TypeError(f"indices: expected an integer tensor, got {indices.dtype}")
+    if table.dim() != 2:
+        raise ValueError(f"table: expected (V, D), got shape {tuple(table.shape)}")
+    if indices.dim() == 2:
+        return indices.reshape(-1), indices.shape[0], indices.shape[1]
+    if indices.dim() != 1:
+        raise ValueError(f"indices: expected 1 or 2 dimensions, got {tuple(indices.shape)}")
+    if bag_size < 1 or indices.shape[0] % bag_size:
+        raise ValueError(f"{indices.shape[0]} indices do not make bags of {bag_size}")
+    return indices, indices.shape[0] // bag_size, bag_size
+
+
+def embedding_bag_torch(indices: torch.Tensor, table: torch.Tensor,
+                        bag_size: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of :func:`embedding_bag`: the bag's rows
+    gathered at once, then added to a float32 zero one position at a time."""
+    idx, n_bags, bag = _flat(indices, table, bag_size)
+    v, d = table.shape
+    idx = idx.long().reshape(n_bags, bag)
+    live = (idx >= 0) & (idx < v)
+    safe = table if v else table.new_zeros((1, d))
+    rows = safe[torch.where(live, idx, 0)]
+    out = torch.zeros((n_bags, d), dtype=torch.float32, device=table.device)
+    nan = torch.tensor(float("nan"), device=table.device)
+    for s in range(bag):
+        out = out + torch.where(live[:, s, None], rows[:, s].float(), nan)
+    return out
+
+
+def embedding_bag(indices: torch.Tensor, table: torch.Tensor, bag_size: int = 1) -> torch.Tensor:
+    """indices (n_bags, bag) — or flat, with ``bag_size`` — of any integer
+    dtype (cast to int32, as the reference's op does); table (V, D) ->
+    (n_bags, D) float32 bag sums.
+
+    The kernel takes a float32 or bfloat16 table whose columns are
+    contiguous (its rows may lie any stride apart: ``linear[:, None]`` is
+    read in place) and indices on the table's device.  It has no backward:
+    a call that would need one is refused.
+    """
+    if table.device.type == "cpu":
+        return embedding_bag_torch(indices, table, bag_size)
+    cuda_build.require_cuda("table", table)
+    dtype = cuda_build.require_float("table", table, 2)
+    idx, n_bags, bag = _flat(indices, table, bag_size)
+    if idx.device != table.device:
+        raise ValueError(f"indices lie on {idx.device}, the table on {table.device}")
+    cuda_build.require_no_grad("embedding_bag", table)
+    idx = idx.to(torch.int32).contiguous()
+    v, d = table.shape
+    out = torch.empty((n_bags, d), dtype=torch.float32, device=table.device)
+    if out.numel() == 0:
+        return out
+    lib = cuda_build.load()
+    with torch.cuda.device(table.device):
+        code = lib.embedding_bag_launch(idx.data_ptr(), table.data_ptr(), out.data_ptr(),
+                                        n_bags, bag, d, v, table.stride(0), dtype,
+                                        cuda_build.stream_ptr())
+    cuda_build.check(code, "embedding_bag")
+    embedding_bag.launches += 1
+    return out
+
+
+#: kernel launches made by the wrapper (never raised by the plain version)
+embedding_bag.launches = 0

@@ -71,9 +71,7 @@ def flash_attention_tpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd}: the kernel is built for {HEAD_DIMS}")
     cuda_build.require_cuda("q", q)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("flash_attention_tpu has no backward yet; call it under "
-                                  "torch.no_grad()")
+    cuda_build.require_no_grad("flash_attention_tpu", q, k, v)
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
     if b == 0 or t == 0 or h == 0:
         return out

@@ -1,0 +1,79 @@
+"""The grouped expert product over the MoE dispatch buffer:
+``out[e] = buf[e] @ w[e]``, buf (E, C, D), w (E, D, F), out (E, C, F)
+float32.
+
+On a CUDA tensor ``moe_gemm`` launches ``csrc/moe_gemm.cu`` (or raises), one
+launch for every expert; on a CPU tensor it runs ``moe_gemm_torch``, the
+plain PyTorch version: both operands widened to float32, one batched
+product.  Both sum float32 products of the widened operands; they differ
+only in the order of the sums.  Neither pads C, D or F (the reference's op
+pads them to its TPU tiles).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import cuda_build
+
+#: most experts one launch takes (the grid's z extent)
+MAX_EXPERTS = 65535
+
+
+def _check_shapes(buf: torch.Tensor, w: torch.Tensor) -> None:
+    if buf.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"expected buf (E, C, D) and w (E, D, F), got {tuple(buf.shape)}, "
+                         f"{tuple(w.shape)}")
+    if buf.shape[0] != w.shape[0] or buf.shape[2] != w.shape[1]:
+        raise ValueError(f"buf {tuple(buf.shape)} and w {tuple(w.shape)} do not fit")
+
+
+def moe_gemm_torch(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`moe_gemm`."""
+    _check_shapes(buf, w)
+    return torch.bmm(buf.float(), w.float())
+
+
+def _operand(name: str, t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The kernel reads float32 or bfloat16 in place; another float dtype is
+    widened to float32 first (the reference's kernel casts in its body)."""
+    if not t.is_floating_point():
+        raise TypeError(f"{name}: expected a float tensor, got {t.dtype}")
+    if str(t.dtype) not in cuda_build.FLOAT_CODES:
+        t = t.float()
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    return t, cuda_build.require_float(name, t, 3)
+
+
+def moe_gemm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """buf (E, C, D), w (E, D, F), contiguous, of any float dtypes (not
+    necessarily the same) on one device -> (E, C, F) float32.  It has no
+    backward: a call that would need one is refused."""
+    _check_shapes(buf, w)
+    if buf.device.type == "cpu":
+        return moe_gemm_torch(buf, w)
+    cuda_build.require_cuda("buf", buf)
+    if w.device != buf.device:
+        raise ValueError(f"w lies on {w.device}, buf on {buf.device}")
+    cuda_build.require_no_grad("moe_gemm", buf, w)
+    buf, buf_dtype = _operand("buf", buf)
+    w, w_dtype = _operand("w", w)
+    e, c, d = buf.shape
+    f = w.shape[2]
+    if e > MAX_EXPERTS:
+        raise ValueError(f"{e} experts: one launch takes at most {MAX_EXPERTS}")
+    out = torch.empty((e, c, f), dtype=torch.float32, device=buf.device)
+    if out.numel() == 0:
+        return out
+    lib = cuda_build.load()
+    with torch.cuda.device(buf.device):
+        code = lib.moe_gemm_launch(buf.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
+                                   buf_dtype, w_dtype, cuda_build.stream_ptr())
+    cuda_build.check(code, "moe_gemm")
+    moe_gemm.launches += 1
+    return out
+
+
+#: kernel launches made by the wrapper (never raised by the plain version)
+moe_gemm.launches = 0

@@ -1,3 +1,4 @@
-"""Model side of the port: the dense decoder-only LM's serving path
-(``transformer``, ``steps``) over plain tensor layers (``layers``, ``flash``)
-and the hand-written attention kernels."""
+"""Model side of the port: the LM serving path, dense and MoE
+(``transformer``, ``steps``), and the recsys serving path (``recsys``,
+``steps``) over plain tensor layers (``layers``, ``flash``) and the
+hand-written kernels."""

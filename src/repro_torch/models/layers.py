@@ -13,16 +13,21 @@ PyTorch's defaults in two places, both made explicit here:
 * ``rms_norm`` multiplies its float32 normalised input by a scale of the
   model's dtype, which promotes to float32 in both frameworks.
 
-The reference's sort-based MoE (``MoEDims`` / ``moe_block``) belongs to a
-later slice of the port.
+The reference's sort-based MoE (``MoEDims`` / ``moe_block``) runs its three
+expert products through ``kernels.moe_gemm`` (or its plain version, as the
+caller chooses); its routing and dispatch are plain tensor code here.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels.moe_gemm.ops import moe_gemm
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -130,8 +135,114 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(g) * u) @ w_down
 
 
-def moe_block(*args, **kwargs):
-    raise NotImplementedError(
-        "moe_block (the reference's sort-based MoE dispatch) is not ported yet: it "
-        "comes with the MoE slice (ROADMAP Queue A item 7, with the moe_gemm kernel, "
-        "Queue B row 11)")
+# ----------------------------------------------------------------------
+# MoE: sort-based dispatch with static capacity (dropless up to capacity)
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MoEDims:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+
+
+@contextlib.contextmanager
+def _float32_matmuls():
+    """CUDA float32 products in full float32 for the time of the block,
+    whatever the caller set: under TF32 the router's near-ties would flip."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def moe_router(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """The float32 router: ``(probs (N, E), gates (N, k), experts (N, k))``.
+
+    Top-k by a stable descending sort, so that tied probabilities pick the
+    lower expert first, as ``jax.lax.top_k`` does (``torch.topk`` promises
+    no order for ties, and a zero row or router ties every expert); the k
+    gates are normalised to sum to 1."""
+    with _float32_matmuls():
+        logits = x.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = gates[:, :top_k], experts[:, :top_k]
+    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    return probs, gates, experts
+
+
+def moe_dispatch(experts: torch.Tensor, dims: MoEDims, n_groups: int = 1) -> dict:
+    """The group-local capacity plan of (token, slot) choices ``experts``
+    (N, k): ``order`` (G, S*k) sorts each group's choices by expert, stably
+    (which token a full expert drops depends on it); ``expert``, ``token``
+    the sorted choices' expert and token (within its group); ``pos`` their
+    place in their expert's queue; ``keep`` = ``pos < cap``; ``cap`` =
+    ``ceil(S * k / E * capacity_factor)``."""
+    n, k = experts.shape
+    if n % n_groups:
+        raise ValueError(f"{n} tokens do not split into {n_groups} groups")
+    s = n // n_groups
+    ge = experts.reshape(n_groups, s * k)
+    order = torch.argsort(ge, dim=1, stable=True)
+    se = torch.gather(ge, 1, order)
+    st = order // k  # token of each sorted choice (choices are token-major)
+    first = torch.searchsorted(se.contiguous(), se.contiguous(), right=False)
+    pos = torch.arange(s * k, device=experts.device)[None, :] - first
+    cap = int(math.ceil(s * k / dims.n_experts * dims.capacity_factor))
+    return {"order": order, "expert": se, "token": st, "pos": pos, "keep": pos < cap,
+            "cap": cap}
+
+
+def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
+              w_up: torch.Tensor, w_down: torch.Tensor, dims: MoEDims, n_groups: int = 1,
+              gemm=None, with_aux: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Top-k MoE with grouped sort-based capacity dispatch, as the
+    reference's ``moe_block`` (``dp_axes`` / ``ep_axis`` are mesh sharding
+    hints with no counterpart on one card).
+
+    x: (N, D) tokens; router_w (D, E); w_gate, w_up (E, D, F); w_down
+    (E, F, D).  ``gemm(buf, w)`` computes the three expert products over the
+    (E, G * C, D) buffer (default ``kernels.moe_gemm``); each product comes
+    back in float32 and is cast to ``x.dtype``, as the reference's einsum
+    output is.  Each token's k weighted expert outputs are summed in slot
+    order (no float atomics).  No step waits for the device: every index
+    is a tensor, and a dropped choice writes to a scratch slot.  Returns
+    (out (N, D) in ``x.dtype``, the Switch-style aux loss, or None without
+    ``with_aux``)."""
+    gemm = gemm or moe_gemm
+    n, d = x.shape
+    e, k, g = dims.n_experts, dims.top_k, n_groups
+    probs, gates, experts = moe_router(x, router_w, k)
+
+    aux = None
+    if with_aux:  # Switch-style load balancing
+        me = probs.mean(dim=0)
+        chosen = experts.reshape(-1, 1) == torch.arange(e, device=x.device)
+        ce = chosen.sum(dim=0).float() / (n * k)
+        aux = e * torch.sum(me * ce)
+
+    plan = moe_dispatch(experts, dims, g)
+    s, cap = n // g, plan["cap"]
+    keep, se, st = plan["keep"], plan["expert"], plan["token"]
+    slot = torch.clamp(plan["pos"], max=cap - 1)
+    gi = torch.arange(g, device=x.device)[:, None].expand(g, s * k)
+    # dispatch buffer (G, E * C + 1, D): each kept choice owns its row, every
+    # dropped one writes to the scratch row E * C, which is then cut off
+    buf = torch.zeros((g, e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[gi, torch.where(keep, se * cap + slot, e * cap)] = x.reshape(g, s, d)[gi, st]
+    buf = buf[:, :e * cap].reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    gate = gemm(buf, w_gate).to(x.dtype)
+    up = gemm(buf, w_up).to(x.dtype)
+    y = gemm(F.silu(gate) * up, w_down).to(x.dtype)
+    y = y.reshape(e, g, cap, d).transpose(0, 1)  # (G, E, C, D)
+    # combine: each choice's output back in (token, slot) order
+    tok_out = torch.where(keep[..., None], y[gi, se, slot], 0).float()  # sorted order
+    by_choice = torch.empty_like(tok_out)
+    by_choice[gi, plan["order"]] = tok_out
+    weighted = by_choice.reshape(n, k, d) * gates[..., None]
+    out = weighted[:, 0]
+    for r in range(1, k):
+        out = out + weighted[:, r]
+    return out.to(x.dtype), aux

@@ -1,24 +1,28 @@
-"""Decoder-only transformer (dense), the LM serving path.
+"""Decoder-only transformer (dense + MoE), the LM serving path.
 
 * parameters in the reference's orientation — ``(in, out)`` matrices with a
   leading ``n_layers`` axis (``repro.models.transformer.init_params``) — held
   as ``nn.Parameter``s of a :class:`Transformer`, so that carrying the
   reference's weights across is a copy (:func:`params_from_reference`);
-* GQA with optional qk-norm (Qwen3), RoPE, SwiGLU; a Python loop over the
-  layers where the reference scans;
+* GQA with optional qk-norm (Qwen3), RoPE, SwiGLU; MoE layers through the
+  sort-based capacity dispatch of ``layers.moe_block``; a Python loop over
+  the layers where the reference scans;
 * ``forward`` — prefill path, returning the (L, 2, B, T, K, hd) bf16 cache;
 * ``decode_step`` — single-token serve path against that cache, padded by the
   caller; it writes the new token's K/V into the cache **in place** (the
   reference returns a new cache: copying a 1.2 GB cache every step would
   cost more than the step).
 
-``attention`` selects the attention code, as ``probe=`` does in the serving
-engine: ``"kernel"`` the hand-written CUDA kernels
+``attention`` selects the kernels of a layer, as ``probe=`` does in the
+serving engine: ``"kernel"`` the hand-written CUDA kernels
 (``kernels.flash_attention_tpu`` in prefill, ``kernels.flash_decode`` in
-decode), ``"torch"`` the plain path (``models.flash.flash_attention``,
-``layers.decode_attention``), ``None`` the kernels for CUDA tensors and the
-plain path for CPU tensors.  ``"kernel"`` on the CPU raises.  MoE layers and
-the training loss come with later slices.
+decode, and ``kernels.moe_gemm`` for the expert products of MoE layers),
+``"torch"`` the plain path (``models.flash.flash_attention``,
+``layers.decode_attention``, ``moe_gemm_torch``), ``None`` the kernels for
+CUDA tensors and the plain path for CPU tensors.  ``"kernel"`` on the CPU
+raises.  The MoE layers' mesh sharding hints (``moe_dp_axes``) have no
+counterpart on one card and are refused.  The training loss comes with a
+later slice.
 """
 
 from __future__ import annotations
@@ -33,8 +37,9 @@ from ..configs.base import LMConfig
 from ..core.device import resolve_device
 from ..kernels.flash_attention.ops import flash_attention_tpu
 from ..kernels.flash_decode.ops import flash_decode
+from ..kernels.moe_gemm.ops import moe_gemm, moe_gemm_torch
 from .flash import flash_attention
-from .layers import apply_rope, decode_attention, rms_norm, swiglu
+from .layers import MoEDims, apply_rope, decode_attention, moe_block, rms_norm, swiglu
 
 ATTENTION = ("kernel", "torch")
 
@@ -53,22 +58,31 @@ def _layer_shapes(cfg: LMConfig) -> dict[str, tuple[tuple[int, ...], int | None]
               "wo": ((L, h * hd, d), h * hd), "ffn_norm": ((L, d), None)}
     if cfg.qk_norm:
         shapes.update(q_norm=((L, hd), None), k_norm=((L, hd), None))
-    shapes.update(w_gate=((L, d, f), d), w_up=((L, d, f), d), w_down=((L, f, d), f))
+    if cfg.moe:
+        e, fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        shapes.update(router=((L, d, e), d), w_gate=((L, e, d, fe), d),
+                      w_up=((L, e, d, fe), d), w_down=((L, e, fe, d), fe))
+        if cfg.moe.n_shared_experts:
+            fs = cfg.moe.n_shared_experts * fe
+            shapes.update(ws_gate=((L, d, fs), d), ws_up=((L, d, fs), d),
+                          ws_down=((L, fs, d), fs))
+    else:
+        shapes.update(w_gate=((L, d, f), d), w_up=((L, d, f), d), w_down=((L, f, d), f))
     return shapes
 
 
 class Transformer(nn.Module):
-    """The parameters of a dense decoder-only LM: ``embed`` (V, D),
+    """The parameters of a decoder-only LM: ``embed`` (V, D),
     ``layers`` (stacked, see :func:`_layer_shapes`), ``final_norm`` (D,) and,
     unless the embeddings are tied, ``lm_head`` (D, V).  Uninitialised: use
     :func:`init_params` or :func:`params_from_reference`."""
 
     def __init__(self, cfg: LMConfig, device: torch.device):
         super().__init__()
-        if cfg.moe:
+        if cfg.moe_dp_axes is not None:
             raise NotImplementedError(
-                f"{cfg.name} is a MoE model: MoE layers come with the MoE slice "
-                f"(ROADMAP Queue A item 7, with the moe_gemm kernel, Queue B row 11)")
+                f"{cfg.name}: moe_dp_axes={cfg.moe_dp_axes!r} asks for the reference's mesh "
+                f"sharding of the MoE layers, which has no counterpart on one card")
         self.cfg = cfg
         dt = _dtype(cfg)
         empty = lambda *shape: nn.Parameter(  # noqa: E731
@@ -99,7 +113,7 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device="cuda") -> Tra
     model = Transformer(cfg, dev)
 
     def draw(param: torch.Tensor, fan: int) -> None:
-        for part in (param if param.dim() == 3 else [param]):
+        for part in (param if param.dim() >= 3 else [param]):
             part.copy_(torch.randn(part.shape, generator=generator, device=dev,
                                    dtype=torch.float32) / math.sqrt(fan))
 
@@ -170,9 +184,22 @@ def _qkv(cfg: LMConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor):
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
-def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, att: str, with_aux: bool = True):
+    """The feed-forward half of a layer: ``(x + ffn(x), MoE aux loss)`` (the
+    loss None without ``with_aux``)."""
     xn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    return x + swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"])
+    if not cfg.moe:
+        return x + swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
+    b, t, d = x.shape
+    dims = MoEDims(cfg.moe.n_experts, cfg.moe.top_k)
+    y, aux = moe_block(xn.reshape(b * t, d), lp["router"], lp["w_gate"], lp["w_up"],
+                       lp["w_down"], dims, n_groups=cfg.moe_groups,
+                       gemm=moe_gemm if att == "kernel" else moe_gemm_torch,
+                       with_aux=with_aux)
+    y = y.reshape(b, t, d)
+    if cfg.moe.n_shared_experts:
+        y = y + swiglu(xn, lp["ws_gate"], lp["ws_up"], lp["ws_down"])
+    return x + y, aux
 
 
 def _logits(cfg: LMConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
@@ -185,7 +212,8 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
             attention: str | None = None):
     """tokens (B, T) -> (logits (B, T, V), aux) [+ cache (L, 2, B, T, K, hd)
     bf16].  ``logits_mode="last"`` computes the LM head only for the final
-    position (prefill).  ``aux`` is the MoE load-balancing loss, 0 here.
+    position (prefill).  ``aux`` is the MoE load-balancing loss summed over
+    the layers (0 for a dense model).
     Runs without gradients: the kernels have no backward before the training
     slice."""
     att = resolve_attention(attention, tokens.device)
@@ -197,6 +225,7 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
     if return_cache:
         cache = torch.empty((cfg.n_layers, 2, b, t, cfg.n_kv_heads, cfg.head_dim),
                             dtype=torch.bfloat16, device=dev)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for i in range(cfg.n_layers):
         lp = params.layer(i)
         q, k, v = _qkv(cfg, lp, x, positions)
@@ -205,14 +234,14 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
         else:
             o = flash_attention(q, k, v, True, min(1024, t))
         x = x + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ lp["wo"]
-        x = _ffn(cfg, lp, x)
+        x, layer_aux = _ffn(cfg, lp, x, att)
+        aux = aux + layer_aux
         if cache is not None:
             cache[i, 0].copy_(k)
             cache[i, 1].copy_(v)
     if logits_mode == "last":
         x = x[:, -1:]
     logits = _logits(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     if return_cache:
         return logits, aux, cache
     return logits, aux
@@ -260,5 +289,5 @@ def decode_step(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
         else:
             o = decode_attention(q, k_cache, v_cache, pos)
         x = x + o.reshape(b, 1, h * hd) @ lp["wo"]
-        x = _ffn(cfg, lp, x)
+        x, _ = _ffn(cfg, lp, x, att, with_aux=False)
     return _logits(cfg, params, x)[:, 0], kv_cache

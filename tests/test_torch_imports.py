@@ -56,7 +56,10 @@ def test_module_list_covers_the_slice():
                    "repro_torch.kernels.flash_attention.ops",
                    "repro_torch.kernels.flash_attention.ref",
                    "repro_torch.kernels.flash_decode", "repro_torch.kernels.flash_decode.ops",
-                   "repro_torch.kernels.flash_decode.ref"):
+                   "repro_torch.kernels.flash_decode.ref", "repro_torch.models.recsys",
+                   *(f"repro_torch.kernels.{k}{m}" for k in (
+                       "embedding_bag", "cin_interaction", "moe_gemm")
+                     for m in ("", ".ops", ".ref"))):
         assert needed in MODULES, needed
 
 

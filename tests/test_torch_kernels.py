@@ -27,6 +27,12 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_decode import ops as fdec_ops
 from repro_torch.kernels.fused_decode import ops as fd_ops
 from repro_torch.kernels.fused_decode.ref import decode_rows_ref, probe_rows_ref
+from repro_torch.kernels.cin_interaction import ops as cin_ops
+from repro_torch.kernels.cin_interaction.ref import cin_layer_ref
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.moe_gemm import ops as mg_ops
+from repro_torch.kernels.moe_gemm.ref import moe_gemm_ref
 
 
 def t32(a) -> torch.Tensor:
@@ -380,9 +386,9 @@ def test_new_wrappers_refuse_other_devices():
 
 
 def test_package_exports_the_index_side_ops():
-    """``repro_torch.kernels`` exports the reference's public ops but the
-    three model-side ones whose slices have not come (``cin_layer``,
-    ``embedding_bag``, ``moe_gemm``), and importing it builds and loads
+    """``repro_torch.kernels`` exports every public op of the reference —
+    the index-side ones and, since the model-side slice, ``cin_layer``,
+    ``embedding_bag`` and ``moe_gemm`` — and importing it builds and loads
     nothing."""
     import subprocess
     import sys
@@ -391,14 +397,17 @@ def test_package_exports_the_index_side_ops():
     import repro.kernels as ref_kernels
     import repro_torch.kernels as kernels
 
-    model_side = {"cin_layer", "embedding_bag", "moe_gemm"}
-    assert sorted(kernels.__all__) == sorted(set(ref_kernels.__all__) - model_side)
+    assert sorted(kernels.__all__) == sorted(ref_kernels.__all__)
+    assert len(kernels.__all__) == 11
     for name in kernels.__all__:
         assert callable(getattr(kernels, name)), name
     assert kernels.anchor_probe is ai_ops.anchor_probe
     assert kernels.dgap_decode is dg_ops.dgap_decode
     assert kernels.flash_attention_tpu is fa_ops.flash_attention_tpu
     assert kernels.flash_decode is fdec_ops.flash_decode
+    assert kernels.embedding_bag is eb_ops.embedding_bag
+    assert kernels.cin_layer is cin_ops.cin_layer
+    assert kernels.moe_gemm is mg_ops.moe_gemm
     src = Path(__file__).resolve().parent.parent / "src"
     code = ("import sys, repro_torch.kernels as k\n"
             "from repro_torch.kernels import cuda_build\n"
@@ -408,7 +417,7 @@ def test_package_exports_the_index_side_ops():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(src), "PATH": "/usr/bin:/bin"})
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "8"
+    assert res.stdout.strip() == "11"
 
 
 # ----------------------------------------------------------------------
@@ -585,3 +594,144 @@ def test_attention_wrappers_count_no_launch_on_cpu():
     fa_ops.flash_attention_tpu(x, x[:, :, :1], x[:, :, :1])
     fdec_ops.flash_decode(x[:, :1], x, x, torch.zeros(1, dtype=torch.int32))
     assert before == (fa_ops.flash_attention_tpu.launches, fdec_ops.flash_decode.launches)
+
+
+# ----------------------------------------------------------------------
+# the model-side kernels' plain versions against the Pallas ops
+# ----------------------------------------------------------------------
+def _gamma(n: int) -> float:
+    """n u / (1 - n u), u = 2^-24: the relative bound on a float32 sum of n
+    terms in any order, over the sum of the terms' magnitudes."""
+    return n * 2.0 ** -24 / (1 - n * 2.0 ** -24)
+
+
+def _jax_pair(rng, shape, dtype):
+    a = rng.normal(size=shape).astype(np.float32)
+    j = jnp.asarray(a, jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(dtype)
+
+
+@pytest.mark.parametrize("nb,bs,v,d", [(2, 2, 10, 8), (16, 39, 1000, 10), (8, 5, 128, 130),
+                                       (3, 1, 7, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_plain_vs_pallas(nb, bs, v, d, dtype):
+    """Both sum each bag from 0 in index order in float32: equal bit for bit
+    (the reference's op pads D to 128 and slices it back)."""
+    from repro.kernels.embedding_bag.ops import embedding_bag as ref_embedding_bag
+    from repro.kernels.embedding_bag.ref import embedding_bag_ref as ref_oracle
+
+    rng = np.random.default_rng(nb * 100 + bs)
+    idx = rng.integers(0, v, (nb, bs)).astype(np.int32)
+    jt, tt = _jax_pair(rng, (v, d), dtype)
+    got = eb_ops.embedding_bag(torch.from_numpy(idx), tt, bs)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (nb, d)
+    want = ref_embedding_bag(jnp.asarray(idx), jt, bs, interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    flat = eb_ops.embedding_bag(torch.from_numpy(idx.reshape(-1)), tt, bs)
+    assert torch.equal(flat, got)
+    assert np.array_equal(got.numpy(), np.asarray(ref_oracle(jnp.asarray(idx.reshape(-1)), jt, bs)))
+    oracle = embedding_bag_ref(idx.reshape(-1), tt.float().numpy(), bs)
+    assert np.abs(got.numpy() - oracle).max() <= _gamma(bs) * np.abs(oracle).max() + 1e-30
+
+
+def test_embedding_bag_edges():
+    """A bag holding a row outside [0, V) is NaN (never read); int64 indices,
+    a table read by row stride (``linear[:, None]``), bags of 0 and no bags."""
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.normal(size=(20, 3)).astype(np.float32))
+    idx = torch.tensor([[0, 5], [19, 20], [-1, 2], [7, 7]], dtype=torch.int32)
+    got = eb_ops.embedding_bag(idx, table)
+    want = embedding_bag_ref(idx.reshape(-1).numpy(), table.numpy(), 2)
+    assert np.array_equal(np.isnan(got.numpy()), np.isnan(want))
+    assert torch.isnan(got[1]).all() and torch.isnan(got[2]).all()
+    assert np.abs(got.numpy()[[0, 3]] - want[[0, 3]]).max() < 1e-6
+    assert torch.equal(eb_ops.embedding_bag(idx[[0, 3]].long(), table), got[[0, 3]])
+    lin = torch.from_numpy(rng.normal(size=(50,)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 50, 4 * 39).astype(np.int32))
+    assert torch.equal(eb_ops.embedding_bag(ids, lin[:, None], 39),
+                       eb_ops.embedding_bag(ids, lin[:, None].contiguous(), 39))
+    assert torch.equal(eb_ops.embedding_bag(torch.zeros((4, 0), dtype=torch.int32), table),
+                       torch.zeros((4, 3)))
+    assert tuple(eb_ops.embedding_bag(torch.zeros(0, dtype=torch.int32), table, 3).shape) == (0, 3)
+    with pytest.raises(ValueError, match="bags of"):
+        eb_ops.embedding_bag(torch.zeros(5, dtype=torch.int32), table, 2)
+    with pytest.raises(TypeError, match="integer"):
+        eb_ops.embedding_bag(torch.zeros(4), table, 2)
+
+
+@pytest.mark.parametrize("b,m,hk,h,d", [(4, 6, 8, 5, 10), (3, 4, 4, 7, 130), (9, 39, 20, 16, 10),
+                                        (1, 1, 1, 1, 1)])
+def test_cin_layer_plain_vs_pallas(b, m, hk, h, d, monkeypatch):
+    """Within 2 gamma_(m Hk + 2) of the sum of |terms| of the Pallas op (in
+    interpret mode) and of the float64 oracle, elementwise; the batch
+    chunks of the plain version change nothing but the sums' order."""
+    from repro.kernels.cin_interaction.ops import cin_layer as ref_cin_layer
+    from repro.kernels.cin_interaction.ref import cin_layer_ref as ref_oracle
+
+    rng = np.random.default_rng(b * 1000 + m * 10 + h)
+    x0, xk, w = (rng.normal(size=s).astype(np.float32) for s in ((b, m, d), (b, hk, d), (m * hk, h)))
+    got = cin_ops.cin_layer(*(torch.from_numpy(a) for a in (x0, xk, w)))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (b, h, d)
+    limit = 2 * _gamma(m * hk + 2) * cin_layer_ref(np.abs(x0), np.abs(xk), np.abs(w))
+    want = np.asarray(ref_cin_layer(jnp.asarray(x0), jnp.asarray(xk), jnp.asarray(w),
+                                    interpret=True))
+    assert np.all(np.abs(got.numpy() - want) <= limit)
+    assert np.all(np.abs(got.numpy() - cin_layer_ref(x0, xk, w)) <= limit)
+    assert np.all(np.abs(got.numpy() - np.asarray(ref_oracle(x0, xk, w))) <= limit)
+    monkeypatch.setattr(cin_ops, "PLAIN_CHUNK_BYTES", 4 * m * hk * d)  # one row a chunk
+    chunked = cin_ops.cin_layer(*(torch.from_numpy(a) for a in (x0, xk, w)))
+    assert np.all(np.abs(chunked.numpy() - got.numpy()) <= limit)
+
+
+def test_cin_layer_casts_and_checks():
+    x0 = torch.randn((2, 3, 4), dtype=torch.float64)
+    xk = torch.randn((2, 5, 4)).to(torch.bfloat16)
+    w = torch.randn((15, 6))
+    got = cin_ops.cin_layer(x0, xk, w)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, cin_ops.cin_layer(x0.float(), xk.float(), w))
+    with pytest.raises(ValueError, match="do not fit"):
+        cin_ops.cin_layer(x0, xk, w[:14])
+    assert torch.equal(cin_ops.cin_layer(x0[:, :0], xk, w[:0]), torch.zeros((2, 6, 4)))
+
+
+@pytest.mark.parametrize("e,c,d,f", [(2, 8, 16, 16), (4, 100, 64, 200), (3, 1, 70, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_plain_vs_pallas(e, c, d, f, dtype):
+    """Within 2 gamma_(D + 1) of the sum of |terms| of the Pallas op (in
+    interpret mode) and of the float64 oracle, elementwise."""
+    from repro.kernels.moe_gemm.ops import moe_gemm as ref_moe_gemm
+    from repro.kernels.moe_gemm.ref import moe_gemm_ref as ref_oracle
+
+    rng = np.random.default_rng(e * 1000 + c + d)
+    (jb, tb), (jw, tw) = _jax_pair(rng, (e, c, d), dtype), _jax_pair(rng, (e, d, f), dtype)
+    got = mg_ops.moe_gemm(tb, tw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (e, c, f)
+    limit = 2 * _gamma(d + 1) * moe_gemm_ref(tb.float().abs().numpy(), tw.float().abs().numpy())
+    want = np.asarray(ref_moe_gemm(jb, jw, interpret=True))
+    assert np.all(np.abs(got.numpy() - want) <= limit)
+    assert np.all(np.abs(got.numpy() - np.asarray(ref_oracle(jb, jw))) <= limit)
+    assert np.all(np.abs(got.numpy() - moe_gemm_ref(tb.float().numpy(), tw.float().numpy()))
+                  <= limit)
+
+
+def test_model_side_wrappers_refuse_other_devices_and_count_no_launch():
+    """On the CPU each wrapper runs its plain version and counts nothing; a
+    tensor on another device is refused."""
+    before = (eb_ops.embedding_bag.launches, cin_ops.cin_layer.launches,
+              mg_ops.moe_gemm.launches)
+    eb_ops.embedding_bag(torch.zeros(4, dtype=torch.int32), torch.zeros((3, 2)), 2)
+    cin_ops.cin_layer(torch.zeros((1, 2, 3)), torch.zeros((1, 2, 3)), torch.zeros((4, 5)))
+    mg_ops.moe_gemm(torch.zeros((2, 3, 4)), torch.zeros((2, 4, 5)))
+    meta = lambda *s: torch.zeros(s, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="lies on meta"):
+        eb_ops.embedding_bag(torch.zeros(4, dtype=torch.int32, device="meta"), meta(3, 2), 2)
+    with pytest.raises(ValueError, match="lies on meta"):
+        cin_ops.cin_layer(meta(1, 2, 3), meta(1, 2, 3), meta(4, 5))
+    with pytest.raises(ValueError, match="lies on meta"):
+        mg_ops.moe_gemm(meta(2, 3, 4), meta(2, 4, 5))
+    with pytest.raises(ValueError, match="do not fit"):
+        mg_ops.moe_gemm(torch.zeros((2, 3, 4)), torch.zeros((2, 5, 5)))
+    assert before == (eb_ops.embedding_bag.launches, cin_ops.cin_layer.launches,
+                      mg_ops.moe_gemm.launches)
+

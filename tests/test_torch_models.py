@@ -320,14 +320,22 @@ def test_init_params_layout_and_determinism():
     n = sum(p.numel() for p in a.parameters())
     assert n == cfg.n_params() + (2 * cfg.head_dim * cfg.n_layers if cfg.qk_norm else 0)
     assert 0.8 < float(a.layers["wq"].detach().std()) * np.sqrt(cfg.d_model) < 1.2
-    with pytest.raises(NotImplementedError, match="MoE"):
-        steps.init_model_params(configs.get_config("moonshot-v1-16b-a3b").reduced(),
-                                torch.Generator(), "cpu")
+    # the MoE model (its slice has come): the reference's layer names and
+    # shapes, router and experts drawn with the reference's fan-ins
+    moe_cfg = configs.get_config("moonshot-v1-16b-a3b").reduced()
+    moe = steps.init_model_params(moe_cfg, torch.Generator().manual_seed(3), "cpu")
+    moe_ref = ref_transformer.init_params(
+        ref_configs.get_config("moonshot-v1-16b-a3b").reduced(), KEY)
+    assert sorted(moe.layers) == sorted(moe_ref["layers"])
+    for name, p in moe.layers.items():
+        assert tuple(p.shape) == moe_ref["layers"][name].shape, name
+    assert sum(p.numel() for p in moe.parameters()) == moe_cfg.n_params()
+    assert 0.8 < float(moe.layers["w_gate"].detach().std()) * np.sqrt(moe_cfg.d_model) < 1.2
+    assert 0.8 < float(moe.layers["w_down"].detach().std()) * np.sqrt(
+        moe_cfg.moe.d_ff_expert) < 1.2
     with pytest.raises(NotImplementedError, match="Queue A"):
         steps.init_model_params(configs.get_config("gin-tu").reduced(), torch.Generator(),
                                 "cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        layers.moe_block()
 
 
 def test_params_from_reference_refuses_other_keys():
