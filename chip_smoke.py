@@ -58,8 +58,12 @@ tolerance 0, the two attention kernels with an elementwise limit per kernel
 and output dtype (``ATTENTION_TOL``: float32 sums in another order; a bf16
 output one rounding apart), their path inputs widened to float32 as well,
 ``cin_layer`` and ``moe_gemm`` within the textbook bound of a float32 sum
-taken in another order (:func:`gamma`).  float32 matrix
-products run without TF32.  Each phase prints one
+taken in another order (:func:`gamma`).  ``moe_gemm`` and
+``flash_attention_tpu`` pick a route before each launch (bf16 tensor cores
+or not); their comparison rows name it, ragged and cancelling edge inputs
+reach every route, and on both LM paths every prefill launch of the two
+must take ``wgmma`` and every MoE decode ``moe_gemm`` ``small_c``.  float32
+matrix products run without TF32.  Each phase prints one
 JSON line; any failure ends the run with a non-zero exit code.  The last line
 is ``{"ok": true, "device": {...}}``, after the card's name and power limit; the
 line before those lists every kernel with its launches on its path, its error
@@ -897,6 +901,10 @@ ATTN_HEAD_DIMS = (16, 32, 64, 128)
 ATTN_LENGTHS = (1, 7, 300, 513)
 DECODE_LENGTHS = (1, 7, 300, 513, 2080)
 ATTN_GROUPS = (1, 3, 4)
+#: lengths (T == S) at which the tensor-core instance of flash_attention_tpu
+#: is checked besides, at its head dims
+WGMMA_LENGTHS = (100, 300, 2048)
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def _tolerance(kernel: str) -> dict:
@@ -904,22 +912,83 @@ def _tolerance(kernel: str) -> dict:
             for d, (rel, floor) in ATTENTION_TOL[kernel].items()}
 
 
-def _attention_row(rows: list, kernel: str, shape: dict, got, want) -> None:
+def _limit_share(kernel: str, got, want) -> tuple[float, float]:
+    """The max abs difference and the largest share of its elementwise limit
+    (``ATTENTION_TOL`` for ``want``'s dtype) any element takes."""
+    rel, floor = ATTENTION_TOL[kernel][want.dtype]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return float(diff.max()), float((diff / (rel * w.abs() + floor)).max())
+
+
+def _attention_row(rows: list, kernel: str, shape: dict, got, want, route=None) -> None:
     """One comparison of an attention kernel with its plain version: the max
     abs difference, the largest share of its elementwise limit any element
     takes (``ATTENTION_TOL`` for the output's dtype), and whether every
-    element is within it (shapes and dtypes equal, values finite)."""
-    rel, floor = ATTENTION_TOL[kernel][want.dtype]
+    element is within it (shapes and dtypes equal, values finite); with the
+    route the launch took, where the kernel has more than one."""
     ok = got.shape == want.shape and got.dtype == want.dtype
     err = used = 0.0
     if ok and want.numel():
-        g, w = got.float(), want.float()
-        diff = (g - w).abs()
-        err = float(diff.max())
-        used = float((diff / (rel * w.abs() + floor)).max())
-        ok = bool(torch.isfinite(g).all()) and used <= 1.0
+        err, used = _limit_share(kernel, got, want)
+        ok = bool(torch.isfinite(got.float()).all()) and used <= 1.0
     rows.append({"kernel": kernel, "shape": shape, "dtype": str(want.dtype).split(".")[-1],
+                 **({"route": route} if route else {}),
                  "max_abs_err": err, "limit_used": used, "within_tolerance": ok})
+
+
+def flash_row(rows: list, shape: dict, q, k, v, causal: bool = True,
+              design: bool = False) -> None:
+    """``flash_attention_tpu`` against its plain version (one row, with its
+    route).  A launch on the tensor cores is also held against
+    ``flash_attention_split_torch``, the plain copy of its own arithmetic
+    (``limit_used_vs_split``).  With ``design``, that copy runs on float32
+    widenings of the same inputs (so no final bf16 rounding, which a bf16
+    comparison always has room for) and is held against the same arithmetic
+    with P unsplit (``split_limit_used``: the error of splitting P alone)
+    and against the plain version on them (``design_limit_used``: the split
+    and the scores' own float32 order and scaling together); the split into
+    two terms, against P unsplit, for comparison
+    (``two_term_split_limit_used``)."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_route,
+                                                         flash_attention_split_torch,
+                                                         flash_attention_torch,
+                                                         flash_attention_tpu)
+
+    route = flash_attention_route(q, k, v)
+    got = flash_attention_tpu(q, k, v, causal)
+    _attention_row(rows, "flash_attention_tpu", {**shape, "causal": causal}, got,
+                   flash_attention_torch(q, k, v, causal), route)
+    if route == "wgmma":
+        rows[-1]["limit_used_vs_split"] = _limit_share(
+            "flash_attention_tpu", got, flash_attention_split_torch(q, k, v, causal))[1]
+        if design:
+            wide = [x.float() for x in (q, k, v)]
+            split = flash_attention_split_torch(*wide, causal)
+            unsplit = flash_attention_split_torch(*wide, causal, terms=None)
+            rows[-1]["split_limit_used"] = _limit_share("flash_attention_tpu", split, unsplit)[1]
+            rows[-1]["two_term_split_limit_used"] = _limit_share(
+                "flash_attention_tpu", flash_attention_split_torch(*wide, causal, terms=2),
+                unsplit)[1]
+            rows[-1]["design_limit_used"] = _limit_share(
+                "flash_attention_tpu", split, flash_attention_torch(*wide, causal))[1]
+
+
+def cancelling_attention(g, b: int, t: int, h: int, kh: int, hd: int, dev):
+    """bf16 q, k, v whose keys come in near pairs (the second a 5 %
+    perturbation of the first) and whose value rows come in opposite pairs
+    of +-5: a pair's weights nearly agree, so each output nearly cancels to
+    0 while sum(p |v|) / l is 5 (rounding p once to bf16 would break the
+    limit there)."""
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    q, k = randn(b, t, h, hd), randn(b, t, kh, hd)
+    n = t // 2
+    k[:, 1:2 * n:2] = k[:, 0:2 * n:2] + 0.05 * randn(b, n, kh, hd)
+    sign = torch.where(randn(b, n, kh, hd) < 0, -5.0, 5.0)
+    v = randn(b, t, kh, hd)
+    v[:, 0:2 * n:2] = sign
+    v[:, 1:2 * n:2] = -sign
+    return tuple(x.to(torch.bfloat16) for x in (q, k, v))
 
 
 def attention_edge_cases(dev, seed: int) -> list[dict]:
@@ -928,10 +997,11 @@ def attention_edge_cases(dev, seed: int) -> list[dict]:
     are no multiple of a tile, causal and not, 1, 3 and 4 query heads per KV
     head; decode at positions 0, S - 1 and a random one, with a float32 q
     meeting a bf16 cache too.  Besides: the prefill's own shape (T = S =
-    ``LM_PROMPT``, 8 KV heads of 4 query heads, hd 128), q read by strides (a
-    head slice of a wider tensor), a causal call with T != S, and a layer's
-    slice of a stacked cache read in place."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention_torch, flash_attention_tpu
+    ``LM_PROMPT``, 8 KV heads of 4 query heads, hd 128), the tensor-core
+    instance at T = S in ``WGMMA_LENGTHS`` on normal and on cancelling value
+    rows (:func:`cancelling_attention`), q read by strides (a head slice of
+    a wider tensor), causal calls with T != S, and a layer's slice of a
+    stacked cache read in place."""
     from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -947,32 +1017,41 @@ def attention_edge_cases(dev, seed: int) -> list[dict]:
                     q = randn((b, t, kh * grp, hd), dtype)
                     k, v = randn((b, t, kh, hd), dtype), randn((b, t, kh, hd), dtype)
                     for causal in (True, False):
-                        _attention_row(out, "flash_attention_tpu",
-                                       {"B": b, "T": t, "H": kh * grp, "K": kh, "hd": hd,
-                                        "causal": causal},
-                                       flash_attention_tpu(q, k, v, causal),
-                                       flash_attention_torch(q, k, v, causal))
+                        flash_row(out, {"B": b, "T": t, "H": kh * grp, "K": kh, "hd": hd},
+                                  q, k, v, causal)
     for dtype in (torch.float32, torch.bfloat16):
         q = randn((1, LM_PROMPT, 32, 128), dtype)
         k, v = randn((1, LM_PROMPT, 8, 128), dtype), randn((1, LM_PROMPT, 8, 128), dtype)
         for causal in (True, False):
-            _attention_row(out, "flash_attention_tpu",
-                           {"B": 1, "T": LM_PROMPT, "H": 32, "K": 8, "hd": 128,
-                            "causal": causal},
-                           flash_attention_tpu(q, k, v, causal),
-                           flash_attention_torch(q, k, v, causal))
+            flash_row(out, {"B": 1, "T": LM_PROMPT, "H": 32, "K": 8, "hd": 128}, q, k, v, causal)
         del q, k, v
-    wide = randn((2, 100, 12, 64), torch.bfloat16)
-    q, k, v = wide[:, :, 2:10], randn((2, 100, 2, 64), torch.bfloat16), randn(
-        (2, 100, 2, 64), torch.bfloat16)
-    _attention_row(out, "flash_attention_tpu", {"B": 2, "T": 100, "H": 8, "K": 2, "hd": 64,
-                                                "causal": True, "q": "strided heads"},
-                   flash_attention_tpu(q, k, v), flash_attention_torch(q, k, v))
+    # the tensor-core instance at ragged and full tiles (T = S = 100, 300 are
+    # no multiple of its 128 rows / keys), and on cancelling value rows
+    for hd in WGMMA_HEAD_DIMS:
+        for t in WGMMA_LENGTHS:
+            b = 2 if t < 300 else 1
+            q = randn((b, t, 8, hd), torch.bfloat16)
+            k, v = randn((b, t, kh, hd), torch.bfloat16), randn((b, t, kh, hd), torch.bfloat16)
+            for causal in (True, False):
+                flash_row(out, {"B": b, "T": t, "H": 8, "K": kh, "hd": hd}, q, k, v, causal)
+            q, k, v = cancelling_attention(g, b, t, 8, kh, hd, dev)
+            for causal in (True, False):
+                flash_row(out, {"B": b, "T": t, "H": 8, "K": kh, "hd": hd, "v": "cancelling"},
+                          q, k, v, causal, design=True)
+        del q, k, v
+    for hd in WGMMA_HEAD_DIMS:
+        wide = randn((2, 100, 12, hd), torch.bfloat16)
+        q, k, v = wide[:, :, 2:10], randn((2, 100, 2, hd), torch.bfloat16), randn(
+            (2, 100, 2, hd), torch.bfloat16)
+        for causal in (True, False):
+            flash_row(out, {"B": 2, "T": 100, "H": 8, "K": 2, "hd": hd, "q": "strided heads"},
+                      q, k, v, causal)
     q, k, v = (randn((2, n, h, 32), torch.float32) for n, h in ((64, 4), (200, 2), (200, 2)))
     for causal in (True, False):
-        _attention_row(out, "flash_attention_tpu", {"B": 2, "T": 64, "S": 200, "H": 4, "K": 2,
-                                                    "hd": 32, "causal": causal},
-                       flash_attention_tpu(q, k, v, causal), flash_attention_torch(q, k, v, causal))
+        flash_row(out, {"B": 2, "T": 64, "S": 200, "H": 4, "K": 2, "hd": 32}, q, k, v, causal)
+    q, k, v = (randn((2, n, h, 64), torch.bfloat16) for n, h in ((64, 4), (200, 2), (200, 2)))
+    for causal in (True, False):
+        flash_row(out, {"B": 2, "T": 64, "S": 200, "H": 4, "K": 2, "hd": 64}, q, k, v, causal)
     for q_dtype, kv_dtype in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                               (torch.float32, torch.bfloat16)):
         for hd in ATTN_HEAD_DIMS:
@@ -1212,6 +1291,7 @@ def lm_serve_path(args, dev, name: str = LM_CONFIG, n_layers: int | None = None,
         logits, cache = prefill(params, tokens)
         sync()
         t4 = time.perf_counter()
+        prefill_routes = route_counts()
         cache = pad(cache)
         sync()
         t5 = time.perf_counter()
@@ -1225,6 +1305,7 @@ def lm_serve_path(args, dev, name: str = LM_CONFIG, n_layers: int | None = None,
         sync()
         t6 = time.perf_counter()
     launches = launch_counts()
+    routes = {"prefill": prefill_routes, "decode": route_diff(route_counts(), prefill_routes)}
     peak = torch.cuda.max_memory_allocated() if on_gpu else None
     cache_shape, cache_bytes = list(cache.shape), cache.numel() * cache.element_size()
     split = (decode_host_and_device(decode, params, out_tokens, step_pos, cache,
@@ -1323,6 +1404,17 @@ def lm_serve_path(args, dev, name: str = LM_CONFIG, n_layers: int | None = None,
             want.update(moe_gemm=3 * n_layers * (new + 1))
         require(launches == want, f"kernel launches on the {cfg.name} serving path: "
                 f"{launches}, expected {want}")
+        # every prefill launch of the two routed kernels on the tensor cores;
+        # every MoE decode product on the small_c weight stream
+        want_routes = {"prefill": {"flash_attention_tpu": {"wgmma": n_layers},
+                                   "moe_gemm": {"wgmma": 3 * n_layers} if cfg.moe else {}},
+                       "decode": {"flash_attention_tpu": {},
+                                  "moe_gemm": {"small_c": 3 * n_layers * new} if cfg.moe else {}}}
+        got_routes = {phase: {name: {r: n for r, n in by.items() if n}
+                              for name, by in counts.items()}
+                      for phase, counts in routes.items()}
+        require(got_routes == want_routes, f"launches by route on the {cfg.name} serving path: "
+                f"{got_routes}, expected {want_routes}")
         require(not any(plain_launches.values()), "the plain path launched a kernel")
     line = {
         "config": {k: getattr(cfg, k) for k in (
@@ -1337,7 +1429,7 @@ def lm_serve_path(args, dev, name: str = LM_CONFIG, n_layers: int | None = None,
         "pad_cache_s": t5 - t4,
         "decode_s": t6 - t5, "decode_ms_per_step": (t6 - t5) / new * 1e3,
         "decode_tokens_per_s": b * new / (t6 - t5), "decode_step_split": split,
-        "max_memory_allocated": peak, "launches": launches,
+        "max_memory_allocated": peak, "launches": launches, "launches_by_route": routes,
         "plain_path": {"prefill_and_decode_s": t8 - t7, "launches": plain_launches},
         "control": control_line, "moe": moe,
         "logits_max_abs_err": max(errs), "logits_max_abs_err_by_step": errs,
@@ -1365,18 +1457,15 @@ def attention_at_path_f32(seen: dict) -> list[dict]:
     is one bf16 rounding; float32 outputs hold the kernels to their float32
     sums): the prefill call, the decode call, and the decode call with a
     float32 q meeting the path's bf16 cache."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention_torch, flash_attention_tpu
     from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
 
     rows: list = []
     (args, kw), = seen["flash_attention_tpu"].values()
     q, k, v = (x.float() for x in args)
-    causal = kw.get("causal", True)
     b, t, h, hd = q.shape
-    _attention_row(rows, "flash_attention_tpu",
-                   {"B": b, "T": t, "H": h, "K": k.shape[2], "hd": hd, "causal": causal,
-                    "at": "lm_serve/prefill, layer 0, widened to float32"},
-                   flash_attention_tpu(q, k, v, causal), flash_attention_torch(q, k, v, causal))
+    flash_row(rows, {"B": b, "T": t, "H": h, "K": k.shape[2], "hd": hd,
+                     "at": "lm_serve/prefill, layer 0, widened to float32"},
+              q, k, v, kw.get("causal", True))
     del q, k, v
     (args, kw), = seen["flash_decode"].values()
     q, kc, vc, pos = args
@@ -1395,21 +1484,60 @@ def attention_at_path_f32(seen: dict) -> list[dict]:
 
 
 @torch.no_grad()
-def attention_at_moe_path(seen: dict) -> list[dict]:
+def attention_at_moe_path(seen: dict, reps: int, on_gpu: bool) -> list[dict]:
     """Both attention kernels against their plain versions at the inputs the
-    moe_serve path handed them (16 query heads on 16 KV heads, bf16)."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention_torch, flash_attention_tpu
+    moe_serve path handed them (16 query heads on 16 KV heads, bf16); the
+    prefill call timed on a card as :func:`attention_at_path` times
+    qwen3-8b's."""
     from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
 
-    rows: list = []
-    for name, kernel, plain, at in (
-            ("flash_attention_tpu", flash_attention_tpu, flash_attention_torch, "prefill"),
-            ("flash_decode", flash_decode, flash_decode_torch, "last decode step")):
-        (args, kw), = seen[name].values()
-        _attention_row(rows, name, {"at": f"moe_serve/{at}, layer 0",
-                                    "q": list(args[0].shape), "k": list(args[1].shape)},
-                       kernel(*args, **kw), plain(*args, **kw))
+    (args, kw), = seen["flash_attention_tpu"].values()
+    rows = [flash_attention_timed(args, kw, "moe_serve/prefill, layer 0", reps, on_gpu)]
+    (args, kw), = seen["flash_decode"].values()
+    _attention_row(rows, "flash_decode", {"at": "moe_serve/last decode step, layer 0",
+                                          "q": list(args[0].shape), "k": list(args[1].shape)},
+                   flash_decode(*args, **kw), flash_decode_torch(*args, **kw))
     return rows
+
+
+def flash_attention_timed(args: tuple, kw: dict, at: str, reps: int, on_gpu: bool) -> dict:
+    """``flash_attention_tpu`` at a prefill call of a path: against its plain
+    version (:func:`flash_row`), the bound for its inputs, and on a card
+    timed beside its plain version and ``scaled_dot_product_attention``
+    (causal, GQA), which the port never calls."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_torch, flash_attention_tpu
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    size = lambda x: x.numel() * x.element_size()  # noqa: E731
+    q, k, v = args
+    causal = kw.get("causal", True)
+    b, t, h, hd = q.shape
+    s = k.shape[1]
+    keys = (sum(min(i + 1, s) for i in range(t)) if causal else t * s) * b * h
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_OPS_PER_S
+    got = flash_attention_tpu(q, k, v, causal)
+    b_ms, b_by = bound(size(q) + size(k) + size(v) + size(got), 4 * keys * hd, peak)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)  # noqa: E731
+    fa: list = []
+    flash_row(fa, {"B": b, "T": t, "H": h, "K": k.shape[2], "hd": hd}, q, k, v, causal)
+    row = {**fa[0], "at": at, "flops": 4 * keys * hd, "bound_ms": b_ms, "bound_by": b_by,
+           "library": "torch.nn.functional.scaled_dot_product_attention(is_causal, "
+                      "enable_gqa)",
+           "library_max_abs_err": float((lib().transpose(1, 2).float() - got.float())
+                                        .abs().max())}
+    if fa[0].get("route") == "wgmma":
+        # the tensor cores do Q K^T once and P V once per bf16 term of P
+        from repro_torch.kernels.flash_attention.ops import P_TERMS
+
+        row["design_ceiling_ms"] = b_ms * (1 + P_TERMS) / 2
+    if on_gpu:
+        row.update(ms=time_ms(lambda: flash_attention_tpu(q, k, v, causal), reps),
+                   call_ms=time_ms(lambda: flash_attention_tpu(q, k, v, causal), reps,
+                                   preload=False),
+                   plain_ms=time_ms(lambda: flash_attention_torch(q, k, v, causal), reps),
+                   library_ms=time_ms(lib, reps))
+    return row
 
 
 def attention_at_path(seen: dict, reps: int, on_gpu: bool) -> list[dict]:
@@ -1418,41 +1546,12 @@ def attention_at_path(seen: dict, reps: int, on_gpu: bool) -> list[dict]:
     plain version; on a card timed beside the plain version, the bound and
     ``scaled_dot_product_attention`` (causal, or with the length mask),
     which the port never calls."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention_torch, flash_attention_tpu
     from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     size = lambda x: x.numel() * x.element_size()  # noqa: E731
-    rows = []
     (args, kw), = seen["flash_attention_tpu"].values()
-    q, k, v = args
-    causal = kw.get("causal", True)
-    b, t, h, hd = q.shape
-    s = k.shape[1]
-    got = flash_attention_tpu(q, k, v, causal)
-    keys = (sum(min(i + 1, s) for i in range(t)) if causal else t * s) * b * h
-    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_OPS_PER_S
-    b_ms, b_by = bound(size(q) + size(k) + size(v) + size(got), 4 * keys * hd, peak)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)  # noqa: E731
-    fa = []
-    _attention_row(fa, "flash_attention_tpu", {"B": b, "T": t, "H": h, "K": k.shape[2],
-                                               "hd": hd, "causal": causal},
-                   got, flash_attention_torch(q, k, v, causal))
-    row = {**fa[0], "at": "lm_serve/prefill, layer 0", "flops": 4 * keys * hd,
-           "bound_ms": b_ms, "bound_by": b_by,
-           "library": "torch.nn.functional.scaled_dot_product_attention(is_causal, "
-                      "enable_gqa)",
-           "library_max_abs_err": float((lib().transpose(1, 2).float() - got.float())
-                                        .abs().max())}
-    if on_gpu:
-        row.update(ms=time_ms(lambda: flash_attention_tpu(q, k, v, causal), reps),
-                   call_ms=time_ms(lambda: flash_attention_tpu(q, k, v, causal), reps,
-                                   preload=False),
-                   plain_ms=time_ms(lambda: flash_attention_torch(q, k, v, causal), reps),
-                   library_ms=time_ms(lib, reps))
-    rows.append(row)
-
+    rows = [flash_attention_timed(args, kw, "lm_serve/prefill, layer 0", reps, on_gpu)]
     (args, kw), = seen["flash_decode"].values()
     q, kc, vc, pos = args
     b, _, h, hd = q.shape
@@ -1533,10 +1632,29 @@ def cin_check(rows: list, shape: dict, x0, xk, w) -> None:
 
 
 def moe_gemm_check(rows: list, shape: dict, buf, w) -> None:
-    from repro_torch.kernels.moe_gemm.ops import moe_gemm, moe_gemm_torch
+    """moe_gemm against its plain version within 2 gamma_(D+1) of the sum of
+    |terms|, the row carrying the route the launch took.  The tensor cores
+    add with truncation (relative error up to 2^-23 an add, not 2^-24): to
+    first order a sum of D products is then within D 2^-23 of the sum of
+    their magnitudes, which 2 gamma_(D+1) covers."""
+    from repro_torch.kernels.moe_gemm.ops import moe_gemm, moe_gemm_route, moe_gemm_torch
 
     limit = 2 * gamma(buf.shape[2] + 1) * moe_gemm_torch(buf.abs(), w.abs())
     _model_row(rows, "moe_gemm", shape, moe_gemm(buf, w), moe_gemm_torch(buf, w), limit)
+    rows[-1]["route"] = moe_gemm_route(buf, w)
+
+
+def cancelling_moe(g, e: int, c: int, d: int, f: int, dev):
+    """bf16 buf and w whose products cancel in pairs: buf's d-columns come in
+    equal pairs and w's rows in near-opposite pairs (the second the negated
+    first plus a 2 % perturbation), so each output is small beside the sum
+    of its terms' magnitudes."""
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    buf, w = randn(e, c, d), randn(e, d, f)
+    n = d // 2
+    buf[:, :, 1:2 * n:2] = buf[:, :, 0:2 * n:2]
+    w[:, 1:2 * n:2] = -w[:, 0:2 * n:2] + 0.02 * randn(e, n, f)
+    return buf.to(torch.bfloat16), w.to(torch.bfloat16)
 
 
 EB_DIMS = (1, 10, 128, 130)
@@ -1545,6 +1663,12 @@ CIN_SHAPES = ((1, 1, 1, 1, 1), (3, 4, 6, 7, 1), (2, 5, 8, 41, 130), (300, 3, 7, 
               (17, 39, 39, 200, 10), (9, 39, 200, 200, 10), (0, 3, 4, 5, 10), (4, 2, 3, 0, 10))
 MOE_SHAPES = ((1, 1, 1, 1), (3, 1, 2048, 1408), (2, 4, 33, 257), (4, 5, 64, 200),
               (2, 130, 70, 129), (3, 4, 0, 5), (2, 64, 16, 300))
+#: bf16 shapes that reach the wgmma and small_c routes at their edges: ragged
+#: 128-row / 128-column tiles, the moonshot prefill product with E cut to 3
+#: (w_gate and w_down), decode at full E, C 5 and 8 (small_c) and 9 (wgmma)
+MOE_ROUTE_SHAPES = ((2, 130, 64, 136), (3, 960, 2048, 1408), (3, 960, 1408, 2048),
+                    (64, 1, 2048, 1408), (3, 5, 2048, 1408), (3, 8, 2048, 1408),
+                    (3, 9, 64, 1408), (2, 1, 8, 8))
 
 
 @torch.no_grad()
@@ -1555,8 +1679,9 @@ def model_kernel_edge_cases(dev, seed: int) -> list[dict]:
     int64 indices, rows read by stride (``linear[:, None]``) and bags of 0;
     cin_layer at one element, D 1, ragged H / N tiles, the path's (m, Hk, H)
     at small batches, and empty outputs; moe_gemm at one element, C 1 with
-    F 1,408 (decode), ragged tiles, D 0, every dtype pair, and an expert
-    whose rows are all zero."""
+    F 1,408 (decode), ragged tiles, D 0, every dtype pair, an expert whose
+    rows are all zero, and the wgmma and small_c routes at
+    ``MOE_ROUTE_SHAPES`` on normal and on cancelling products."""
     g = torch.Generator(device=dev).manual_seed(seed)
     randn = lambda *shape, dtype=torch.float32: torch.randn(  # noqa: E731
         shape, generator=g, device=dev).to(dtype)
@@ -1596,6 +1721,12 @@ def model_kernel_edge_cases(dev, seed: int) -> list[dict]:
     buf[1] = 0
     moe_gemm_check(rows, {"E": 3, "C": 17, "D": 64, "F": 96, "empty expert": 1}, buf,
                    randn(3, 64, 96, dtype=torch.bfloat16))
+    for e, c, d, f in MOE_ROUTE_SHAPES:
+        shape = {"E": e, "C": c, "D": d, "F": f, "dtypes": "bfloat16 x bfloat16"}
+        moe_gemm_check(rows, shape, randn(e, c, d, dtype=torch.bfloat16),
+                       randn(e, d, f, dtype=torch.bfloat16))
+        moe_gemm_check(rows, {**shape, "products": "cancelling in pairs"},
+                       *cancelling_moe(g, e, c, d, f, dev))
     return rows
 
 
@@ -2000,9 +2131,40 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+#: the kernels whose wrappers pick a route before each launch
+ROUTED_KERNELS = ("flash_attention_tpu", "moe_gemm")
+
+
+def route_counts() -> dict:
+    """Launches by route of the kernels that have more than one."""
+    wrappers = _wrappers()
+    return {name: dict(wrappers[name].launches_by_route) for name in ROUTED_KERNELS}
+
+
+def by_route(rows: list, keys: tuple) -> dict:
+    """Per routed kernel and route: how many comparison rows, and the
+    largest value of each of ``keys`` among them."""
+    out: dict = {}
+    for r in rows:
+        if "route" not in r:
+            continue
+        slot = out.setdefault(r["kernel"], {}).setdefault(r["route"], {"rows": 0})
+        slot["rows"] += 1
+        for k in keys:
+            if k in r:
+                slot[k] = max(slot.get(k, 0.0), r[k])
+    return out
+
+
+def route_diff(after: dict, before: dict) -> dict:
+    return {name: {r: n - before[name][r] for r, n in by.items()} for name, by in after.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
 
 
 def build_indexes(args, device: str) -> dict:
@@ -2441,6 +2603,9 @@ def main() -> int:
          tolerance={k: _tolerance(k) for k in ATTENTION_TOL},
          edge_cases=len(attn_edges), outside_tolerance=bad,
          max_abs_err=by_dtype("max_abs_err"), limit_used=by_dtype("limit_used"),
+         by_route=by_route(attn_edges + attn_path, ("limit_used", "limit_used_vs_split",
+                                                    "split_limit_used", "two_term_split_limit_used",
+                                                    "design_limit_used")),
          widened_path=attn_edges[-3:], at_path=attn_path)
     require(not bad, f"{len(bad)} attention kernel outputs outside their tolerance, "
             f"first {bad[:2]}")
@@ -2455,7 +2620,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("recsys_serve", card=card, **rec)
     moe, moe_seen = lm_serve_path(args, dev, MOE_CONFIG, None, control=False)
-    moe_attn = attention_at_moe_path(moe_seen)
+    moe_attn = attention_at_moe_path(moe_seen, args.reps, True)
     # layer 0's w_gate and w_down products (D 2,048 / 1,408), the first timed
     moe_path = [model_kernel_at_path("moe_gemm", moe_seen["moe_gemm"][i][0], at, args.reps,
                                      timed=at.endswith("w_gate"))
@@ -2483,6 +2648,7 @@ def main() -> int:
                              if r["kernel"] == k) for k in MODEL_KERNELS},
          limit_used={k: max(r["limit_used"] for r in model_edges + model_path
                             if r["kernel"] == k) for k in MODEL_KERNELS},
+         by_route=by_route(model_edges + model_path, ("limit_used",)),
          at_path=model_path)
     require(not bad, f"{len(bad)} model-side kernel outputs outside their tolerance, "
             f"first {bad[:2]}")
@@ -2524,6 +2690,9 @@ def main() -> int:
                                            if x["kernel"] == name),
                         "tolerance": _tolerance(name),
                         **{k: r[k] for k in timing_keys}, "at": r["at"]})
+        if name in ROUTED_KERNELS:
+            kernels[-1].update(kernel_route=r["route"], launches_by_route={
+                phase: by[name] for phase, by in lm["launches_by_route"].items()})
     for name, at in (("embedding_bag", "recsys_serve/serve_bulk/x0 lookup"),
                      ("cin_layer", "recsys_serve/serve_bulk/CIN layer 2"),
                      ("moe_gemm", "moe_serve/prefill, layer 0, w_gate")):
@@ -2533,6 +2702,9 @@ def main() -> int:
                         "max_abs_err": max(x["max_abs_err"] for x in model_edges + model_path
                                            if x["kernel"] == name),
                         **{k: r[k] for k in timing_keys}, "at": at})
+        if name in ROUTED_KERNELS:
+            kernels[-1].update(kernel_route=r["route"], launches_by_route={
+                phase: by[name] for phase, by in moe["launches_by_route"].items()})
     require(len(kernels) == len(KERNEL_META), f"the kernels line lists {len(kernels)} "
             f"kernels, expected {len(KERNEL_META)}")
     emit("done", seconds=round(time.perf_counter() - t_start, 1))

@@ -48,9 +48,9 @@ SIGNATURES = {
     # (shingles, lens, a, b, out, D, L, P, stream)
     "minhash_rows_launch": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
     # (q, k, v, out, B, T, S, H, K, hd, dtype, causal, scale,
-    #  q strides b/t/h, k strides b/s/k, v strides b/s/k, stream)
+    #  q strides b/t/h, k strides b/s/k, v strides b/s/k, route, stream)
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _P),
+                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P),
     # (q, k, v, positions, out, B, S, H, K, hd, q dtype, kv dtype, scale,
     #  q strides b/h, k strides b/s/k, v strides b/s/k, stream)
     "flash_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -59,8 +59,8 @@ SIGNATURES = {
     "embedding_bag_launch": (_P, _P, _P, _L, _I, _I, _L, _L, _I, _P),
     # (x0, xk, w, out, B, m, Hk, H, D, stream)
     "cin_layer_launch": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
-    # (buf, w, out, E, C, D, F, buf dtype, w dtype, stream)
-    "moe_gemm_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (buf, w, out, E, C, D, F, buf dtype, w dtype, route, stream)
+    "moe_gemm_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -3,11 +3,15 @@
 float32.
 
 On a CUDA tensor ``moe_gemm`` launches ``csrc/moe_gemm.cu`` (or raises), one
-launch for every expert; on a CPU tensor it runs ``moe_gemm_torch``, the
-plain PyTorch version: both operands widened to float32, one batched
-product.  Both sum float32 products of the widened operands; they differ
-only in the order of the sums.  Neither pads C, D or F (the reference's op
-pads them to its TPU tiles).
+launch for every expert, by the route :func:`moe_gemm_route` picks from the
+operands' dtypes, shapes and alignment before the launch (never after a
+failure): ``wgmma`` (bf16 tensor cores, prefill), ``small_c`` (C <= 8 rows,
+a weight stream, decode) or ``fma`` (CUDA cores, everything else).  On a
+CPU tensor it runs ``moe_gemm_torch``, the plain PyTorch version: both
+operands widened to float32, one batched product.  All sum exact products
+of the widened operands in float32 (the tensor cores with truncating
+adds); they differ only in the order and rounding of the sums.  None pads
+C, D or F (the reference's op pads them to its TPU tiles).
 """
 
 from __future__ import annotations
@@ -18,6 +22,10 @@ from .. import cuda_build
 
 #: most experts one launch takes (the grid's z extent)
 MAX_EXPERTS = 65535
+#: the kernel's routes and the codes its launch function takes
+ROUTE_CODES = {"fma": 0, "wgmma": 1, "small_c": 2}
+#: most rows (C) the small_c route takes
+SMALL_C = 8
 
 
 def _check_shapes(buf: torch.Tensor, w: torch.Tensor) -> None:
@@ -32,6 +40,30 @@ def moe_gemm_torch(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`moe_gemm`."""
     _check_shapes(buf, w)
     return torch.bmm(buf.float(), w.float())
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def moe_gemm_route(buf: torch.Tensor, w: torch.Tensor) -> str:
+    """The route a launch on these operands takes, from their dtypes,
+    shapes, strides and alignment alone: ``"small_c"`` for bf16 operands
+    with C <= :data:`SMALL_C`, F a multiple of 8 and w 16-byte aligned (each
+    thread reads w 16 bytes at a time); ``"wgmma"`` for bf16 operands with D
+    and F multiples of 8 and both 16-byte aligned (TMA's 16-byte rule for
+    row strides and bases); ``"fma"`` for the rest (float32 or mixed
+    operands, bf16 shapes the other two cannot take)."""
+    _check_shapes(buf, w)
+    d, f = buf.shape[2], w.shape[2]
+    bf16 = torch.bfloat16
+    if (buf.dtype == w.dtype == bf16 and buf.is_contiguous() and w.is_contiguous()
+            and f % 8 == 0 and _aligned16(w)):
+        if buf.shape[1] <= SMALL_C:
+            return "small_c"
+        if d > 0 and d % 8 == 0 and _aligned16(buf):
+            return "wgmma"
+    return "fma"
 
 
 def _operand(name: str, t: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -66,14 +98,19 @@ def moe_gemm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((e, c, f), dtype=torch.float32, device=buf.device)
     if out.numel() == 0:
         return out
+    route = moe_gemm_route(buf, w)
     lib = cuda_build.load()
     with torch.cuda.device(buf.device):
         code = lib.moe_gemm_launch(buf.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, f,
-                                   buf_dtype, w_dtype, cuda_build.stream_ptr())
-    cuda_build.check(code, "moe_gemm")
+                                   buf_dtype, w_dtype, ROUTE_CODES[route],
+                                   cuda_build.stream_ptr())
+    cuda_build.check(code, f"moe_gemm ({route})")
     moe_gemm.launches += 1
+    moe_gemm.launches_by_route[route] += 1
     return out
 
 
-#: kernel launches made by the wrapper (never raised by the plain version)
+#: kernel launches made by the wrapper (never raised by the plain version),
+#: in all and by route
 moe_gemm.launches = 0
+moe_gemm.launches_by_route = dict.fromkeys(ROUTE_CODES, 0)

@@ -423,14 +423,17 @@ def test_package_exports_the_index_side_ops():
 # ----------------------------------------------------------------------
 # the attention kernels' plain versions against the Pallas ops
 # ----------------------------------------------------------------------
-def _attn_inputs(seed: int, shapes, dtype):
-    rng = np.random.default_rng(seed)
-    arrs = [rng.normal(size=s).astype(np.float32) for s in shapes]
+def _jax_and_torch(arrs, dtype):
     as_jax = [jnp.asarray(a, jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
               for a in arrs]
     # the port gets the same values, rounded to bf16 by JAX when bf16
     as_torch = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(dtype) for a in as_jax]
     return as_jax, as_torch
+
+
+def _attn_inputs(seed: int, shapes, dtype):
+    rng = np.random.default_rng(seed)
+    return _jax_and_torch([rng.normal(size=s).astype(np.float32) for s in shapes], dtype)
 
 
 def _to_kernel_layout(q, k, v):
@@ -735,3 +738,198 @@ def test_model_side_wrappers_refuse_other_devices_and_count_no_launch():
     assert before == (eb_ops.embedding_bag.launches, cin_ops.cin_layer.launches,
                       mg_ops.moe_gemm.launches)
 
+
+
+# ----------------------------------------------------------------------
+# the routes the wrappers pick before a launch, and the arithmetic of the
+# tensor-core attention instance (split P), held on the CPU
+# ----------------------------------------------------------------------
+def _misaligned(*shape, dtype=torch.bfloat16):
+    """A contiguous tensor whose data starts one element past a 16-byte
+    boundary (a slice of a small buffer)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+_F32 = torch.float32
+MOE_ROUTE_CASES = {
+    # name: ((E, C, D), (E, D, F), buf dtype, w dtype, route)
+    "moonshot_prefill_w_gate": ((64, 960, 2048), (64, 2048, 1408), None, None, "wgmma"),
+    "moonshot_prefill_w_down": ((64, 960, 1408), (64, 1408, 2048), None, None, "wgmma"),
+    "moonshot_decode": ((64, 1, 2048), (64, 2048, 1408), None, None, "small_c"),
+    "c8": ((64, 8, 2048), (64, 2048, 1408), None, None, "small_c"),
+    "c9": ((64, 9, 2048), (64, 2048, 1408), None, None, "wgmma"),
+    "float32": ((64, 960, 2048), (64, 2048, 1408), _F32, _F32, "fma"),
+    "mixed_bf16_f32": ((64, 960, 2048), (64, 2048, 1408), None, _F32, "fma"),
+    "mixed_f32_bf16": ((64, 1, 2048), (64, 2048, 1408), _F32, None, "fma"),
+    "d33": ((2, 130, 33), (2, 33, 136), None, None, "fma"),
+    "f257": ((2, 130, 64), (2, 64, 257), None, None, "fma"),
+    "f257_c1": ((2, 1, 64), (2, 64, 257), None, None, "fma"),
+    "d0": ((2, 130, 0), (2, 0, 16), None, None, "fma"),
+}
+
+
+@pytest.mark.parametrize("case", list(MOE_ROUTE_CASES))
+def test_moe_gemm_route(case):
+    """The route is a function of dtypes, shapes and alignment alone; the
+    model's shapes are built on the meta device (nothing allocated)."""
+    bshape, wshape, bt, wt, route = MOE_ROUTE_CASES[case]
+    buf = _meta(*bshape, dtype=bt or torch.bfloat16)
+    w = _meta(*wshape, dtype=wt or torch.bfloat16)
+    assert mg_ops.moe_gemm_route(buf, w) == route
+
+
+@pytest.mark.parametrize("which,c", [("buf", 130), ("w", 130), ("w", 1)])
+def test_moe_gemm_route_needs_16_byte_alignment(which, c):
+    """An operand one element off a 16-byte boundary takes the fma route
+    (the buf of a small_c launch is read element by element: no rule)."""
+    buf, w = torch.zeros((2, c, 64), dtype=torch.bfloat16), torch.zeros((2, 64, 136),
+                                                                        dtype=torch.bfloat16)
+    assert mg_ops.moe_gemm_route(buf, w) == ("small_c" if c == 1 else "wgmma")
+    if which == "buf":
+        buf = _misaligned(2, c, 64)
+    else:
+        w = _misaligned(2, 64, 136)
+    assert mg_ops.moe_gemm_route(buf, w) == "fma"
+    if which == "buf":
+        assert mg_ops.moe_gemm_route(buf[:, :1].contiguous(), w) == "small_c"
+
+
+ATTN_ROUTE_CASES = {
+    # name: (q shape, k / v shape, dtype, route)
+    "qwen3_8b_prefill": ((4, 2048, 32, 128), (4, 2048, 8, 128), None, "wgmma"),
+    "moonshot_prefill": ((4, 2048, 16, 128), (4, 2048, 16, 128), None, "wgmma"),
+    "hd64": ((2, 300, 8, 64), (2, 300, 2, 64), None, "wgmma"),
+    "float32": ((4, 2048, 32, 128), (4, 2048, 8, 128), _F32, "fma"),
+    "hd32": ((2, 300, 8, 32), (2, 300, 2, 32), None, "fma"),
+    "hd16": ((2, 300, 8, 16), (2, 300, 2, 16), None, "fma"),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTN_ROUTE_CASES))
+def test_flash_attention_route(case):
+    qshape, kshape, dt, route = ATTN_ROUTE_CASES[case]
+    q, k = _meta(*qshape, dtype=dt or torch.bfloat16), _meta(*kshape, dtype=dt or torch.bfloat16)
+    assert fa_ops.flash_attention_route(q, k, k) == route
+
+
+@pytest.mark.parametrize("case", ["heads_sliced", "misaligned", "stride_not_16_bytes",
+                                  "mixed_dtypes"])
+def test_flash_attention_route_strides_and_alignment(case):
+    """q sliced by heads keeps 16-byte strides and base (TMA reads it in
+    place); an offset off a 16-byte boundary, a row stride of 68 bf16 or a
+    float32 k take the fma instance."""
+    k = torch.zeros((2, 100, 2, 64), dtype=torch.bfloat16)
+    if case == "heads_sliced":
+        q, route = torch.zeros((2, 100, 12, 64), dtype=torch.bfloat16)[:, :, 2:10], "wgmma"
+    elif case == "misaligned":
+        q, route = _misaligned(2, 100, 8, 64), "fma"
+    elif case == "stride_not_16_bytes":
+        q, route = torch.zeros(2 * 100 * 8 * 68, dtype=torch.bfloat16).as_strided(
+            (2, 100, 8, 64), (100 * 8 * 68, 8 * 68, 68, 1)), "fma"
+    else:
+        q, route = torch.zeros((2, 100, 8, 64), dtype=torch.bfloat16), "fma"
+        k = k.float()
+    assert fa_ops.flash_attention_route(q, k, k) == route
+
+
+def test_wrappers_count_launches_by_route_and_none_on_cpu():
+    """Both wrappers keep a count per route beside their total; the plain
+    versions on the CPU count nothing."""
+    assert set(mg_ops.moe_gemm.launches_by_route) == {"wgmma", "small_c", "fma"}
+    assert set(fa_ops.flash_attention_tpu.launches_by_route) == {"wgmma", "fma"}
+    before = (dict(mg_ops.moe_gemm.launches_by_route),
+              dict(fa_ops.flash_attention_tpu.launches_by_route))
+    x = torch.zeros((1, 130, 2, 64), dtype=torch.bfloat16)
+    fa_ops.flash_attention_tpu(x, x[:, :, :1], x[:, :, :1])
+    mg_ops.moe_gemm(torch.zeros((2, 130, 64), dtype=torch.bfloat16),
+                    torch.zeros((2, 64, 136), dtype=torch.bfloat16))
+    assert before == (mg_ops.moe_gemm.launches_by_route,
+                      fa_ops.flash_attention_tpu.launches_by_route)
+
+
+#: the limit chip_smoke.py holds a bf16 attention output to against its plain
+#: version, elementwise: |got - want| <= 2^-7 |want| + 1e-5 (one bf16
+#: rounding of the value, plus the float32 floor where it is near 0)
+ATTENTION_TOL_BF16 = (2.0 ** -7, 1e-5)
+
+
+def _limit_used(got: torch.Tensor, want: torch.Tensor) -> float:
+    rel, floor = ATTENTION_TOL_BF16
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (rel * w.abs() + floor)).max())
+
+
+def _cancelling(rng, b, t, h, kh, hd):
+    """q, k, v (float32) whose keys come in near pairs (the second a 5 %
+    perturbation of the first) and whose value rows come in opposite pairs
+    of +-5: a pair's weights nearly agree, so each output nearly cancels to
+    0 while sum(p |v|) / l is 5."""
+    q = rng.normal(size=(b, t, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, t, kh, hd)).astype(np.float32)
+    n = t // 2
+    k[:, 1:2 * n:2] = k[:, 0:2 * n:2] + 0.05 * rng.normal(size=(b, n, kh, hd))
+    sign = rng.choice([-1.0, 1.0], size=(b, n, kh, hd))
+    v = rng.normal(size=(b, t, kh, hd)).astype(np.float32)
+    v[:, 0:2 * n:2] = 5 * sign
+    v[:, 1:2 * n:2] = -5 * sign
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,t,h,kh,hd", [(1, 256, 4, 2, 64), (2, 300, 8, 4, 128),
+                                         (1, 513, 2, 1, 32), (1, 512, 3, 1, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("values", ["normal", "cancelling"])
+def test_flash_attention_split_arithmetic(b, t, h, kh, hd, causal, values):
+    """flash_attention_split_torch (the tensor-core instance's arithmetic:
+    scores scaled after the sum, exp2, P in three bf16 terms) against the
+    Pallas op in interpret mode and the float64 oracle at the reference's
+    bf16 tolerance, against flash_attention_torch at the card's limit
+    (ATTENTION_TOL_BF16) on bf16 outputs and on float32 outputs of the same
+    bf16 values, and, on those float32 outputs, the split's own error (the
+    same arithmetic with P unsplit) within a quarter of that limit, the
+    margin two terms miss on cancelling rows."""
+    from repro.kernels.flash_attention.ops import flash_attention_tpu as ref_flash
+    from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+
+    rng = np.random.default_rng(7 * t + hd + (values == "cancelling"))
+    if values == "normal":
+        arrs = [rng.normal(size=s).astype(np.float32)
+                for s in ((b, t, h, hd), (b, t, kh, hd), (b, t, kh, hd))]
+    else:
+        arrs = _cancelling(rng, b, t, h, kh, hd)
+    (jq, jk, jv), (q, k, v) = _jax_and_torch(arrs, torch.bfloat16)
+    got = fa_ops.flash_attention_split_torch(q, k, v, causal)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, t, h, hd)
+    tol = FLASH_TOL[torch.bfloat16]
+    if causal or t % 512 == 0:
+        want = np.asarray(ref_flash(jq, jk, jv, causal=causal, interpret=True)
+                          .astype(jnp.float32))
+        assert float(np.abs(got.float().numpy() - want).max()) < tol
+    oracle = flash_fwd_ref(*_to_kernel_layout(q.float(), k.float(), v.float()), causal=causal)
+    oracle = np.moveaxis(oracle.reshape(b, kh, h // kh, t, hd), 3, 1).reshape(b, t, h, hd)
+    assert float(np.abs(got.float().numpy() - oracle).max()) < tol
+    assert _limit_used(got, fa_ops.flash_attention_torch(q, k, v, causal)) <= 1.0
+    wide = [x.float() for x in (q, k, v)]
+    split = fa_ops.flash_attention_split_torch(*wide, causal)
+    assert _limit_used(split, fa_ops.flash_attention_torch(*wide, causal)) <= 1.0
+    assert _limit_used(split, fa_ops.flash_attention_split_torch(*wide, causal, terms=None)) <= 0.25
+
+
+@pytest.mark.parametrize("terms,least", [(1, 1.0), (2, 0.25)])
+def test_flash_attention_fewer_p_terms_break_the_margin(terms, least):
+    """On cancelling rows, P rounded once to bf16 leaves the card's limit
+    (its error is up to 2^-9 sum(p |v|) / l where the output is near 0), and
+    two terms (2^-18) leave less than the 4x margin: why P is split in
+    three (2^-27)."""
+    rng = np.random.default_rng(2)
+    arrs = _cancelling(rng, 2, 300, 8, 4, 128)
+    _, (q, k, v) = _jax_and_torch(arrs, torch.bfloat16)
+    wide = [x.float() for x in (q, k, v)]
+    unsplit = fa_ops.flash_attention_split_torch(*wide, True, terms=None)
+    assert _limit_used(fa_ops.flash_attention_split_torch(*wide, True, terms=terms),
+                       unsplit) > least
+    assert _limit_used(fa_ops.flash_attention_split_torch(*wide, True), unsplit) <= 0.25
+    if terms == 1:
+        assert _limit_used(fa_ops.flash_attention_split_torch(q, k, v, True, terms=1),
+                           fa_ops.flash_attention_torch(q, k, v, True)) > 1.0
