@@ -31,8 +31,8 @@ launch counts set to 0 just before it and read just after:
   ``--lm-layers``), random bf16 weights drawn on the card: 4 prompts of 2,048
   tokens from ``lm_batches`` prefilled through ``make_lm_prefill_step`` (the
   ``flash_attention_tpu`` kernel, once per layer), the cache padded, then 32
-  greedy steps through ``make_lm_decode_step`` (``flash_decode``, once per
-  layer per step); the same model through the plain attention path,
+  greedy steps through ``make_lm_decode_step`` (``flash_decode``, a split
+  and a combine pass once per layer per step); the same model through the plain attention path,
   teacher-forced on the kernel run's tokens, must give logits within
   ``LM_LOGIT_TOL`` and the same greedy tokens but where the plain path's
   logit of the kernel's token lies within one bf16 step of its maximum;
@@ -60,9 +60,11 @@ output one rounding apart), their path inputs widened to float32 as well,
 ``cin_layer`` and ``moe_gemm`` within the textbook bound of a float32 sum
 taken in another order (:func:`gamma`).  ``moe_gemm`` and
 ``flash_attention_tpu`` pick a route before each launch (bf16 tensor cores
-or not); their comparison rows name it, ragged and cancelling edge inputs
-reach every route, and on both LM paths every prefill launch of the two
-must take ``wgmma`` and every MoE decode ``moe_gemm`` ``small_c``.  float32
+or not), ``flash_decode`` a load route (16-byte copies or element loads);
+their comparison rows name it, ragged and cancelling edge inputs reach
+every route, and on both LM paths every prefill launch of the first two
+must take ``wgmma``, every MoE decode ``moe_gemm`` ``small_c`` and every
+``flash_decode`` ``vec16``.  float32
 matrix products run without TF32.  Each phase prints one
 JSON line; any failure ends the run with a non-zero exit code.  The last line
 is ``{"ok": true, "device": {...}}``, after the card's name and power limit; the
@@ -901,6 +903,11 @@ ATTN_HEAD_DIMS = (16, 32, 64, 128)
 ATTN_LENGTHS = (1, 7, 300, 513)
 DECODE_LENGTHS = (1, 7, 300, 513, 2080)
 ATTN_GROUPS = (1, 3, 4)
+#: query heads per KV head of the flash_decode edge cases (up to MAX_GROUP)
+DECODE_GROUPS = (1, 3, 4, 16)
+#: a cache capacity far above the live lengths (most of the split pass's
+#: chunks are empty) and the positions seen in it
+SPARSE_CACHE = (32768, (0, 150, 299))
 #: lengths (T == S) at which the tensor-core instance of flash_attention_tpu
 #: is checked besides, at its head dims
 WGMMA_LENGTHS = (100, 300, 2048)
@@ -991,19 +998,49 @@ def cancelling_attention(g, b: int, t: int, h: int, kh: int, hd: int, dev):
     return tuple(x.to(torch.bfloat16) for x in (q, k, v))
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one element past a 16-byte
+    boundary (the view of a buffer one element longer)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def decode_row(rows: list, shape: dict, q, kc, vc, pos) -> None:
+    """``flash_decode`` against its plain version (one row, with its load
+    route), and against ``flash_decode_split_torch``, the plain copy of its
+    split and combine arithmetic at the launch's own split count
+    (``limit_used_vs_split``)."""
+    from repro_torch.kernels.flash_decode.ops import (flash_decode, flash_decode_plan,
+                                                      flash_decode_route,
+                                                      flash_decode_split_torch,
+                                                      flash_decode_torch)
+
+    got = flash_decode(q, kc, vc, pos)
+    _attention_row(rows, "flash_decode", shape, got, flash_decode_torch(q, kc, vc, pos),
+                   flash_decode_route(kc, vc))
+    sms = (torch.cuda.get_device_properties(q.device).multi_processor_count
+           if q.device.type == "cuda" else 132)
+    _, n_splits = flash_decode_plan(q.shape[0], kc.shape[2], kc.shape[1], sms)
+    rows[-1].update(n_splits=n_splits, limit_used_vs_split=_limit_share(
+        "flash_decode", got, flash_decode_split_torch(q, kc, vc, pos, n_splits))[1])
+
+
 def attention_edge_cases(dev, seed: int) -> list[dict]:
     """Both attention kernels against their plain versions at edge shapes:
     float32 and bf16, every head dim the kernels are built for, lengths that
     are no multiple of a tile, causal and not, 1, 3 and 4 query heads per KV
-    head; decode at positions 0, S - 1 and a random one, with a float32 q
-    meeting a bf16 cache too.  Besides: the prefill's own shape (T = S =
+    head; decode also at 16 (``DECODE_GROUPS``), at positions 0, S - 1, a
+    random one and one past S, with a float32 q meeting a bf16 cache too,
+    each cache read by 16-byte copies and, one element off a 16-byte
+    boundary, by element loads; and a cache of ``SPARSE_CACHE`` rows whose
+    positions leave most split chunks empty.  Besides: the prefill's own shape (T = S =
     ``LM_PROMPT``, 8 KV heads of 4 query heads, hd 128), the tensor-core
     instance at T = S in ``WGMMA_LENGTHS`` on normal and on cancelling value
     rows (:func:`cancelling_attention`), q read by strides (a head slice of
     a wider tensor), causal calls with T != S, and a layer's slice of a
     stacked cache read in place."""
-    from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
-
     g = torch.Generator(device=dev).manual_seed(seed)
     randn = lambda shape, dtype: torch.randn(  # noqa: E731
         shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
@@ -1056,25 +1093,36 @@ def attention_edge_cases(dev, seed: int) -> list[dict]:
                               (torch.float32, torch.bfloat16)):
         for hd in ATTN_HEAD_DIMS:
             for s in DECODE_LENGTHS:
-                for grp in ATTN_GROUPS:
-                    q = randn((3, 1, kh * grp, hd), q_dtype)
-                    kc, vc = randn((3, s, kh, hd), kv_dtype), randn((3, s, kh, hd), kv_dtype)
+                for grp in DECODE_GROUPS:
+                    q = randn((4, 1, kh * grp, hd), q_dtype)
+                    kc, vc = randn((4, s, kh, hd), kv_dtype), randn((4, s, kh, hd), kv_dtype)
                     pos = torch.tensor([0, s - 1, int(torch.randint(0, s, (1,), generator=g,
-                                                                    device=dev))],
+                                                                    device=dev)), s + 5],
                                        dtype=torch.int32, device=dev)
-                    _attention_row(out, "flash_decode",
-                                   {"B": 3, "S": s, "H": kh * grp, "K": kh, "hd": hd,
-                                    "q": str(q_dtype).split(".")[-1],
-                                    "cache": str(kv_dtype).split(".")[-1],
-                                    "positions": pos.tolist()},
-                                   flash_decode(q, kc, vc, pos), flash_decode_torch(q, kc, vc, pos))
+                    shape = {"B": 4, "S": s, "H": kh * grp, "K": kh, "hd": hd,
+                             "q": str(q_dtype).split(".")[-1],
+                             "cache": str(kv_dtype).split(".")[-1], "positions": pos.tolist()}
+                    decode_row(out, shape, q, kc, vc, pos)
+                    # the same values one element off a 16-byte boundary: element loads
+                    decode_row(out, {**shape, "cache": shape["cache"] + ", misaligned"}, q,
+                               misaligned(kc), misaligned(vc), pos)
+    s, live = SPARSE_CACHE
+    for q_dtype, kv_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)):
+        q = randn((3, 1, 32, 128), q_dtype)
+        kc, vc = randn((3, s, 8, 128), kv_dtype), randn((3, s, 8, 128), kv_dtype)
+        pos = torch.tensor(live, dtype=torch.int32, device=dev)
+        shape = {"B": 3, "S": s, "H": 32, "K": 8, "hd": 128, "positions": list(live),
+                 "cache": f"{str(kv_dtype).split('.')[-1]}, mostly empty chunks"}
+        decode_row(out, shape, q, kc, vc, pos)
+        decode_row(out, {**shape, "cache": shape["cache"] + ", misaligned"}, q, misaligned(kc),
+                   misaligned(vc), pos)
+        del kc, vc
     stacked = randn((2, 2, 3, 64, 2, 32), torch.bfloat16)
     q, pos = randn((3, 1, 8, 32), torch.float32), torch.tensor([63, 5, 40], dtype=torch.int32,
                                                               device=dev)
     kc, vc = stacked[1, 0], stacked[1, 1]
-    _attention_row(out, "flash_decode", {"B": 3, "S": 64, "H": 8, "K": 2, "hd": 32,
-                                         "cache": "a layer's slice of a stacked cache"},
-                   flash_decode(q, kc, vc, pos), flash_decode_torch(q, kc, vc, pos))
+    decode_row(out, {"B": 3, "S": 64, "H": 8, "K": 2, "hd": 32,
+                     "cache": "a layer's slice of a stacked cache"}, q, kc, vc, pos)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return out
@@ -1134,8 +1182,13 @@ def bf16_step(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
 
 
+#: kernels whose device time per decode step is reported by name (the
+#: decode attention in all, and its two passes)
+DECODE_NAMED = ("flash_decode", "flash_decode_split", "flash_decode_combine")
+
+
 def decode_host_and_device(decode, params, tokens: list, step_pos, cache,
-                           traced: int = 3, named: tuple = ("flash_decode",)) -> dict:
+                           traced: int = 3, named: tuple = DECODE_NAMED) -> dict:
     """Where a decode step's time goes, on a card: the steps of the run
     again (same tokens at the same positions, so the cache keeps its
     values), as they are and with the host waiting for the card before each
@@ -1309,8 +1362,7 @@ def lm_serve_path(args, dev, name: str = LM_CONFIG, n_layers: int | None = None,
     peak = torch.cuda.max_memory_allocated() if on_gpu else None
     cache_shape, cache_bytes = list(cache.shape), cache.numel() * cache.element_size()
     split = (decode_host_and_device(decode, params, out_tokens, step_pos, cache,
-                                    named=("flash_decode", "moe_gemm") if cfg.moe
-                                    else ("flash_decode",))
+                                    named=DECODE_NAMED + (("moe_gemm",) if cfg.moe else ()))
              if on_gpu else None)
     del cache
 
@@ -1405,10 +1457,12 @@ def lm_serve_path(args, dev, name: str = LM_CONFIG, n_layers: int | None = None,
         require(launches == want, f"kernel launches on the {cfg.name} serving path: "
                 f"{launches}, expected {want}")
         # every prefill launch of the two routed kernels on the tensor cores;
-        # every MoE decode product on the small_c weight stream
-        want_routes = {"prefill": {"flash_attention_tpu": {"wgmma": n_layers},
+        # every MoE decode product on the small_c weight stream; every decode
+        # attention reading the cache by 16-byte copies
+        want_routes = {"prefill": {"flash_attention_tpu": {"wgmma": n_layers}, "flash_decode": {},
                                    "moe_gemm": {"wgmma": 3 * n_layers} if cfg.moe else {}},
                        "decode": {"flash_attention_tpu": {},
+                                  "flash_decode": {"vec16": n_layers * new},
                                   "moe_gemm": {"small_c": 3 * n_layers * new} if cfg.moe else {}}}
         got_routes = {phase: {name: {r: n for r, n in by.items() if n}
                               for name, by in counts.items()}
@@ -1457,8 +1511,6 @@ def attention_at_path_f32(seen: dict) -> list[dict]:
     is one bf16 rounding; float32 outputs hold the kernels to their float32
     sums): the prefill call, the decode call, and the decode call with a
     float32 q meeting the path's bf16 cache."""
-    from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
-
     rows: list = []
     (args, kw), = seen["flash_attention_tpu"].values()
     q, k, v = (x.float() for x in args)
@@ -1475,28 +1527,22 @@ def attention_at_path_f32(seen: dict) -> list[dict]:
             kc, vc = kc.float(), vc.float()
         else:
             kc, vc = args[1], args[2]
-        _attention_row(rows, "flash_decode",
-                       {"B": q.shape[0], "S": kc.shape[1], "H": q.shape[2], "K": kc.shape[2],
-                        "hd": q.shape[3], "q": "float32", "cache": cache,
-                        "at": "lm_serve/last decode step, layer 0, q widened to float32"},
-                       flash_decode(q, kc, vc, pos), flash_decode_torch(q, kc, vc, pos))
+        decode_row(rows, {"B": q.shape[0], "S": kc.shape[1], "H": q.shape[2], "K": kc.shape[2],
+                          "hd": q.shape[3], "q": "float32", "cache": cache,
+                          "at": "lm_serve/last decode step, layer 0, q widened to float32"},
+                   q, kc, vc, pos)
     return rows
 
 
 @torch.no_grad()
 def attention_at_moe_path(seen: dict, reps: int, on_gpu: bool) -> list[dict]:
     """Both attention kernels against their plain versions at the inputs the
-    moe_serve path handed them (16 query heads on 16 KV heads, bf16); the
-    prefill call timed on a card as :func:`attention_at_path` times
-    qwen3-8b's."""
-    from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
-
+    moe_serve path handed them (16 query heads on 16 KV heads, bf16), each
+    timed on a card as :func:`attention_at_path` times qwen3-8b's."""
     (args, kw), = seen["flash_attention_tpu"].values()
     rows = [flash_attention_timed(args, kw, "moe_serve/prefill, layer 0", reps, on_gpu)]
-    (args, kw), = seen["flash_decode"].values()
-    _attention_row(rows, "flash_decode", {"at": "moe_serve/last decode step, layer 0",
-                                          "q": list(args[0].shape), "k": list(args[1].shape)},
-                   flash_decode(*args, **kw), flash_decode_torch(*args, **kw))
+    (args, _), = seen["flash_decode"].values()
+    rows.append(flash_decode_timed(args, "moe_serve/last decode step, layer 0", reps, on_gpu))
     return rows
 
 
@@ -1540,19 +1586,17 @@ def flash_attention_timed(args: tuple, kw: dict, at: str, reps: int, on_gpu: boo
     return row
 
 
-def attention_at_path(seen: dict, reps: int, on_gpu: bool) -> list[dict]:
-    """Each attention kernel at the inputs the lm_serve path handed it (the
-    first prefill layer; the first layer of the last decode step) against its
-    plain version; on a card timed beside the plain version, the bound and
-    ``scaled_dot_product_attention`` (causal, or with the length mask),
-    which the port never calls."""
-    from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
+def flash_decode_timed(args: tuple, at: str, reps: int, on_gpu: bool) -> dict:
+    """``flash_decode`` at a decode call of a path: against its plain version
+    and its split copy (:func:`decode_row`), the bound for its inputs (the
+    live cache rows of k and v, q and the output, once each), and on a card
+    timed beside its plain version and ``scaled_dot_product_attention`` with
+    the length mask (GQA), which the port never calls."""
+    from repro_torch.kernels.flash_decode.ops import (KERNELS_PER_CALL, flash_decode,
+                                                      flash_decode_torch)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     size = lambda x: x.numel() * x.element_size()  # noqa: E731
-    (args, kw), = seen["flash_attention_tpu"].values()
-    rows = [flash_attention_timed(args, kw, "lm_serve/prefill, layer 0", reps, on_gpu)]
-    (args, kw), = seen["flash_decode"].values()
     q, kc, vc, pos = args
     b, _, h, hd = q.shape
     s, kh = kc.shape[1], kc.shape[2]
@@ -1564,11 +1608,10 @@ def attention_at_path(seen: dict, reps: int, on_gpu: bool) -> list[dict]:
         vc.transpose(1, 2).contiguous()
     mask = (torch.arange(s, device=q.device)[None, :] <= pos.long()[:, None])[:, None, None, :]
     lib = lambda: sdpa(qt.to(kt.dtype), kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
-    fd = []
-    _attention_row(fd, "flash_decode", {"B": b, "S": s, "H": h, "K": kh, "hd": hd,
-                                        "positions": pos.tolist()},
-                   got, flash_decode_torch(q, kc, vc, pos))
-    row = {**fd[0], "at": "lm_serve/last decode step, layer 0", "cache_rows_read": live,
+    fd: list = []
+    decode_row(fd, {"B": b, "S": s, "H": h, "K": kh, "hd": hd, "positions": pos.tolist()},
+               q, kc, vc, pos)
+    row = {**fd[0], "at": at, "cache_rows_read": live, "kernels_per_call": KERNELS_PER_CALL,
            "bound_ms": b_ms, "bound_by": b_by,
            "library": "torch.nn.functional.scaled_dot_product_attention(attn_mask=length "
                       "mask, enable_gqa)",
@@ -1579,7 +1622,19 @@ def attention_at_path(seen: dict, reps: int, on_gpu: bool) -> list[dict]:
                    call_ms=time_ms(lambda: flash_decode(q, kc, vc, pos), reps, preload=False),
                    plain_ms=time_ms(lambda: flash_decode_torch(q, kc, vc, pos), reps),
                    library_ms=time_ms(lib, reps))
-    rows.append(row)
+    return row
+
+
+def attention_at_path(seen: dict, reps: int, on_gpu: bool) -> list[dict]:
+    """Each attention kernel at the inputs the lm_serve path handed it (the
+    first prefill layer; the first layer of the last decode step) against its
+    plain version; on a card timed beside the plain version, the bound and
+    ``scaled_dot_product_attention`` (causal, or with the length mask),
+    which the port never calls."""
+    (args, kw), = seen["flash_attention_tpu"].values()
+    rows = [flash_attention_timed(args, kw, "lm_serve/prefill, layer 0", reps, on_gpu)]
+    (args, _), = seen["flash_decode"].values()
+    rows.append(flash_decode_timed(args, "lm_serve/last decode step, layer 0", reps, on_gpu))
     return rows
 
 
@@ -1661,6 +1716,12 @@ EB_DIMS = (1, 10, 128, 130)
 EB_BAGS = (1, 3, 39)
 CIN_SHAPES = ((1, 1, 1, 1, 1), (3, 4, 6, 7, 1), (2, 5, 8, 41, 130), (300, 3, 7, 5, 10),
               (17, 39, 39, 200, 10), (9, 39, 200, 200, 10), (0, 3, 4, 5, 10), (4, 2, 3, 0, 10))
+#: (B, m, Hk, H, D) at the edges of the kernel's tiles (200 rows of H, 64
+#: columns of N = B D, K = m Hk in steps of 16): H 201 and 250 (a ragged row
+#: tile), 400 (two whole ones) and 203 (no multiple of 4: 4-byte W copies); N
+#: 65, 30 and 1; K 15, 6 and 1 (below a step) and 63 (no multiple of one)
+CIN_TILE_EDGES = ((5, 3, 5, 201, 13), (1, 2, 3, 7, 1), (3, 7, 9, 250, 10), (4, 5, 20, 203, 10),
+                  (7, 39, 200, 400, 10), (2, 1, 1, 3, 33))
 MOE_SHAPES = ((1, 1, 1, 1), (3, 1, 2048, 1408), (2, 4, 33, 257), (4, 5, 64, 200),
               (2, 130, 70, 129), (3, 4, 0, 5), (2, 64, 16, 300))
 #: bf16 shapes that reach the wgmma and small_c routes at their edges: ragged
@@ -1678,7 +1739,8 @@ def model_kernel_edge_cases(dev, seed: int) -> list[dict]:
     1,000 bags, float32 and bf16 tables, rows out of range (NaN bags), 2-D and
     int64 indices, rows read by stride (``linear[:, None]``) and bags of 0;
     cin_layer at one element, D 1, ragged H / N tiles, the path's (m, Hk, H)
-    at small batches, and empty outputs; moe_gemm at one element, C 1 with
+    at small batches, empty outputs, the tiles' edges (``CIN_TILE_EDGES``)
+    and a misaligned w; moe_gemm at one element, C 1 with
     F 1,408 (decode), ragged tiles, D 0, every dtype pair, an expert whose
     rows are all zero, and the wgmma and small_c routes at
     ``MOE_ROUTE_SHAPES`` on normal and on cancelling products."""
@@ -1705,9 +1767,13 @@ def model_kernel_edge_cases(dev, seed: int) -> list[dict]:
                         randint(0, 300, 64 * 39), randn(300)[:, None], 39)
     embedding_bag_check(rows, {"indices": "(5, 0)"},
                         torch.zeros((5, 0), dtype=torch.int32, device=dev), table, 1)
-    for b, m, hk, h, d in CIN_SHAPES:
+    for b, m, hk, h, d in CIN_SHAPES + CIN_TILE_EDGES:
         cin_check(rows, {"B": b, "m": m, "Hk": hk, "H": h, "D": d},
                   randn(b, m, d), randn(b, hk, d), randn(m * hk, h))
+    w = randn(39 * 39 * 200 + 1)[1:].view(39 * 39, 200)
+    cin_check(rows, {"B": 9, "m": 39, "Hk": 39, "H": 200, "D": 10,
+                     "w": "one element off a 16-byte boundary: 4-byte copies"},
+              randn(9, 39, 10), randn(9, 39, 10), w)
     cin_check(rows, {"B": 6, "m": 5, "Hk": 7, "H": 9, "D": 10, "dtype": "bfloat16 inputs"},
               randn(6, 5, 10, dtype=torch.bfloat16), randn(6, 7, 10, dtype=torch.bfloat16),
               randn(35, 9))
@@ -2127,12 +2193,28 @@ def _wrappers() -> dict:
             "embedding_bag": embedding_bag, "cin_layer": cin_layer, "moe_gemm": moe_gemm}
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """What ``ptxas -v`` said of each kernel: its mangled name -> registers,
+    stack frame and spill bytes."""
+    out: dict = {}
+    name = None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+            out[name] = {}
+        elif name is not None and "spill" in ln:
+            out[name]["spill"] = ln.strip()
+        elif name is not None and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used")[1].split("registers")[0])
+    return out
+
+
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 #: the kernels whose wrappers pick a route before each launch
-ROUTED_KERNELS = ("flash_attention_tpu", "moe_gemm")
+ROUTED_KERNELS = ("flash_attention_tpu", "flash_decode", "moe_gemm")
 
 
 def route_counts() -> dict:
@@ -2510,7 +2592,7 @@ def main() -> int:
     info = cuda_build.build_info
     emit("build", seconds=info["seconds"], nvcc=info.get("nvcc"), library=info["library"],
          reused=info["reused"], sources=info["sources"],
-         ptxas=[ln for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln])
+         ptxas=ptxas_by_kernel(info["log"]))
 
     built = build_indexes(args, "cuda")  # the mining path
     emit("mining", card=card, **mining_check(built, "cuda"))
@@ -2591,6 +2673,7 @@ def main() -> int:
     # then the kernels at edge shapes and at the inputs the path handed them
     lm, seen = lm_serve_path(args, dev, LM_CONFIG, args.lm_layers)
     emit("lm_serve", card=card, **lm)
+    routes_before = route_counts()
     attn_edges = attention_edge_cases(dev, args.seed) + attention_at_path_f32(seen)
     attn_path = attention_at_path(seen, args.reps, True)
     del seen
@@ -2606,7 +2689,12 @@ def main() -> int:
          by_route=by_route(attn_edges + attn_path, ("limit_used", "limit_used_vs_split",
                                                     "split_limit_used", "two_term_split_limit_used",
                                                     "design_limit_used")),
-         widened_path=attn_edges[-3:], at_path=attn_path)
+         widened_path=attn_edges[-3:], at_path=attn_path,
+         flash_decode={"launches_by_route": route_diff(route_counts(),
+                                                       routes_before)["flash_decode"],
+                       "kernels_per_call": attn_path[-1]["kernels_per_call"],
+                       "limit_used_vs_split": max(r["limit_used_vs_split"] for r in attn_edges
+                                                  + attn_path if r["kernel"] == "flash_decode")})
     require(not bad, f"{len(bad)} attention kernel outputs outside their tolerance, "
             f"first {bad[:2]}")
 

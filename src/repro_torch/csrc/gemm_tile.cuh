@@ -1,5 +1,5 @@
-// The inner loop shared by the two float32 matrix-product kernels
-// (cin_interaction.cu, moe_gemm.cu): a block of kGemmThreads threads holds a
+// The inner loop of moe_gemm.cu's float32 CUDA-core route (cin_interaction.cu
+// has its own, with a larger register tile): a block of kGemmThreads threads holds a
 // (BM x BN) tile of the output, one (TM x TN) register tile per thread, and
 // adds the product of a (BK x BM) tile of the left operand, stored
 // transposed, and a (BK x BN) tile of the right one, both in shared memory,

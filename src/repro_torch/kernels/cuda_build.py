@@ -51,10 +51,11 @@ SIGNATURES = {
     #  q strides b/t/h, k strides b/s/k, v strides b/s/k, route, stream)
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P),
-    # (q, k, v, positions, out, B, S, H, K, hd, q dtype, kv dtype, scale,
-    #  q strides b/h, k strides b/s/k, v strides b/s/k, stream)
-    "flash_decode_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                            _L, _L, _L, _L, _L, _L, _L, _L, _P),
+    # (q, k, v, positions, part, out, B, S, H, K, hd, q dtype, kv dtype, scale,
+    #  chunk, n_splits, route, q strides b/h, k strides b/s/k, v strides b/s/k,
+    #  stream)
+    "flash_decode_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _P),
     # (idx, table, out, n_bags, bag, D, V, row stride, dtype, stream)
     "embedding_bag_launch": (_P, _P, _P, _L, _I, _I, _L, _L, _I, _P),
     # (x0, xk, w, out, B, m, Hk, H, D, stream)

@@ -933,3 +933,167 @@ def test_flash_attention_fewer_p_terms_break_the_margin(terms, least):
     if terms == 1:
         assert _limit_used(fa_ops.flash_attention_split_torch(q, k, v, True, terms=1),
                            fa_ops.flash_attention_torch(q, k, v, True)) > 1.0
+
+
+# ----------------------------------------------------------------------
+# flash_decode's split and combine arithmetic, its split planner and its
+# load route, held on the CPU
+# ----------------------------------------------------------------------
+#: the card's limit for a float32 attention output against its plain version
+ATTENTION_TOL_F32 = 1e-5
+
+
+@pytest.mark.parametrize("g", [1, 4, 16])
+@pytest.mark.parametrize("n_splits", [1, 2, 3, "S"])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [(torch.float32, torch.float32),
+                                              (torch.bfloat16, torch.bfloat16),
+                                              (torch.float32, torch.bfloat16)])
+def test_flash_decode_split_arithmetic(g, n_splits, q_dtype, kv_dtype):
+    """flash_decode_split_torch (the kernel's split + combine arithmetic)
+    against flash_decode_torch, the Pallas op in interpret mode and the NumPy
+    oracle within DECODE_TOL, float32 outputs also within the card's 1e-5.
+    Positions 0, S - 1, one past S (S is a multiple of the Pallas block, so
+    the Pallas op sees no padding there) and 100, whose row leaves the later
+    chunks wholly empty once S is split."""
+    from repro.kernels.flash_decode.ops import flash_decode as ref_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    b, s, kh, hd = 4, 512, 2, 32
+    splits = s if n_splits == "S" else n_splits
+    (jq,), (q,) = _attn_inputs(g, [(b, 1, kh * g, hd)], q_dtype)
+    (jk, jv), (k, v) = _attn_inputs(g + 1, [(b, s, kh, hd), (b, s, kh, hd)], kv_dtype)
+    pos = np.array([0, s - 1, s + 7, 100], dtype=np.int32)
+    got = fdec_ops.flash_decode_split_torch(q, k, v, torch.from_numpy(pos), splits)
+    assert got.dtype == q_dtype and tuple(got.shape) == (b, 1, kh * g, hd)
+    plain = fdec_ops.flash_decode_torch(q, k, v, torch.from_numpy(pos))
+    tol = DECODE_TOL[q_dtype]
+    assert float((got.float() - plain.float()).abs().max()) < tol
+    if q_dtype == torch.float32:
+        assert float((got - plain).abs().max()) <= ATTENTION_TOL_F32
+    want = np.asarray(ref_decode(jq, jk, jv, jnp.asarray(pos), interpret=True)
+                      .astype(jnp.float32))
+    assert float(np.abs(got.float().numpy() - want).max()) < tol
+    oracle = flash_decode_ref(np.repeat(np.minimum(pos + 1, s), kh),
+                              q.float().numpy()[:, 0].reshape(b * kh, g, hd),
+                              *(np.moveaxis(x.float().numpy(), 1, 2).reshape(b * kh, s, hd)
+                                for x in (k, v)))
+    assert float(np.abs(got.float().numpy() - oracle.reshape(b, 1, kh * g, hd)).max()) < tol
+
+
+@pytest.mark.parametrize("n_splits", [1, 3, 40])
+def test_flash_decode_split_of_an_empty_row_is_zero(n_splits):
+    """A row that sees no cache row (position -1) is 0 in the split
+    arithmetic, as in the plain version: every chunk's partial is empty."""
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.normal(size=(2, 1, 4, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(2, 40, 2, 16)).astype(np.float32))
+            for _ in range(2))
+    pos = torch.tensor([-1, 17], dtype=torch.int32)
+    got = fdec_ops.flash_decode_split_torch(q, k, v, pos, n_splits)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(fdec_ops.flash_decode_torch(q, k, v, pos)[0], got[0])
+    assert float((got[1] - fdec_ops.flash_decode_torch(q, k, v, pos)[1]).abs().max()) < 1e-6
+
+
+DECODE_PLAN_CASES = {
+    # name: ((B, K, S, SMs), the plan where the test pins it)
+    "qwen3_8b_decode": ((4, 8, 2080, 132), (256, 9)),
+    "moonshot_decode": ((4, 16, 2080, 132), (448, 5)),
+    "sparse_capacity": ((3, 2, 32768, 132), None),
+    "one_row": ((1, 1, 1, 132), (64, 1)),
+    "wide_batch": ((128, 8, 32768, 132), None),
+    "long_cache": ((1, 1, 10**7, 132), None),
+    "one_sm": ((2, 2, 64, 1), (64, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(DECODE_PLAN_CASES))
+def test_flash_decode_plan(case):
+    """At least one split, chunks whole multiples of the granule that cover
+    [0, S) with none starting at or past S, no more splits than the combine
+    pass takes, and at least half of BLOCKS_PER_SM blocks per SM where S
+    allows (the chunk is rounded up to the granule)."""
+    (b, kh, s, sms), pinned = DECODE_PLAN_CASES[case]
+    chunk, n = fdec_ops.flash_decode_plan(b, kh, s, sms)
+    assert n >= 1 and chunk >= 1 and chunk % fdec_ops.SPLIT_GRANULE == 0
+    assert chunk * n >= s and chunk * (n - 1) < s
+    assert n <= fdec_ops.MAX_SPLITS
+    if s >= fdec_ops.SPLIT_GRANULE * fdec_ops.BLOCKS_PER_SM * sms:
+        assert 2 * b * kh * n >= fdec_ops.BLOCKS_PER_SM * sms or n == fdec_ops.MAX_SPLITS
+    if pinned is not None:
+        assert (chunk, n) == pinned
+
+
+def test_flash_decode_plan_refuses_empty_shapes():
+    with pytest.raises(ValueError, match="no split plan"):
+        fdec_ops.flash_decode_plan(0, 8, 2080, 132)
+
+
+def _decode_route_case(case):
+    bf, f32 = torch.bfloat16, torch.float32
+    if case == "bf16_contiguous":
+        return torch.zeros((2, 64, 2, 32), dtype=bf), "vec16"
+    if case == "f32_contiguous":
+        return torch.zeros((2, 64, 2, 16), dtype=f32), "vec16"
+    if case == "layer_slice_of_stacked_cache":
+        return torch.zeros((3, 2, 2, 64, 2, 32), dtype=bf)[1, 0], "vec16"
+    if case == "misaligned_slice":
+        return torch.zeros(2 * 64 * 2 * 32 + 1, dtype=bf)[1:].view(2, 64, 2, 32), "scalar"
+    if case == "odd_row_stride":
+        return torch.zeros((2, 64, 2, 33), dtype=bf)[..., :32], "scalar"
+    if case == "f32_stride_of_two_units_and_a_half":
+        return torch.zeros((2, 64, 2, 18), dtype=f32)[..., :16], "scalar"
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["bf16_contiguous", "f32_contiguous",
+                                  "layer_slice_of_stacked_cache", "misaligned_slice",
+                                  "odd_row_stride", "f32_stride_of_two_units_and_a_half"])
+def test_flash_decode_route(case):
+    """16-byte copies (vec16) need a 16-byte aligned base and strides of
+    whole 16-byte units; a misaligned slice or an odd stride takes element
+    loads (scalar).  Either cache of a pair decides for both."""
+    cache, route = _decode_route_case(case)
+    assert fdec_ops.flash_decode_route(cache, cache) == route
+    aligned = torch.zeros(cache.shape, dtype=cache.dtype)
+    assert fdec_ops.flash_decode_route(aligned, aligned) == "vec16"
+    assert fdec_ops.flash_decode_route(aligned, cache) == route
+
+
+def test_flash_decode_counts_launches_by_route_and_none_on_cpu():
+    assert set(fdec_ops.flash_decode.launches_by_route) == set(fdec_ops.ROUTE_CODES)
+    before = (fdec_ops.flash_decode.launches, dict(fdec_ops.flash_decode.launches_by_route))
+    x = torch.zeros(2, 16, 2, 32, dtype=torch.bfloat16)
+    out = fdec_ops.flash_decode(torch.zeros(2, 1, 4, 32), x, x, torch.zeros(2, dtype=torch.int32))
+    assert out.dtype == torch.float32
+    assert before == (fdec_ops.flash_decode.launches, fdec_ops.flash_decode.launches_by_route)
+    assert fdec_ops.KERNELS_PER_CALL == 2
+
+
+@pytest.mark.parametrize("b,m,hk,h,d", [(5, 3, 5, 201, 13), (1, 2, 3, 7, 1), (3, 7, 9, 250, 10),
+                                        (4, 5, 20, 203, 10), (2, 1, 1, 3, 33)])
+def test_cin_layer_plain_at_tile_edges(b, m, hk, h, d):
+    """The plain version at the CUDA kernel's tile edges (ragged 200-row and
+    64-column tiles, K below and no multiple of its 16-row step, B D = 1)
+    against the float64 oracle within 2 gamma_(m Hk + 2) of the sum of
+    |terms|: the shapes chip_smoke.py holds the kernel to on the card."""
+    rng = np.random.default_rng(b * 100 + h)
+    x0, xk, w = (rng.normal(size=s).astype(np.float32)
+                 for s in ((b, m, d), (b, hk, d), (m * hk, h)))
+    got = cin_ops.cin_layer(*(torch.from_numpy(a) for a in (x0, xk, w)))
+    limit = 2 * _gamma(m * hk + 2) * cin_layer_ref(np.abs(x0), np.abs(xk), np.abs(w))
+    assert np.all(np.abs(got.numpy() - cin_layer_ref(x0, xk, w)) <= limit)
+
+
+def test_ab_timing_refuses_to_run_without_a_card():
+    """The A/B timing script measures on a CUDA card only: without one it
+    exits non-zero and prints no result."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = Path(__file__).resolve().parent.parent / "src/repro_torch/kernels/ab_timing.py"
+    res = subprocess.run([sys.executable, str(script), "--reps", "1"], capture_output=True,
+                         text=True, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode == 2 and res.stdout == ""
+    assert "no CUDA device" in res.stderr
