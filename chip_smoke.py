@@ -20,7 +20,9 @@ launch counts set to 0 just before it and read just after:
   (dense layout) on the batch's AND / ``top10:`` / ``docs:`` queries;
 * dgap — ``repro_torch.kernels.dgap_decode`` on the positional index's
   posting lists: each long list alone, then the whole concatenated d-gap
-  stream in one call (its running sum passes 2^31 and wraps);
+  stream in one call (its running sum passes 2^31 and wraps), then that
+  stream and the longest edge length repeated ``DGAP_REPEATS`` times on
+  both load routes (a look-back race would show now and then);
 * anchor_probe — ``repro_torch.kernels.anchor_probe`` with the positional
   index's longest list as the anchors and the next lists' positions as the
   queries;
@@ -64,7 +66,8 @@ or not), ``flash_decode`` a load route (16-byte copies or element loads);
 their comparison rows name it, ragged and cancelling edge inputs reach
 every route, and on both LM paths every prefill launch of the first two
 must take ``wgmma``, every MoE decode ``moe_gemm`` ``small_c`` and every
-``flash_decode`` ``vec16``.  float32
+``flash_decode`` ``vec16``.  ``dgap_decode`` picks 16-byte or element loads
+from the stream's alignment (offset views reach the second).  float32
 matrix products run without TF32.  Each phase prints one
 JSON line; any failure ends the run with a non-zero exit code.  The last line
 is ``{"ok": true, "device": {...}}``, after the card's name and power limit; the
@@ -337,7 +340,33 @@ def make_pool(rng, n_rules: int, max_len: int, dev):
     return torch.from_numpy(pool).to(dev), ptr, lens.astype(np.int32)
 
 
-def edge_cases(dev, seed: int) -> list[dict]:
+def sliced_slice_edges(dev, rng, longest_slice: int) -> list[dict]:
+    """anchor_probe_sliced against its plain version on slices of 0, 1,
+    2^k - 1, 2^k and 2^k + 1 anchors (k = 4, 8, 12: where the bisection takes
+    one step more) and of the path's longest slice, each probed with queries
+    below, on, between and above every anchor and 2^31 - 2."""
+    from repro_torch.kernels.anchor_intersect.ops import (
+        anchor_probe_sliced, anchor_probe_sliced_torch)
+
+    lens = [0, 1] + [2**k + d for k in (4, 8, 12) for d in (-1, 0, 1)] + [longest_slice]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)  # noqa: E731
+    rows = []
+    for n in lens:
+        vals = 2 * np.cumsum(rng.integers(1, 5, n)) + 10  # even, strictly increasing
+        anchors = np.concatenate([[5, 7], vals, [2**31 - 3]])  # other lists around it
+        lo, hi = 2, 2 + n
+        q = np.concatenate([[-2**31, 0, 9, 2**31 - 2, 2**31 - 3], vals, vals - 1, vals + 1,
+                            rng.integers(0, max(int(vals[-1]) if n else 20, 20) + 5, 1000)])
+        nq = len(q)
+        args = (t(q), t(np.full(nq, lo)), t(np.full(nq, hi)), t(anchors))
+        mism, err = diff_stats(anchor_probe_sliced(*args), anchor_probe_sliced_torch(*args))
+        rows.append({"kernel": "anchor_probe_sliced",
+                     "shape": {"NQ": nq, "NA": len(anchors), "slice": n},
+                     "mismatches": mism, "max_abs_err": err})
+    return rows
+
+
+def edge_cases(dev, seed: int, longest_slice: int) -> list[dict]:
     from repro_torch.kernels.anchor_intersect.ops import (
         anchor_probe_sliced, anchor_probe_sliced_torch)
     from repro_torch.kernels.fused_decode.ops import (
@@ -360,6 +389,7 @@ def edge_cases(dev, seed: int) -> list[dict]:
         mism, err = diff_stats(anchor_probe_sliced(*args), anchor_probe_sliced_torch(*args))
         out.append({"kernel": "anchor_probe_sliced", "shape": {"NQ": nq, "NA": len(anchors)},
                     "mismatches": mism, "max_abs_err": err})
+    out += sliced_slice_edges(dev, rng, longest_slice)
     for L in (1, 7, 128, 129):
         pool, rptr, rlen = make_pool(rng, 64, L, dev)
         for rows in (0, 1, 255, 256, 257):
@@ -607,7 +637,8 @@ def kernels_at_main_path(name: str, inp: dict, reps: int, timed: bool) -> list[d
             mism, err = mism + m, max(err, e)
         a = calls[0]
         if kernel == "anchor_probe_sliced":
-            shape = {"NQ": a[0].numel(), "NA": a[3].numel()}
+            shape = {"NQ": a[0].numel(), "NA": a[3].numel(),
+                     "longest_slice": int((a[2] - a[1]).max().item())}
         else:
             shape = {"R": a[1].numel(), "P": a[0].numel()}
             shape.update({"L": a[4]} if kernel == "decode_rows"
@@ -713,28 +744,62 @@ def _wrap_sub(a: torch.Tensor, b) -> torch.Tensor:
     return (a.long() - b) & 0xFFFFFFFF
 
 
+#: calls of dgap_decode repeated on one input, each compared (a look-back
+#: race would show now and then, not every time)
+DGAP_REPEATS = 50
+
+
+def dgap_repeats(gaps: torch.Tensor, shape: dict, repeats: int = DGAP_REPEATS) -> dict:
+    """``repeats`` calls of dgap_decode on ``gaps``, each against the plain
+    version."""
+    from repro_torch.kernels.dgap_decode.ops import (
+        dgap_decode, dgap_decode_route, dgap_decode_torch)
+
+    want = dgap_decode_torch(gaps)
+    mism = err = bad = 0
+    for _ in range(repeats):
+        m, e = diff_stats(dgap_decode(gaps), want)
+        mism, err, bad = mism + m, max(err, e), bad + (m > 0)
+    return {"kernel": "dgap_decode", "shape": shape, "route": dgap_decode_route(gaps),
+            "repeats": repeats, "calls_differing": bad, "mismatches": mism, "max_abs_err": err}
+
+
 def dgap_edge_cases(dev, seed: int) -> list[dict]:
     """dgap_decode against its plain version at every edge length, on three
     gap streams each: the full int32 range (negative gaps, wraps), positive
-    gaps below 2^16 (a long stream wraps) and gaps of 2^30 (wraps at once)."""
-    from repro_torch.kernels.dgap_decode.ops import dgap_decode, dgap_decode_torch
+    gaps below 2^16 (a long stream wraps) and gaps of 2^30 (wraps at once);
+    each stream also as a view one element in (``buf[1:]``, 4-byte aligned:
+    the element-load route).  The longest length (more tiles than the card
+    holds at once, so tiles wait on tiles not yet started when they
+    started) is repeated ``DGAP_REPEATS`` times on both routes."""
+    from repro_torch.kernels.dgap_decode.ops import (
+        dgap_decode, dgap_decode_route, dgap_decode_torch)
 
     g = torch.Generator(device=dev).manual_seed(seed)
     out = []
     for n in DGAP_LENGTHS:
         streams = {
-            "full_range": torch.randint(-2**31, 2**31, (n,), generator=g, device=dev,
+            "full_range": torch.randint(-2**31, 2**31, (n + 1,), generator=g, device=dev,
                                         dtype=torch.int64).to(torch.int32),
-            "positive": torch.randint(1, 2**16, (n,), generator=g, device=dev,
+            "positive": torch.randint(1, 2**16, (n + 1,), generator=g, device=dev,
                                       dtype=torch.int32),
-            "huge": torch.full((n,), 2**30, dtype=torch.int32, device=dev)}
-        for kind, gaps in streams.items():
-            want = dgap_decode_torch(gaps)
-            mism, err = diff_stats(dgap_decode(gaps), want)
-            wraps = n > 1 and bool((gaps.long().cumsum(0) > INT32_MAX).any().item())
-            out.append({"kernel": "dgap_decode", "shape": {"n": n, "gaps": kind},
-                        "wraps": wraps, "mismatches": mism, "max_abs_err": err})
-    require(any(r["wraps"] for r in out), "no d-gap edge stream wraps")
+            "huge": torch.full((n + 1,), 2**30, dtype=torch.int32, device=dev)}
+        for kind, buf in streams.items():
+            for view, gaps in (("aligned", buf[:n]), ("offset", buf[1:])):
+                want = dgap_decode_torch(gaps)
+                mism, err = diff_stats(dgap_decode(gaps), want)
+                wraps = n > 1 and bool((gaps.long().cumsum(0) > INT32_MAX).any().item())
+                out.append({"kernel": "dgap_decode", "shape": {"n": n, "gaps": kind,
+                                                               "view": view},
+                            "route": dgap_decode_route(gaps) if n > 1 else None,
+                            "wraps": wraps, "mismatches": mism, "max_abs_err": err})
+        if n == max(DGAP_LENGTHS):
+            buf = streams["full_range"]
+            out += [dgap_repeats(buf[:n], {"n": n, "gaps": "full_range", "view": "aligned"}),
+                    dgap_repeats(buf[1:], {"n": n, "gaps": "full_range", "view": "offset"})]
+    require(any(r.get("wraps") for r in out), "no d-gap edge stream wraps")
+    require({r["route"] for r in out} >= {"vec16", "scalar"},
+            "the d-gap edge cases did not reach both load routes")
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return out
@@ -749,7 +814,8 @@ def dgap_path(built: dict, dev, reps: int) -> dict:
     offset.  All must equal the host's lists.  Then timed at the whole
     stream beside the plain version, the bound and ``torch.cumsum``."""
     from repro_torch.core.dgaps import to_dgaps
-    from repro_torch.kernels.dgap_decode.ops import dgap_decode, dgap_decode_torch
+    from repro_torch.kernels.dgap_decode.ops import (
+        dgap_decode, dgap_decode_route, dgap_decode_torch)
 
     store = built["pidx"].store
     lists = [store.get_list(i) for i in range(store.n_lists)]
@@ -767,6 +833,7 @@ def dgap_path(built: dict, dev, reps: int) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = launch_counts()
+    routes = route_counts()["dgap_decode"]
     bad = [i for i, d in decoded.items() if not np.array_equal(d.cpu().numpy(), lists[i])]
     require(not bad, f"{len(bad)} long lists decode differently from the host's, first {bad[:3]}")
     # list k is S[o_k + m] - S[o_k - 1] - 1 where S = dec_whole + 1
@@ -782,27 +849,44 @@ def dgap_path(built: dict, dev, reps: int) -> dict:
     if dev.type == "cuda":
         require(launches["dgap_decode"] == len(long_ids) + 1,
                 f"dgap_decode launches on its path: {launches}")
-    # the function, timed at the whole stream
+    # the function, repeated and timed at the whole stream (also as an offset
+    # view: the element-load route), the longest list and a 4,096-value list
     mism, err = diff_stats(dgap_decode(whole), dgap_decode_torch(whole))
+    buf = torch.empty(whole.numel() + 1, dtype=torch.int32, device=dev)
+    buf[1:] = whole
+    repeats = [dgap_repeats(whole, {"n": whole.numel(), "view": "aligned"}),
+               dgap_repeats(buf[1:], {"n": whole.numel(), "view": "offset"})]
+    mism += sum(r["mismatches"] for r in repeats)
+    err = max([err] + [r["max_abs_err"] for r in repeats])
     lib = lambda: torch.cumsum(whole, 0, dtype=torch.int32)  # noqa: E731
     lib_agrees = bool(torch.equal(_wrap_sub(lib(), 1), _wrap_sub(dec_whole, 0)))
     n = whole.numel()
     b_ms, b_by = bound(8 * n, n)
     row = {"kernel": "dgap_decode", "at": "dgap/positional-stream", "shape": {"n": n},
-           "mismatches": mism, "max_abs_err": err,
+           "mismatches": mism, "max_abs_err": err, "repeats": repeats,
            "library": "torch.cumsum(x, 0, dtype=torch.int32)", "library_agrees": lib_agrees,
-           "bound_ms": b_ms, "bound_by": b_by,
-           "two_thirds_ceiling_ms": b_ms * 1.5}
+           "bound_ms": b_ms, "bound_by": b_by, "route": dgap_decode_route(whole)}
     if dev.type == "cuda":
         row.update(ms=time_ms(lambda: dgap_decode(whole), reps),
                    call_ms=time_ms(lambda: dgap_decode(whole), reps, preload=False),
                    plain_ms=time_ms(lambda: dgap_decode_torch(whole), reps),
                    library_ms=time_ms(lib, reps))
+        row["ms_by_route"] = {"vec16": row["ms"],
+                              "scalar": time_ms(lambda: dgap_decode(buf[1:]), reps)}
+        by_len = sorted(long_ids, key=lambda i: lens[i])
+        row["lists"] = []
+        for i in (by_len[-1], by_len[0]):
+            x = inputs[i]
+            lb_ms, _ = bound(8 * x.numel(), x.numel())
+            row["lists"].append({"n": x.numel(), "ms": time_ms(lambda: dgap_decode(x), reps),
+                                 "bound_ms": lb_ms,
+                                 "library_ms": time_ms(
+                                     lambda: torch.cumsum(x, 0, dtype=torch.int32), reps)})
     return {"lists": len(lists), "positions": int(n), "longest_list": int(lens.max()),
             "long_lists_decoded_alone": len(long_ids),
             "lists_recovered_from_whole_stream": len(lists),
             "running_sum_max": int(running.max()), "wraps": bool(running.max() > INT32_MAX),
-            "launches": launches, "row": row}
+            "launches": launches, "launches_by_route": routes, "row": row}
 
 
 def anchor_probe_edge_cases(dev, seed: int) -> list[dict]:
@@ -1459,11 +1543,12 @@ def lm_serve_path(args, dev, name: str = LM_CONFIG, n_layers: int | None = None,
         # every prefill launch of the two routed kernels on the tensor cores;
         # every MoE decode product on the small_c weight stream; every decode
         # attention reading the cache by 16-byte copies
-        want_routes = {"prefill": {"flash_attention_tpu": {"wgmma": n_layers}, "flash_decode": {},
-                                   "moe_gemm": {"wgmma": 3 * n_layers} if cfg.moe else {}},
-                       "decode": {"flash_attention_tpu": {},
-                                  "flash_decode": {"vec16": n_layers * new},
-                                  "moe_gemm": {"small_c": 3 * n_layers * new} if cfg.moe else {}}}
+        want_routes = {phase: {name: {} for name in ROUTED_KERNELS}
+                       for phase in ("prefill", "decode")}
+        want_routes["prefill"].update(flash_attention_tpu={"wgmma": n_layers},
+                                      moe_gemm={"wgmma": 3 * n_layers} if cfg.moe else {})
+        want_routes["decode"].update(flash_decode={"vec16": n_layers * new},
+                                     moe_gemm={"small_c": 3 * n_layers * new} if cfg.moe else {})
         got_routes = {phase: {name: {r: n for r, n in by.items() if n}
                               for name, by in counts.items()}
                       for phase, counts in routes.items()}
@@ -2214,7 +2299,7 @@ def launch_counts() -> dict:
 
 
 #: the kernels whose wrappers pick a route before each launch
-ROUTED_KERNELS = ("flash_attention_tpu", "flash_decode", "moe_gemm")
+ROUTED_KERNELS = ("dgap_decode", "flash_attention_tpu", "flash_decode", "moe_gemm")
 
 
 def route_counts() -> dict:
@@ -2624,13 +2709,19 @@ def main() -> int:
         require(row["library_agrees"], f"the library yardstick disagrees with {name}")
         entry[name] = {"row": row, "launches": path["launches"][name],
                        "max_abs_err": max(r["max_abs_err"] for r in edges_here + [row])}
+        if "launches_by_route" in path:
+            entry[name].update(kernel_route=row["route"],
+                               launches_by_route=path["launches_by_route"],
+                               ms_by_route=row["ms_by_route"])
 
     # kernels, against their plain versions on the card: edge shapes, then what
     # a device step hands them on each path that launches one — both layouts,
     # both indexes, 2-term and 3-4-term batches, first and last window — and
     # what mining handed the signature kernel.  The 2-term first-window steps
     # and both signature calls are also timed.
-    edges = edge_cases(dev, args.seed) + minhash_edge_cases(dev, args.seed)
+    longest_slice = int(torch.diff(
+        sessions["fused"].positional_server.arrays["c_offsets"]).max().item())
+    edges = edge_cases(dev, args.seed, longest_slice) + minhash_edge_cases(dev, args.seed)
     refusals = wrapper_refusals(dev)
     measured = []
     for layout in ("fused", "dense"):
@@ -2757,6 +2848,9 @@ def main() -> int:
                         "launches": result["launches_fused"][r["kernel"]],
                         "max_abs_err": max_err(r["kernel"]),
                         **{k: r[k] for k in timing_keys}, "at": at})
+        if r["kernel"] == "anchor_probe_sliced":
+            kernels[-1]["launches_by_layout"] = {lay: result[f"launches_{lay}"][r["kernel"]]
+                                                 for lay in ("fused", "dense")}
     mh = {r["at"]: r for r in measured if r["kernel"] == "minhash_rows"}
     by_path = {"mining": built["mining_launches"]["minhash_rows"],
                "rlz": rlz["launches_build"]["minhash_rows"]}
@@ -2771,6 +2865,8 @@ def main() -> int:
         kernels.append({"name": name, **KERNEL_META[name], "launches": e["launches"],
                         "max_abs_err": e["max_abs_err"],
                         **{k: e["row"][k] for k in timing_keys}, "at": e["row"]["at"]})
+        kernels[-1].update({k: e[k] for k in ("kernel_route", "launches_by_route", "ms_by_route")
+                            if k in e})
     for r in attn_path:
         name = r["kernel"]
         kernels.append({"name": name, **KERNEL_META[name], "launches": lm["launches"][name],

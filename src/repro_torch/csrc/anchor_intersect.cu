@@ -26,6 +26,9 @@
 // keeps the streamed traffic at the 16 B/query minimum and coalesced
 // (thread i owns query i); the dependent L2 loads are latency, hidden by
 // having every query in flight at once (NQ threads, 256 per block).
+// A (G + 1)-ary search (G pivots loaded at once a round, by one thread or by
+// a group of G lanes) shortens that chain but was no faster on the serving
+// path's recorded windows on an H100, so the bisection is the one route.
 #include "common.cuh"
 
 __global__ void anchor_probe_sliced_kernel(const int* __restrict__ q,

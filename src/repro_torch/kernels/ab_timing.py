@@ -1,18 +1,29 @@
-"""Time ``flash_decode`` and ``cin_layer`` at the LM and recsys serving paths'
-shapes, and xDeepFM's ``serve_p99`` step end to end, on one CUDA card, for
-the ``repro_torch`` found first on ``sys.path``::
+"""Time the port's redesigned kernels at the serving paths' shapes on one
+CUDA card, for the ``repro_torch`` found first on ``sys.path``::
 
     python3 src/repro_torch/kernels/ab_timing.py [--src OTHER/src] [--reps N]
+                                                 [--only index|model]
 
 ``--src`` puts another checkout's ``src`` first, so two checkouts of the
 port (say a commit and its parent) are timed by the same code on the same
-card: run them in turns in one call (A B B A).  Inputs are random, seeded;
-each kernel's output is checked against its plain version (float32 within
-1e-5 absolute / bf16 within 2^-7 of the value + 1e-5 for the attention,
-2 gamma_(m Hk + 2) of the sum of |terms| for the CIN).  Prints one JSON
-line: the card's name and power limit, the checkout's ``src``, and per shape
-the median device time of ``--reps`` CUDA-event timings (the card kept busy
-while the call is queued) and, for the serve step, host seconds per call.
+card: run them in turns in one call (A B B A).  Inputs are random, seeded.
+
+* index side: ``dgap_decode`` at the positional index's whole d-gap stream
+  (1,603,481 values), its longest list (196,811) and a 4,096-value list,
+  beside ``torch.cumsum``; where the checkout's wrapper has two load routes,
+  the element-load route too (a view one element in).  Outputs equal the
+  plain version.
+* model side: ``flash_decode`` and ``cin_layer`` at the LM and recsys
+  serving paths' shapes, and xDeepFM's ``serve_p99`` step end to end; each
+  output is checked against its plain version (float32 within 1e-5 absolute
+  / bf16 within 2^-7 of the value + 1e-5 for the attention, 2 gamma_(m Hk +
+  2) of the sum of |terms| for the CIN).
+
+Prints one JSON line: the card's name and power limit, the checkout's
+``src``, the timing's own floor (two events back to back, an almost empty
+kernel between them), and per shape the median device time of ``--reps``
+CUDA-event timings (the card kept busy while the call is queued) and, for
+the serve step, host seconds per call.
 """
 
 from __future__ import annotations
@@ -26,45 +37,62 @@ import time
 from pathlib import Path
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    sys.path.insert(0, str(Path(args.src).resolve()))
-    import torch
+def device_ms(torch, fn, reps: int) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up, the
+    card kept busy while each call is queued (so the events bracket device
+    time alone)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
-    if not torch.cuda.is_available():
-        print("ab_timing.py: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
+
+#: the positional index's d-gap stream on the serving path: the whole stream,
+#: its longest list, and a list of 4,096 values
+DGAP_SHAPES = (("whole stream", 1_603_481), ("longest list", 196_811),
+               ("4,096-value list", 4_096))
+
+
+def index_side(torch, out: dict, reps: int, seed: int, dev=None) -> None:
+    import numpy as np
+
+    from repro_torch.kernels.dgap_decode import ops as dg
+
+    dev = dev or torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    redesigned = hasattr(dg, "dgap_decode_route")
+    for name, n in DGAP_SHAPES:
+        buf = torch.from_numpy(rng.integers(1, 1 << 12, n + 1).astype(np.int32)).to(dev)
+        x = buf[:n]
+        want = dg.dgap_decode_torch(x)
+        row = {"ms": device_ms(torch, lambda: dg.dgap_decode(x), reps),
+               "equal": bool(torch.equal(dg.dgap_decode(x), want)),
+               "library_ms": device_ms(torch, lambda: torch.cumsum(x, 0, dtype=torch.int32),
+                                       reps)}
+        if redesigned:  # the element-load route, on a view one element in
+            row["ms_scalar"] = device_ms(torch, lambda: dg.dgap_decode(buf[1:]), reps)
+            row["equal"] &= bool(torch.equal(dg.dgap_decode(buf[1:]),
+                                             dg.dgap_decode_torch(buf[1:])))
+        out[f"dgap_decode/{name}, n {n}"] = row
+
+
+def model_side(torch, out: dict, reps_arg: int, seed: int) -> None:
     from repro_torch.configs import get_config
     from repro_torch.data.pipelines import recsys_batches
     from repro_torch.kernels.cin_interaction.ops import cin_layer, cin_layer_torch
     from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_torch
     from repro_torch.models import steps
 
-    def device_ms(fn, reps: int) -> float:
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(2_000_000)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(args.seed)
-    out: dict = {"src": str(Path(args.src).resolve()),
-                 "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                         "--format=csv,noheader"], capture_output=True,
-                                        text=True).stdout.strip()}
+    g = torch.Generator(device=dev).manual_seed(seed)
     for name, h, kh in (("qwen3-8b", 32, 8), ("moonshot-v1-16b-a3b", 16, 16)):
         cache = torch.randn((2, 2, 4, 2080, kh, 128), generator=g, device=dev).bfloat16()
         q = torch.randn((4, 1, h, 128), generator=g, device=dev).bfloat16()
@@ -73,7 +101,7 @@ def main() -> int:
         got, want = flash_decode(q, kc, vc, pos).float(), flash_decode_torch(q, kc, vc, pos).float()
         ok = bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-5).all())
         out[f"flash_decode/{name} decode, B 4, S 2080"] = {
-            "ms": device_ms(lambda: flash_decode(q, kc, vc, pos), args.reps), "within": ok}
+            "ms": device_ms(torch, lambda: flash_decode(q, kc, vc, pos), reps_arg), "within": ok}
         del cache
     u = 2.0 ** -24
     for rows in (512, 262144):
@@ -84,24 +112,54 @@ def main() -> int:
             n = 39 * hk + 2
             limit = 2 * n * u / (1 - n * u) * cin_layer_torch(x0.abs(), xk.abs(), w.abs())
             ok = bool(((cin_layer(x0, xk, w) - cin_layer_torch(x0, xk, w)).abs() <= limit).all())
-            reps = args.reps if rows < 10_000 else 3
+            reps = reps_arg if rows < 10_000 else 3
             out[f"cin_layer/B {rows}, Hk {hk}"] = {
-                "ms": device_ms(lambda: cin_layer(x0, xk, w), reps), "within": ok}
+                "ms": device_ms(torch, lambda: cin_layer(x0, xk, w), reps), "within": ok}
             del x0, xk, w, limit
     cfg = get_config("xdeepfm")
-    params = steps.init_model_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
-    fields = torch.from_numpy(next(recsys_batches(cfg, 512, seed=args.seed))["fields"]).to(dev)
+    params = steps.init_model_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    fields = torch.from_numpy(next(recsys_batches(cfg, 512, seed=seed))["fields"]).to(dev)
     serve = steps.make_recsys_serve_step(cfg)
     for _ in range(3):
         serve(params, fields=fields)
     torch.cuda.synchronize()
     secs = []
-    for _ in range(args.reps):
+    for _ in range(reps_arg):
         t0 = time.perf_counter()
         serve(params, fields=fields)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     out["xdeepfm serve_p99 step (512 rows), s"] = statistics.median(secs)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("index", "model"), default=None,
+                    help="time one side only (default: both)")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_timing.py: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out: dict = {"src": str(Path(args.src).resolve()),
+                 "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                         "--format=csv,noheader"], capture_output=True,
+                                        text=True).stdout.strip()}
+    # what any timed call costs here: two events back to back, and an
+    # (almost) empty kernel between them
+    out["timing floor"] = {"events_ms": device_ms(torch, lambda: None, args.reps),
+                           "empty_kernel_ms": device_ms(torch, lambda: torch.cuda._sleep(0),
+                                                        args.reps)}
+    if args.only != "model":
+        index_side(torch, out, args.reps, args.seed)
+    if args.only != "index":
+        model_side(torch, out, args.reps, args.seed)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -39,8 +39,8 @@ SIGNATURES = {
     "anchor_probe_sliced_launch": (_P, _P, _P, _P, _P, _L, _P),
     # (q, anchors, idx, found, nq, na, stream)
     "anchor_probe_launch": (_P, _P, _P, _P, _L, _L, _P),
-    # (gaps, out, workspace, workspace_len, n, stream)
-    "dgap_decode_launch": (_P, _P, _P, _L, _L, _P),
+    # (gaps, out, workspace, workspace_len, n, route, stream)
+    "dgap_decode_launch": (_P, _P, _P, _L, _L, _I, _P),
     # (pool, pool_n, ptr, base, lens, values, valid, rows, L, stream)
     "decode_rows_launch": (_P, _L, _P, _P, _P, _P, _P, _L, _I, _P),
     # (pool, pool_n, ptr, base, lens, targets, hit, rows, stream)

@@ -293,11 +293,11 @@ def test_kernel_sources_are_in_the_package():
         assert f" {entry}(" in text, entry  # every bound entry point exists
 
 
-@pytest.mark.parametrize("n", [0, 1, 2, 255, 4095, 4096, 4097, 65535, 65536, 65537,
-                               131072 + 13])
+@pytest.mark.parametrize("n", [0, 1, 2, 255, 4095, 4096, 4097, 8191, 8192, 8193, 65535,
+                               65536, 65537, 131072 + 13])
 def test_dgap_decode_vs_jax_and_oracle(n):
-    """n over the port's 4096-value tile and the reference's 65,536-value
-    tile, ± 1, plus the n <= 1 shortcuts."""
+    """n over one and two of the port's 4096-value tiles and the reference's
+    65,536-value tile, ± 1, plus the n <= 1 shortcuts."""
     rng = np.random.default_rng(4000 + n)
     g = rng.integers(1, 2**20, n).astype(np.int32)
     got = dg_ops.dgap_decode(t32(g))
@@ -1097,3 +1097,125 @@ def test_ab_timing_refuses_to_run_without_a_card():
                          text=True, env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode == 2 and res.stdout == ""
     assert "no CUDA device" in res.stderr
+
+
+# ----------------------------------------------------------------------
+# anchor_probe_sliced at the slice lengths where its bisection takes one step
+# more, and dgap_decode's single-pass scan: the kernel's tile protocol in
+# tensor code and its load route, held on the CPU
+# ----------------------------------------------------------------------
+def _edge_slices(rng, lens):
+    """Slices of ``lens`` strictly increasing anchors, one after another, and
+    queries below, on, between and above every anchor, plus 2^31 - 2."""
+    anchors, lo, hi, queries = [], [], [], []
+    start = 0
+    for n in lens:
+        vals = 2 * np.cumsum(rng.integers(1, 6, n)) + 3 * start
+        anchors.append(vals)
+        q = np.concatenate([[-2**31, -1, 2**31 - 2], vals, vals - 1, vals + 1,
+                            [vals[-1] + 5 if n else 7]])
+        if len(q) > 600:  # keep the interpret-mode reference quick
+            q = np.concatenate([q[:3], rng.choice(q[3:], 600, replace=False)])
+        queries.append(q)
+        lo.append(np.full(len(q), start))
+        hi.append(np.full(len(q), start + n))
+        start += n
+    cat = lambda xs: np.concatenate(xs).astype(np.int32)  # noqa: E731
+    return cat(queries), cat(lo), cat(hi), cat(anchors)
+
+
+@pytest.mark.parametrize("k", list(range(1, 13)))
+def test_anchor_probe_sliced_at_bisection_steps(k):
+    """Slices of 0, 1, 2^k - 1, 2^k and 2^k + 1 anchors (where the bisection
+    takes one step more) against the Pallas op in interpret mode and both
+    oracles."""
+    rng = np.random.default_rng(6000 + k)
+    queries, lo, hi, anchors = _edge_slices(rng, [0, 1, 2**k - 1, 2**k, 2**k + 1])
+    got = ai_ops.anchor_probe_sliced(*(t32(a) for a in (queries, lo, hi, anchors)))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (len(queries),)
+    jgot = ref_ai_ops.anchor_probe_sliced(*(jnp.asarray(a) for a in (queries, lo, hi, anchors)),
+                                          interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(jgot))
+    assert np.array_equal(got.numpy(), ref_sliced_ref(queries, lo, hi, anchors))
+    assert np.array_equal(got.numpy(), anchor_probe_sliced_ref(queries, lo, hi, anchors))
+
+
+def test_anchor_probe_sliced_counts_no_launch_on_cpu():
+    """A CPU call takes the plain version and counts no launch."""
+    before = ai_ops.anchor_probe_sliced.launches
+    got = ai_ops.anchor_probe_sliced(t32([0, 5, 9]), t32([0, 0, 2]), t32([3, 3, 2]),
+                                     t32([1, 4, 8]))
+    assert got.tolist() == [0, 2, 2]
+    assert ai_ops.anchor_probe_sliced.launches == before
+
+
+def _tile_orders(rng, n_tiles: int):
+    return {"ascending": None, "descending": list(range(n_tiles))[::-1],
+            "random": rng.permutation(n_tiles), "random2": rng.permutation(n_tiles)}
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 8191, 8192, 8193, 3 * 4096 + 5])
+@pytest.mark.parametrize("tile", [4096, 8192, 256])
+def test_dgap_decode_lookback_arithmetic(n, tile):
+    """dgap_decode_lookback_torch (the kernel's tiles, aggregates, inclusive
+    prefixes and look-back) in several tile completion orders, against the
+    plain version and the Pallas op in interpret mode, around the kernel's
+    tile (4096) and at tiles of other sizes."""
+    rng = np.random.default_rng(8000 + n + tile)
+    g = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    want = dg_ops.dgap_decode_torch(t32(g))
+    jwant = np.asarray(ref_dg_ops.dgap_decode(jnp.asarray(g), interpret=True))
+    assert np.array_equal(want.numpy(), jwant)
+    for name, order in _tile_orders(rng, -(-n // tile)).items():
+        got = dg_ops.dgap_decode_lookback_torch(t32(g), tile, order)
+        assert got.dtype == torch.int32 and torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("case", ["wraps", "negative"])
+def test_dgap_decode_lookback_wraps_like_the_reference(case):
+    """The wrap and negative streams of test_dgap_decode_wraps_like_the_reference
+    through the tile protocol in random completion orders."""
+    rng = np.random.default_rng(7)
+    g = (np.full(70_000, 40_000, np.int32) if case == "wraps"
+         else rng.integers(-2**31, 2**31, 70_001).astype(np.int32))
+    want = np.asarray(ref_dg_ops.dgap_decode(jnp.asarray(g), interpret=True))
+    for tile in (dg_ops.TILE, 1024):
+        for name, order in _tile_orders(rng, -(-len(g) // tile)).items():
+            got = dg_ops.dgap_decode_lookback_torch(t32(g), tile, order)
+            assert np.array_equal(got.numpy(), want), (tile, name)
+
+
+def test_dgap_decode_tile_matches_the_kernel_source():
+    """The wrapper sizes the workspace by TILE: one status word per tile of
+    the kernel's kThreads * kItems values."""
+    import re
+    from pathlib import Path
+
+    src = (Path(dg_ops.__file__).resolve().parents[2] / "csrc").joinpath
+    consts = {}
+    for name in ("common.cuh", "dgap_decode.cu"):
+        for m in re.finditer(r"constexpr int (kThreads|kItems) = (\d+);", src(name).read_text()):
+            consts[m.group(1)] = int(m.group(2))
+    assert consts["kThreads"] * consts["kItems"] == dg_ops.TILE
+
+
+def test_dgap_decode_lookback_refuses_a_wrong_order():
+    with pytest.raises(ValueError, match="permutation"):
+        dg_ops.dgap_decode_lookback_torch(t32(np.ones(5000)), 4096, [0, 0])
+
+
+@pytest.mark.parametrize("view", ["fresh", "offset_one", "offset_four", "empty"])
+def test_dgap_decode_route(view):
+    """16-byte loads (vec16) need a 16-byte aligned first element; a view one
+    element in (stream[1:]) takes element loads, four elements in is aligned
+    again.  A CPU call takes the plain version on every view and counts no
+    launch in any route."""
+    buf = torch.arange(1, 10_002, dtype=torch.int32)
+    gaps, route = {"fresh": (buf, "vec16"), "offset_one": (buf[1:], "scalar"),
+                   "offset_four": (buf[4:], "vec16"), "empty": (buf[:0], "vec16")}[view]
+    assert dg_ops.dgap_decode_route(gaps) == route
+    assert set(dg_ops.dgap_decode.launches_by_route) == {"vec16", "scalar"}
+    before = (dg_ops.dgap_decode.launches, dict(dg_ops.dgap_decode.launches_by_route))
+    assert torch.equal(dg_ops.dgap_decode(gaps), dg_ops.dgap_decode_torch(gaps))
+    assert torch.equal(dg_ops.dgap_decode(gaps), dg_ops.dgap_decode_lookback_torch(gaps))
+    assert before == (dg_ops.dgap_decode.launches, dg_ops.dgap_decode.launches_by_route)
