@@ -28,7 +28,12 @@ launch counts set to 0 just before it and read just after:
   queries;
 * serve — one mixed query batch through ``Session.execute``, fused and dense
   device layouts, ``similar:`` / ``versions-of:`` over the mined index
-  included;
+  included; the fused layout serves each window in two launches
+  (``decode_window``, ``probe_window``), the dense one probes each term with
+  ``anchor_probe_sliced``; a traced fused window at phrase2 and at and2 is
+  split into host and device time beside the same window served by the
+  row-given route (``decode_rows``, then ``anchor_probe_sliced`` and
+  ``probe_rows`` per probed term: the fused step before the window kernels);
 * lm_serve — LM serving of qwen3-8b at full width (depth cut only by
   ``--lm-layers``), random bf16 weights drawn on the card: 4 prompts of 2,048
   tokens from ``lm_batches`` prefilled through ``make_lm_prefill_step`` (the
@@ -55,7 +60,7 @@ launch counts set to 0 just before it and read just after:
 
 Every answer is compared with the host-only session's, and each kernel is held
 against its plain PyTorch version on the card at edge shapes and at the inputs
-the paths handed it: the six integer kernels and ``embedding_bag`` with
+the paths handed it: the eight integer kernels and ``embedding_bag`` with
 tolerance 0, the two attention kernels with an elementwise limit per kernel
 and output dtype (``ATTENTION_TOL``: float32 sums in another order; a bf16
 output one rounding apart), their path inputs widened to float32 as well,
@@ -116,6 +121,12 @@ KERNEL_META = {
     "probe_rows": {
         "route": "cuda", "source": "src/repro_torch/csrc/fused_decode.cu",
         "replaces": "src/repro/kernels/fused_decode/kernel.py:97"},
+    "decode_window": {
+        "route": "cuda", "source": "src/repro_torch/csrc/fused_decode.cu",
+        "replaces": "src/repro/kernels/fused_decode/kernel.py:71"},
+    "probe_window": {
+        "route": "cuda", "source": "src/repro_torch/csrc/fused_decode.cu",
+        "replaces": "src/repro/kernels/fused_decode/kernel.py:97"},
     "minhash_rows": {
         "route": "cuda", "source": "src/repro_torch/csrc/minhash_sig.cu",
         "replaces": "src/repro/kernels/minhash_sig/kernel.py:61"},
@@ -142,8 +153,8 @@ KERNEL_META = {
         "replaces": "src/repro/kernels/moe_gemm/kernel.py:51"},
 }
 #: the kernels whose outputs are integers or bools, held to tolerance 0
-INTEGER_KERNELS = ("anchor_probe_sliced", "decode_rows", "probe_rows", "minhash_rows",
-                   "anchor_probe", "dgap_decode")
+INTEGER_KERNELS = ("anchor_probe_sliced", "decode_rows", "probe_rows", "decode_window",
+                   "probe_window", "minhash_rows", "anchor_probe", "dgap_decode")
 #: the attention kernels' limits against their plain versions, by kernel and
 #: output dtype, elementwise: |got - want| <= rel * |want| + abs.  Both sides
 #: widen their inputs to float32 and compute in float32; they differ only in
@@ -157,7 +168,10 @@ ATTENTION_F32_ABS = 1e-5
 ATTENTION_TOL = {name: {torch.float32: (0.0, ATTENTION_F32_ABS),
                         torch.bfloat16: (2.0 ** -7, ATTENTION_F32_ABS)}
                  for name in ("flash_attention_tpu", "flash_decode")}
-SERVE_KERNELS = ("anchor_probe_sliced", "decode_rows", "probe_rows")
+#: the fused layout's serving kernels (one launch of each a window), and the
+#: row-given route's, which the fused step must launch no time
+SERVE_KERNELS = ("decode_window", "probe_window")
+ROW_GIVEN_KERNELS = ("anchor_probe_sliced", "decode_rows", "probe_rows")
 #: the lm_serve phase's request: the model (full width), prompts per batch,
 #: tokens per prompt and greedy decode steps
 LM_CONFIG = "qwen3-8b"
@@ -283,13 +297,53 @@ def anchor_bound(q, lo, hi, anchors):
     return bound(bytes_moved, steps)
 
 
-def decode_bound(pool, ptr, lens, L):
+def decode_bound(pool, ptr, lens, L, extra_bytes: int = 0):
     """12 B per row in, 5 B per lane out, plus the pool words under the
-    distinct rows' L lanes."""
+    distinct rows' L lanes (and ``extra_bytes``)."""
     out_lanes = ptr.numel() * L
     pool_words = min(int(torch.unique(ptr).numel()) * L, pool.numel(), out_lanes)
-    bytes_moved = 12 * ptr.numel() + 4 * pool_words + 5 * out_lanes
+    bytes_moved = 12 * ptr.numel() + 4 * pool_words + 5 * out_lanes + extra_bytes
     return bound(bytes_moved, 2 * out_lanes)
+
+
+def decode_window_bound(args, rows_given):
+    """decode_window: the bound of decoding the rows it derives (the
+    row-given route's ``decode_rows`` call on the same window) plus 12 B a
+    query (its list id and its slice's two offsets)."""
+    pool, ptr, _, lens, L = rows_given
+    return decode_bound(pool, ptr, lens, L, extra_bytes=12 * args[5].numel())
+
+
+def probe_window_bound(args, sliced_calls, row_calls):
+    """probe_window: 6 B per candidate (value and flag in, match out) and the
+    probes this run's data makes.  A candidate's loop stops at its first
+    miss, so the row-given route's per-term answers on the same window say
+    which probes run; each costs its anchor slice's and its row's bisection
+    steps plus one compare, and reads at most the anchor and pool words
+    under the distinct slices and rows probed (or one word per load where
+    that is fewer)."""
+    from repro_torch.kernels.fused_decode.ops import INT32_MAX, probe_rows
+
+    cand_vals, cand_valid, _, ql = args[:4]
+    phrase = args[9]
+    b, c = cand_vals.shape
+    cand = cand_vals.reshape(-1)
+    alive = cand_valid.reshape(-1)
+    loads, slices, rows = 0, [], []
+    for t, (sa, ra) in enumerate(zip(sliced_calls, row_calls), start=1):
+        _, lo, hi, _ = sa
+        active = (t < ql).repeat_interleave(c)
+        run = alive & active & (lo < hi)
+        if phrase:
+            run &= cand <= INT32_MAX - 1 - t
+        loads += _search_steps((hi - lo)[run]) + _search_steps(ra[3][run]) + int(run.sum())
+        slices.append((lo[run], (hi - lo)[run]))
+        rows.append((ra[1][run], ra[3][run]))
+        alive = alive & (~active | (run & probe_rows(*ra)))
+    cat = lambda parts, i: torch.cat([x[i] for x in parts])  # noqa: E731
+    words = (_distinct_words(cat(slices, 0), cat(slices, 1))
+             + _distinct_words(cat(rows, 0), cat(rows, 1))) if slices else 0
+    return bound(6 * b * c + 4 * min(words, loads), loads)
 
 
 def probe_bound(pool, ptr, lens):
@@ -390,9 +444,9 @@ def edge_cases(dev, seed: int, longest_slice: int) -> list[dict]:
         out.append({"kernel": "anchor_probe_sliced", "shape": {"NQ": nq, "NA": len(anchors)},
                     "mismatches": mism, "max_abs_err": err})
     out += sliced_slice_edges(dev, rng, longest_slice)
-    for L in (1, 7, 128, 129):
+    for L in (1, 7, 128, 129, 1100):
         pool, rptr, rlen = make_pool(rng, 64, L, dev)
-        for rows in (0, 1, 255, 256, 257):
+        for rows in (0, 1, 255, 256, 257, 2049):
             pick = rng.integers(0, 64, rows)
             lens = np.minimum(rlen[pick], rng.integers(0, L + 1, rows))
             lens[::5] = 0  # lens == 0 rows
@@ -436,6 +490,107 @@ def edge_cases(dev, seed: int, longest_slice: int) -> list[dict]:
                 "mismatches": mism, "max_abs_err": err, "hits": int(want.sum().item())})
     if dev.type == "cuda":
         torch.cuda.synchronize()  # a fault inside a kernel surfaces here
+    return out
+
+
+def window_table(rng, n_lists: int, L: int, dev) -> dict:
+    """A fused entry table like CompressedAnchoredIndex builds: a rule pool of
+    strictly increasing rows (``make_pool``), lists of 0..300 entries whose
+    anchors increase by more than their row's last value, lists 0-2 and the
+    last one empty; list 4 is list 3 moved up by 1 (its decoded postings are
+    list 3's plus 1, so a phrase of the two hits) and list 5 sits at the top
+    of the int32 range (its postings pass 2^31 - 2 - t, where a phrase
+    target would wrap)."""
+    pool, rptr, rlen = make_pool(rng, 64, L, dev)
+    pool_np = pool.cpu().numpy().astype(np.int64)
+    sizes = rng.integers(1, 300, n_lists)
+    sizes[[0, 1, 2, n_lists - 1]] = 0
+    sizes[4] = sizes[3]
+    anchors, ptrs, lens = [], [], []
+    for i, n in enumerate(sizes):
+        pick = rng.integers(0, 64, int(n))
+        if i == 4:
+            pick = prev_pick
+        span = pool_np[rptr[pick] + rlen[pick] - 1] + rng.integers(1, 4, int(n))
+        start = 2**31 - 1 - int(span.sum()) - 3 if i == 5 else int(rng.integers(0, 1000))
+        a = start + np.concatenate([[0], np.cumsum(span)[:-1]]) if n else np.zeros(0, np.int64)
+        if i == 4:
+            a = anchors[3] + 1
+        anchors.append(a)
+        ptrs.append(rptr[pick])
+        lens.append(rlen[pick])
+        prev_pick = pick
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)  # noqa: E731
+    return {"pool": pool, "c_offsets": t(np.concatenate([[0], np.cumsum(sizes)])),
+            "anchors": t(np.concatenate(anchors)), "c_ptr": t(np.concatenate(ptrs)),
+            "c_len": t(np.concatenate(lens)), "sizes": sizes}
+
+
+#: edge shapes of the window kernels: pool row bound L (a decode block
+#: covers 256 lanes' worth of rows, at least one: 256 rows at L 1, one row
+#: of 129 lanes, one of 1,500 for 256 threads), queries B, (width, phrase), and (row_start, window_rows):
+#: the first, third and one past every list's end window of MAX_CAND_ROWS,
+#: and windows of 1 and 5 rows
+WINDOW_L = (1, 7, 75, 129, 1500)
+WINDOW_B = (1, 33)
+WINDOW_WIDTHS = ((1, False), (2, False), (2, True), (3, True), (9, False), (9, True))
+WINDOW_ROWS = ((0, 64), (128, 64), (320, 64), (7, 1), (3, 5))
+#: candidates x L past which an edge case checks the decode only
+WINDOW_PROBE_ELEMS = 1 << 28
+
+
+def window_edge_cases(dev, seed: int) -> list[dict]:
+    """decode_window / probe_window against their plain versions on entry
+    tables of ``window_table``: queries driven by and probing every kind of
+    list (empty, shifted copy, top of the range, an id past the table),
+    the padded row of a query with an unknown term, lengths 0, 1, W and
+    W + 1, inactive columns holding other ids, candidates turned valid at
+    random, ids read through a column view and terms through a wider
+    matrix (row strides), in the first, the third and a past-the-end
+    window and in windows of 1 and 5 rows (past ``WINDOW_PROBE_ELEMS`` the
+    decode only)."""
+    from repro_torch.kernels.fused_decode.ops import (
+        decode_window, decode_window_torch, probe_window, probe_window_torch)
+
+    rng = np.random.default_rng(seed + 19)
+    out = []
+    n_lists = 40
+    for L in WINDOW_L:
+        tab = window_table(rng, n_lists, L, dev)
+        table = [tab[k] for k in ("c_offsets", "anchors", "c_ptr", "c_len")]
+        for b in WINDOW_B:
+            for width, phrase in WINDOW_WIDTHS:
+                wide = rng.integers(0, n_lists, (b, width + 3))
+                wide[:, 0] = rng.choice([3, 4, 5, 6, 7, 0, n_lists - 1, n_lists + 2], b)
+                if width > 1:
+                    wide[:, 1] = np.where(wide[:, 0] == 3, 4, wide[:, 0])  # hits: a copy, or itself
+                lens = rng.integers(0, width + 2, b)
+                lens[0] = width
+                if b > 2:
+                    wide[2], lens[2] = 0, 1  # the padded row of a query with an unknown term
+                qt = torch.from_numpy(wide.astype(np.int32)).to(dev)[:, :width]
+                ql = torch.from_numpy(lens.astype(np.int32)).to(dev)
+                for row_start, window_rows in WINDOW_ROWS:
+                    args = (tab["pool"], *table, qt[:, 0], row_start, window_rows, L)
+                    got, want = decode_window(*args), decode_window_torch(*args)
+                    mism, err = diff_stats(got, want)
+                    shape = {"B": b, "W": width, "L": L, "row_start": row_start,
+                             "window_rows": window_rows, "phrase": phrase}
+                    out.append({"kernel": "decode_window", "shape": shape, "mismatches": mism,
+                                "max_abs_err": err, "live": int(want[1].sum().item())})
+                    if want[0].numel() * L > WINDOW_PROBE_ELEMS:
+                        continue  # the plain probe would stage too many lanes
+                    vals, valid = want
+                    valid = valid | (torch.rand(valid.shape, device=dev) < 0.05)
+                    pargs = (vals, valid, qt, ql, *table, tab["pool"], phrase)
+                    got, want = probe_window(*pargs), probe_window_torch(*pargs)
+                    mism, err = diff_stats(got, want)
+                    out.append({"kernel": "probe_window", "shape": shape, "mismatches": mism,
+                                "max_abs_err": err, "hits": int(want.sum().item())})
+    require(any(r["kernel"] == "probe_window" and r["shape"]["phrase"] and r["hits"]
+                and r["shape"]["W"] > 1 for r in out), "no phrase edge case hits")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
     return out
 
 
@@ -488,7 +643,8 @@ def wrapper_refusals(dev) -> int:
     from repro_torch.kernels.dgap_decode.ops import dgap_decode
     from repro_torch.kernels.flash_attention.ops import flash_attention_tpu
     from repro_torch.kernels.flash_decode.ops import flash_decode
-    from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
+    from repro_torch.kernels.fused_decode.ops import (
+        MAX_WINDOW_TERMS, decode_rows, decode_window, probe_rows, probe_window)
     from repro_torch.kernels.minhash_sig.ops import minhash_rows
 
     q = torch.zeros(4, dtype=torch.int32, device=dev)
@@ -510,6 +666,17 @@ def wrapper_refusals(dev) -> int:
         (ValueError, "lies on", lambda: anchor_probe_sliced(q, q.cpu(), q, q)),
         (ValueError, "contiguous", lambda: probe_rows(q, q[::2], q[::2], q[::2], q[::2])),
         (ValueError, "rows", lambda: decode_rows(q, q, q[:2], q, 1)),
+        (TypeError, "int32", lambda: decode_window(q, q, q, q, q, q.long(), 0, 64, 1)),
+        (ValueError, "lies on", lambda: decode_window(q, q, q, q, q.cpu(), q, 0, 64, 1)),
+        (ValueError, "rows", lambda: decode_window(q, q, q, q[:2], q, q, 0, 64, 1)),
+        (ValueError, "lies on", lambda: probe_window(s, s.bool(), s, q, q, q, q, q, q.cpu(),
+                                                     False)),
+        (ValueError, "contiguous", lambda: probe_window(s, s.bool(), s[:, ::2], q, q, q, q, q,
+                                                        q, False)),
+        (ValueError, "cand_valid", lambda: probe_window(s, s, s, q, q, q, q, q, q, False)),
+        (ValueError, "at most", lambda: probe_window(
+            s[:1], s[:1].bool(), torch.zeros((1, MAX_WINDOW_TERMS + 1), dtype=torch.int32,
+                                             device=dev), q[:1], q, q, q, q, q, True)),
         (TypeError, "int32", lambda: minhash_rows(s.long(), q, q, q)),
         (ValueError, "lies on", lambda: minhash_rows(s, q.cpu(), q, q)),
         (ValueError, "contiguous", lambda: minhash_rows(s.t(), q, q, q)),
@@ -550,7 +717,7 @@ def recorded_wrappers():
     from repro_torch.kernels.minhash_sig import ops as mh
 
     homes = {"anchor_probe_sliced": ai, "decode_rows": fd, "probe_rows": fd,
-             "minhash_rows": mh}
+             "decode_window": fd, "probe_window": fd, "minhash_rows": mh}
     seen = {name: [] for name in homes}
     originals = {name: getattr(mod, name) for name, mod in homes.items()}
 
@@ -572,30 +739,91 @@ def recorded_wrappers():
             setattr(mod, name, originals[name])
 
 
+def row_given_step(max_terms: int, phrase: bool, max_phrase: int):
+    """The fused kernel step as the port ran it before the whole-window
+    kernels, kept as the route to compare with: the window's rows gathered
+    by torch ops and decoded by ``decode_rows``; per probed term
+    ``anchor_probe_sliced`` for the covering entry and ``probe_rows`` on its
+    row, the terms combined by torch ops (``engine._probe_terms``).  Returns
+    ``(candidate postings, match)``, as the fused step without top-k or doc
+    listing does.  The wrappers are looked up when the step is built."""
+    from repro_torch.kernels.anchor_intersect.ops import anchor_probe_sliced
+    from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
+    from repro_torch.serving import engine
+
+    def member(idx, list_ids, values):
+        if idx.anchors.shape[0] == 0:
+            return torch.zeros(values.shape, dtype=torch.bool, device=values.device)
+        targets = (values.to(torch.int32) + 1).contiguous()
+        ids = list_ids.long()
+        lo = idx.c_offsets[ids]
+        hi = idx.c_offsets[ids + 1]
+        l = anchor_probe_sliced(targets, lo, hi, idx.anchors)
+        j = torch.maximum(l - 1, lo).long()
+        hit = probe_rows(idx.pool, idx.c_ptr[j], idx.anchors[j], idx.c_len[j], targets)
+        return hit & (lo < hi)
+
+    def step(index: dict, query_terms, query_lens, row_start: int = 0):
+        idx = engine._as_compressed(index, max_phrase)
+        rows, valid_rows = engine._window_rows(idx.c_offsets, query_terms[:, 0], row_start,
+                                               idx.anchors.shape[0])
+        flat = rows.reshape(-1).long()
+        lens = torch.where(valid_rows.reshape(-1), idx.c_len[flat],
+                           torch.zeros((), dtype=torch.int32, device=flat.device))
+        vals, valid = decode_rows(idx.pool, idx.c_ptr[flat], idx.anchors[flat], lens,
+                                  max(int(max_phrase), 1))
+        b = query_terms.shape[0]
+        cand_vals, cand_valid = vals.reshape(b, -1), valid.reshape(b, -1)
+        match = engine._probe_terms(idx, query_terms, query_lens, cand_vals, cand_valid,
+                                    max_terms, phrase, member=member)
+        return cand_vals - 1, match
+
+    return step
+
+
 def main_path_inputs(server, kind: str, qt: np.ndarray, ql: np.ndarray,
                      window: int = 0) -> dict:
     """What one device step of ``server`` hands each kernel: a step like the
     server's own (same layout, probe and width) is built and run on window
-    ``window`` of the term-id batch with recorders in front of the wrappers."""
+    ``window`` of the term-id batch with recorders in front of the wrappers.
+    A fused server's window is also run through ``row_given_step``: both
+    routes must give the same candidates and matches, and their calls are
+    kept side by side (the row-given ones also size the window kernels'
+    data-dependent bounds)."""
     from repro_torch.serving.engine import MAX_CAND_ROWS, make_serve_step
     from repro_torch.serving.plan import AND, PHRASE
 
     dev = server.device
+    width = qt.shape[1]
+    fused = server.layout == "fused"
+    args = (server.arrays, torch.from_numpy(qt).to(dev), torch.from_numpy(ql).to(dev),
+            window * MAX_CAND_ROWS)
     with recorded_wrappers() as seen, torch.no_grad():
-        step = make_serve_step(max_terms=qt.shape[1],
-                               mode=PHRASE if kind == "phrase" else AND,
+        step = make_serve_step(max_terms=width, mode=PHRASE if kind == "phrase" else AND,
                                n_docs=server.n_docs, probe="kernel",
                                layout=server.layout, max_phrase=server.max_phrase)
-        step(server.arrays, torch.from_numpy(qt).to(dev), torch.from_numpy(ql).to(dev),
-             window * MAX_CAND_ROWS)
-    want = {"fused": {"anchor_probe_sliced": qt.shape[1] - 1, "decode_rows": 1,
-                      "probe_rows": qt.shape[1] - 1, "minhash_rows": 0},
-            "dense": {"anchor_probe_sliced": qt.shape[1] - 1, "decode_rows": 0,
-                      "probe_rows": 0, "minhash_rows": 0}}[server.layout]
+        out = step(*args)
     got = {name: len(calls) for name, calls in seen.items()}
-    require(got == want, f"a {server.layout} step of width {qt.shape[1]} made the "
-            f"kernel calls {got}, expected {want}")
-    return {"calls": seen, "c_offsets": server.arrays["c_offsets"],
+    want = {name: 0 for name in seen}
+    want.update({"decode_window": 1, "probe_window": 1} if fused
+                else {"anchor_probe_sliced": width - 1})
+    require(got == want, f"a {server.layout} step of width {width} made the kernel calls "
+            f"{got}, expected {want}")
+    calls = {name: c for name, c in seen.items() if c}
+    if fused:
+        with recorded_wrappers() as seen, torch.no_grad():
+            old = row_given_step(width, kind == "phrase", server.max_phrase)(*args)
+        got = {name: len(c) for name, c in seen.items()}
+        want = {name: 0 for name in seen}
+        want.update({"decode_rows": 1, "anchor_probe_sliced": width - 1,
+                     "probe_rows": width - 1})
+        require(got == want, f"the row-given step of width {width} made the kernel calls "
+                f"{got}, expected {want}")
+        require(all(torch.equal(a, b) for a, b in zip(out, old)),
+                f"the window kernels and the row-given route differ at width {width}, "
+                f"window {window}")
+        calls.update({f"{name} (rows given)": c for name, c in seen.items() if c})
+    return {"calls": calls, "c_offsets": server.arrays["c_offsets"],
             "B": int(qt.shape[0]), "window": window}
 
 
@@ -617,19 +845,23 @@ def library_lower_bound(args, c_offsets):
 def kernels_at_main_path(name: str, inp: dict, reps: int, timed: bool) -> list[dict]:
     """Every recorded call of the step against the plain version (tolerance
     0); with ``timed``, the first call of each kernel is also timed, beside
-    the plain version, the bound and the library yardstick."""
+    the plain version, the bound and the library yardstick.  Calls of the
+    row-given route are keyed ``"<kernel> (rows given)"``."""
     from repro_torch.kernels.anchor_intersect.ops import (
         anchor_probe_sliced, anchor_probe_sliced_torch)
     from repro_torch.kernels.fused_decode.ops import (
-        decode_rows, decode_rows_torch, probe_rows, probe_rows_torch)
+        decode_rows, decode_rows_torch, decode_window, decode_window_torch, probe_rows,
+        probe_rows_torch, probe_window, probe_window_torch)
 
     pairs = {"anchor_probe_sliced": (anchor_probe_sliced, anchor_probe_sliced_torch),
              "decode_rows": (decode_rows, decode_rows_torch),
-             "probe_rows": (probe_rows, probe_rows_torch)}
+             "probe_rows": (probe_rows, probe_rows_torch),
+             "decode_window": (decode_window, decode_window_torch),
+             "probe_window": (probe_window, probe_window_torch)}
+    given = lambda kernel: inp["calls"].get(f"{kernel} (rows given)")  # noqa: E731
     rows = []
-    for kernel, calls in inp["calls"].items():
-        if not calls:
-            continue
+    for key, calls in inp["calls"].items():
+        kernel = key.split(" ")[0]
         fn, plain = pairs[kernel]
         mism = err = 0
         for a in calls:
@@ -639,12 +871,19 @@ def kernels_at_main_path(name: str, inp: dict, reps: int, timed: bool) -> list[d
         if kernel == "anchor_probe_sliced":
             shape = {"NQ": a[0].numel(), "NA": a[3].numel(),
                      "longest_slice": int((a[2] - a[1]).max().item())}
+        elif kernel == "decode_window":
+            shape = {"B": a[5].numel(), "C": a[7] * a[8], "L": a[8], "row_start": a[6],
+                     "window_rows": a[7], "P": a[0].numel()}
+        elif kernel == "probe_window":
+            shape = {"B": a[0].shape[0], "C": a[0].shape[1], "W": a[2].shape[1],
+                     "phrase": a[9], "P": a[8].numel()}
         else:
             shape = {"R": a[1].numel(), "P": a[0].numel()}
             shape.update({"L": a[4]} if kernel == "decode_rows"
                          else {"longest_row": int(a[3].max().item())})
-        row = {"kernel": kernel, "at": name, "window": inp["window"], "shape": shape,
-               "calls_compared": len(calls), "mismatches": mism, "max_abs_err": err}
+        row = {"kernel": kernel, "at": name + key[len(kernel):], "window": inp["window"],
+               "shape": shape, "calls_compared": len(calls), "mismatches": mism,
+               "max_abs_err": err}
         if timed:
             library_ms = None
             if kernel == "anchor_probe_sliced":
@@ -656,8 +895,13 @@ def kernels_at_main_path(name: str, inp: dict, reps: int, timed: bool) -> list[d
                 b_ms, b_by = anchor_bound(*a)
             elif kernel == "decode_rows":
                 b_ms, b_by = decode_bound(a[0], a[1], a[3], a[4])
-            else:
+            elif kernel == "probe_rows":
                 b_ms, b_by = probe_bound(a[0], a[1], a[3])
+            elif kernel == "decode_window":
+                b_ms, b_by = decode_window_bound(a, given("decode_rows")[0])
+            else:
+                b_ms, b_by = probe_window_bound(a, given("anchor_probe_sliced") or [],
+                                                given("probe_rows") or [])
             row.update(ms=time_ms(lambda: fn(*a), reps),
                        call_ms=time_ms(lambda: fn(*a), reps, preload=False),
                        plain_ms=time_ms(lambda: plain(*a), reps),
@@ -2266,13 +2510,15 @@ def _wrappers() -> dict:
     from repro_torch.kernels.dgap_decode.ops import dgap_decode
     from repro_torch.kernels.flash_attention.ops import flash_attention_tpu
     from repro_torch.kernels.flash_decode.ops import flash_decode
-    from repro_torch.kernels.fused_decode.ops import decode_rows, probe_rows
+    from repro_torch.kernels.fused_decode.ops import (
+        decode_rows, decode_window, probe_rows, probe_window)
     from repro_torch.kernels.minhash_sig.ops import minhash_rows
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.cin_interaction.ops import cin_layer
     from repro_torch.kernels.moe_gemm.ops import moe_gemm
     return {"anchor_probe_sliced": anchor_probe_sliced, "decode_rows": decode_rows,
-            "probe_rows": probe_rows, "minhash_rows": minhash_rows,
+            "probe_rows": probe_rows, "decode_window": decode_window,
+            "probe_window": probe_window, "minhash_rows": minhash_rows,
             "anchor_probe": anchor_probe, "dgap_decode": dgap_decode,
             "flash_attention_tpu": flash_attention_tpu, "flash_decode": flash_decode,
             "embedding_bag": embedding_bag, "cin_layer": cin_layer, "moe_gemm": moe_gemm}
@@ -2509,10 +2755,57 @@ def minhash_at_mining(inputs: dict, reps: int) -> list[dict]:
     return rows
 
 
-def serve(built: dict, sessions: dict, batch: list[tuple[str, str]], device: str) -> dict:
+def window_splits(sessions: dict, batch, reps: int) -> dict:
+    """The fused layout's phrase2 and and2 batches (as ``group_terms`` cuts
+    them from the mixed batch), on a card: their first window through the
+    session's kind of step (the window kernels) and through
+    ``row_given_step``, each split into host and device time by
+    ``ab_timing.window_split``.  (Both routes' answers on every recorded
+    window are compared in ``main_path_inputs``; parent against change is
+    ``ab_timing.py --windows``.)"""
+    from repro_torch.kernels.ab_timing import window_split
+    from repro_torch.serving.engine import make_serve_step
+
+    out = {}
+    for name, srv, kind in (("phrase2", sessions["fused"].positional_server, "phrase"),
+                            ("and2", sessions["fused"].server, "and")):
+        qt, ql, n_win = group_terms(srv, batch, kind, (2,))
+        width = qt.shape[1]
+        routes = {"window_kernels": make_serve_step(
+                      max_terms=width, mode=kind, n_docs=srv.n_docs, probe="kernel",
+                      layout="fused", max_phrase=srv.max_phrase),
+                  "rows_given": row_given_step(width, kind == "phrase", srv.max_phrase)}
+        split = {route: window_split(torch, step, srv.arrays, qt, ql, 0, reps)
+                 for route, step in routes.items()}
+        require(split["window_kernels"]["answer"] == split["rows_given"]["answer"],
+                f"{name}: the two routes' first windows differ: {split}")
+        out[name] = {"queries": int(qt.shape[0]), "width": width, "windows": n_win, **split}
+    return out
+
+
+def save_windows(sessions: dict, batch, path: str) -> None:
+    """The fused servers' arrays and the phrase2 / and2 term batches, for
+    ``src/repro_torch/kernels/ab_timing.py --windows`` (parent against
+    change on the windows the serving path records)."""
+    from repro_torch.kernels.ab_timing import FUSED_ARRAYS
+
+    data = {}
+    for name, srv, kind in (("phrase2", sessions["fused"].positional_server, "phrase"),
+                            ("and2", sessions["fused"].server, "and")):
+        qt, ql, _ = group_terms(srv, batch, kind, (2,))
+        data.update({f"{name}/qt": qt, f"{name}/ql": ql,
+                     f"{name}/max_phrase": np.asarray(srv.max_phrase)})
+        data.update({f"{name}/{k}": srv.arrays[k].cpu().numpy() for k in FUSED_ARRAYS})
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **data)
+
+
+def serve(built: dict, sessions: dict, batch: list[tuple[str, str]], device: str,
+          reps: int = 20) -> dict:
     """Drive the mixed batch through the fused session (the main path, with
     the launch counts read around it), the dense session and the host-only
-    session, and compare every answer exactly."""
+    session, and compare every answer exactly; on a card, also
+    ``window_splits``."""
     from repro_torch.serving.session import Session
 
     on_gpu = device != "cpu"
@@ -2584,11 +2877,18 @@ def serve(built: dict, sessions: dict, batch: list[tuple[str, str]], device: str
         require(all(srv.arrays[k].dtype in (torch.int32, torch.bool)
                     for k in srv.arrays), f"{name}: an array is neither int32 nor bool")
         dev_bytes[name] = srv.device_bytes()
+    splits = None
     if on_gpu:
-        require(all(fused_launches[k] > 0 for k in SERVE_KERNELS),
-                f"a kernel was not launched on the fused main path: {fused_launches}")
-        require(dense_launches["anchor_probe_sliced"] > 0,
-                f"anchor_probe_sliced was not launched on the dense path: {dense_launches}")
+        fused_windows = windows["fused/nonpositional"] + windows["fused/positional"]
+        require(all(fused_launches[k] == fused_windows for k in SERVE_KERNELS),
+                f"the fused main path swept {fused_windows} windows but launched "
+                f"{ {k: fused_launches[k] for k in SERVE_KERNELS} }")
+        require(all(fused_launches[k] == 0 for k in ROW_GIVEN_KERNELS),
+                f"the fused main path launched a row-given kernel: {fused_launches}")
+        require(dense_launches["anchor_probe_sliced"] > 0
+                and all(dense_launches[k] == 0 for k in SERVE_KERNELS),
+                f"the dense path's kernels: {dense_launches}")
+        splits = window_splits(sessions, batch, reps)
     n = len(queries)
     return {
         "queries": n, "kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
@@ -2601,6 +2901,7 @@ def serve(built: dict, sessions: dict, batch: list[tuple[str, str]], device: str
         "queries_per_s_by_kind": per_kind,
         "launches_fused": fused_launches, "launches_dense": dense_launches,
         "windows_swept": windows,
+        "window_split": splits,
         "device_steps_built": {"fused": fused.jit_traces, "dense": dense.jit_traces},
         "device_bytes": dev_bytes,
         "max_phrase": {name: srv.max_phrase for name, srv in servers.items()
@@ -2648,6 +2949,9 @@ def main() -> int:
                     help="queries per (kind, term count) cell of the mixed batch")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--save-windows", default=None, metavar="FILE.npz",
+                    help="also write the fused servers' arrays and the phrase2 / and2 "
+                         "batches for ab_timing.py --windows")
     ap.add_argument("--lm-layers", type=int, default=None,
                     help="cut the lm_serve phase's model to this many layers "
                          "(default: full depth)")
@@ -2721,7 +3025,8 @@ def main() -> int:
     # and both signature calls are also timed.
     longest_slice = int(torch.diff(
         sessions["fused"].positional_server.arrays["c_offsets"]).max().item())
-    edges = edge_cases(dev, args.seed, longest_slice) + minhash_edge_cases(dev, args.seed)
+    edges = (edge_cases(dev, args.seed, longest_slice) + window_edge_cases(dev, args.seed)
+             + minhash_edge_cases(dev, args.seed))
     refusals = wrapper_refusals(dev)
     measured = []
     for layout in ("fused", "dense"):
@@ -2755,7 +3060,9 @@ def main() -> int:
     require(all(r.get("library_agrees", True) for r in measured),
             "torch.searchsorted yardstick disagrees with anchor_probe_sliced")
 
-    result = serve(built, sessions, batch, "cuda")
+    if args.save_windows:
+        save_windows(sessions, batch, args.save_windows)
+    result = serve(built, sessions, batch, "cuda", args.reps)
     emit("serve", card=card, collection=built["info"], session_build_s=session_s, **result)
     del sessions
     torch.cuda.empty_cache()
@@ -2832,25 +3139,32 @@ def main() -> int:
     require(not bad, f"{len(bad)} model-side kernel outputs outside their tolerance, "
             f"first {bad[:2]}")
 
-    # one entry per kernel: the serving kernels at the positional fused shape
-    # (the serve path's most frequent), the signature kernel at the documents
-    # of the mining path with its posting-list shape beside it; the per-shape
-    # list is in the "kernels" phase line above
+    # one entry per kernel: the serving kernels at the positional phrase2
+    # shape (the serve path's most frequent) — the window kernels on the fused
+    # path, anchor_probe_sliced on the dense one, decode_rows / probe_rows
+    # timed at the row-given route's calls on the same windows (no layout's
+    # main path launches them any more: their launches are the fused path's,
+    # 0) — the signature kernel at the documents of the mining path with its
+    # posting-list shape beside it; the per-shape list is in the "kernels"
+    # phase line above
     at = "fused/positional/phrase2"
     max_err = lambda name: max(x["max_abs_err"] for x in edges + measured  # noqa: E731
                                if x["kernel"] == name)
     timing_keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    serving = {"decode_window": (at, "fused"), "probe_window": (at, "fused"),
+               "anchor_probe_sliced": ("dense/positional/phrase2", "dense"),
+               "decode_rows": (f"{at} (rows given)", "fused"),
+               "probe_rows": (f"{at} (rows given)", "fused")}
     kernels = []
-    for r in measured:
-        if r["at"] != at or "ms" not in r:
-            continue
-        kernels.append({"name": r["kernel"], **KERNEL_META[r["kernel"]],
-                        "launches": result["launches_fused"][r["kernel"]],
-                        "max_abs_err": max_err(r["kernel"]),
-                        **{k: r[k] for k in timing_keys}, "at": at})
-        if r["kernel"] == "anchor_probe_sliced":
-            kernels[-1]["launches_by_layout"] = {lay: result[f"launches_{lay}"][r["kernel"]]
-                                                 for lay in ("fused", "dense")}
+    for name, (where, layout) in serving.items():
+        r, = [x for x in measured if x["kernel"] == name and x["at"] == where and "ms" in x]
+        kernels.append({"name": name, **KERNEL_META[name],
+                        "launches": result[f"launches_{layout}"][name],
+                        "launches_on": f"serve ({layout})",
+                        "launches_by_layout": {lay: result[f"launches_{lay}"][name]
+                                               for lay in ("fused", "dense")},
+                        "max_abs_err": max_err(name),
+                        **{k: r[k] for k in timing_keys}, "at": where})
     mh = {r["at"]: r for r in measured if r["kernel"] == "minhash_rows"}
     by_path = {"mining": built["mining_launches"]["minhash_rows"],
                "rlz": rlz["launches_build"]["minhash_rows"]}

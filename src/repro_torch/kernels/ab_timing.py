@@ -3,6 +3,7 @@ CUDA card, for the ``repro_torch`` found first on ``sys.path``::
 
     python3 src/repro_torch/kernels/ab_timing.py [--src OTHER/src] [--reps N]
                                                  [--only index|model]
+                                                 [--windows FILE.npz]
 
 ``--src`` puts another checkout's ``src`` first, so two checkouts of the
 port (say a commit and its parent) are timed by the same code on the same
@@ -12,7 +13,12 @@ card: run them in turns in one call (A B B A).  Inputs are random, seeded.
   (1,603,481 values), its longest list (196,811) and a 4,096-value list,
   beside ``torch.cumsum``; where the checkout's wrapper has two load routes,
   the element-load route too (a view one element in).  Outputs equal the
-  plain version.
+  plain version.  With ``--windows`` (a file ``chip_smoke.py
+  --save-windows`` writes: the fused servers' arrays and the serving path's
+  phrase2 / and2 term batches), one fused ``probe="kernel"`` serve step of
+  the checkout on the first window of each batch: :func:`window_split`'s
+  host ms, window ms, device ms and kernels a window, and a digest of its
+  answers (equal across checkouts).
 * model side: ``flash_decode`` and ``cin_layer`` at the LM and recsys
   serving paths' shapes, and xDeepFM's ``serve_p99`` step end to end; each
   output is checked against its plain version (float32 within 1e-5 absolute
@@ -53,6 +59,75 @@ def device_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def window_split(torch, step, arrays: dict, qt, ql, row_start: int = 0, reps: int = 20,
+                 traced: int = 5) -> dict:
+    """Where one window of a serve step goes, on a card: ``host_ms``, the
+    step call itself (its Python side: the wrappers' checks and the
+    launches; the card does not make it wait); ``window_ms``, the step and
+    its outputs' copies to the host, as the server's window loop runs it
+    (medians of ``reps`` after a warm-up); then ``traced`` windows under
+    ``torch.profiler`` (device activity only): device ms, kernels and
+    copies a window, and kernels and their device ms a window by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = arrays["anchors"].device
+    qt_d, ql_d = torch.from_numpy(qt).to(dev), torch.from_numpy(ql).to(dev)
+
+    def window():
+        return tuple(o.cpu() for o in step(arrays, qt_d, ql_d, row_start))
+
+    host, wall = [], []
+    with torch.no_grad():
+        for _ in range(3):
+            window()
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(arrays, qt_d, ql_d, row_start)
+            t1 = time.perf_counter()
+            answer = tuple(o.cpu() for o in out)
+            wall.append(time.perf_counter() - t0)
+            host.append(t1 - t0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(traced):
+                window()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in events if e not in copies]
+    return {"host_ms": statistics.median(host) * 1e3,
+            "window_ms": statistics.median(wall) * 1e3,
+            "device_ms": sum(e.self_device_time_total for e in events) / traced / 1e3,
+            "kernels_per_window": sum(e.count for e in kernels) / traced,
+            "copies_per_window": sum(e.count for e in copies) / traced,
+            "kernels_by_name": {e.key[:80]: e.count / traced for e in kernels},
+            "device_ms_by_name": {e.key[:80]: e.self_device_time_total / traced / 1e3
+                                  for e in kernels},
+            "answer": {"candidates": int(answer[0].numel()),
+                       "matches": int(answer[1].sum().item()),
+                       "digest": int((answer[0].long() * answer[1]).sum().item())}}
+
+
+#: the fused server's arrays a windows file holds for each batch
+FUSED_ARRAYS = ("anchors", "c_offsets", "c_ptr", "c_len", "pool", "lengths")
+
+
+def fused_steps(torch, out: dict, reps: int, path: str) -> None:
+    import numpy as np
+
+    from repro_torch.serving.engine import make_serve_step
+
+    data = np.load(path)
+    for batch in ("phrase2", "and2"):
+        arrays = {k: torch.from_numpy(data[f"{batch}/{k}"]).cuda() for k in FUSED_ARRAYS}
+        qt, ql = data[f"{batch}/qt"], data[f"{batch}/ql"]
+        step = make_serve_step(max_terms=qt.shape[1], mode=batch.rstrip("0123456789"),
+                               probe="kernel", layout="fused",
+                               max_phrase=int(data[f"{batch}/max_phrase"]))
+        out[f"fused step/{batch}, B {qt.shape[0]}, W {qt.shape[1]}, first window"] = \
+            window_split(torch, step, arrays, qt, ql, reps=reps)
 
 
 #: the positional index's d-gap stream on the serving path: the whole stream,
@@ -139,6 +214,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=("index", "model"), default=None,
                     help="time one side only (default: both)")
+    ap.add_argument("--windows", default=None,
+                    help="recorded fused windows (chip_smoke.py --save-windows) to time "
+                         "one serve step on (index side)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -158,6 +236,8 @@ def main() -> int:
                                                         args.reps)}
     if args.only != "model":
         index_side(torch, out, args.reps, args.seed)
+        if args.windows:
+            fused_steps(torch, out, args.reps, args.windows)
     if args.only != "index":
         model_side(torch, out, args.reps, args.seed)
     print(json.dumps(out), flush=True)

@@ -45,6 +45,15 @@ SIGNATURES = {
     "decode_rows_launch": (_P, _L, _P, _P, _P, _P, _P, _L, _I, _P),
     # (pool, pool_n, ptr, base, lens, targets, hit, rows, stream)
     "probe_rows_launch": (_P, _L, _P, _P, _P, _P, _P, _L, _P),
+    # (pool, pool_n, c_offsets, n_offsets, anchors, c_ptr, c_len, n_entries,
+    #  list_ids, ids stride, row_start, window rows, values, valid, B, L, stream)
+    "decode_window_launch": (_P, _L, _P, _L, _P, _P, _P, _L, _P, _L, _L, _I, _P, _P, _L,
+                             _I, _P),
+    # (cand_vals, cand_valid, C, query_terms, row stride, W, query_lens,
+    #  c_offsets, n_offsets, anchors, c_ptr, c_len, n_entries, pool, pool_n,
+    #  phrase, hit, B, stream)
+    "probe_window_launch": (_P, _P, _L, _P, _L, _I, _P, _P, _L, _P, _P, _P, _L, _P, _L,
+                            _I, _P, _L, _P),
     # (shingles, lens, a, b, out, D, L, P, stream)
     "minhash_rows_launch": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
     # (q, k, v, out, B, T, S, H, K, hd, dtype, causal, scale,
@@ -165,9 +174,11 @@ def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def require_int32(name: str, t, ndim: int = 1) -> None:
+def require_int32(name: str, t, ndim: int = 1, row_stride: bool = False) -> None:
     """The kernels take contiguous int32 tensors and nothing else (the
-    wrappers check the device themselves)."""
+    wrappers check the device themselves).  With ``row_stride`` the kernel
+    reads rows by a stride: only the last dimension of a 2-D tensor must be
+    contiguous, and a 1-D one (one element a row) may have any stride."""
     import torch
 
     if not isinstance(t, torch.Tensor):
@@ -176,7 +187,10 @@ def require_int32(name: str, t, ndim: int = 1) -> None:
         raise TypeError(f"{name}: expected int32, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dimension(s), got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if row_stride:
+        if ndim > 1 and t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: expected a contiguous last dimension")
+    elif not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 

@@ -139,22 +139,20 @@ _PAD_VAL = 2**31 - 1  # int32 top: shifted phrase targets stay strictly below
 
 
 def fused_candidates_for(idx: CompressedAnchoredIndex, list_ids: torch.Tensor,
-                         row_start: int = 0, decode=None
-                         ) -> tuple[torch.Tensor, torch.Tensor]:
+                         row_start: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused-layout counterpart of :func:`candidates_for`: the same
     MAX_CAND_ROWS window, but each C entry decodes from the shared
     prefix-summed pool (bounded by ``max_phrase``) instead of reading a
     dense expand row.  The read ``pool[c_ptr[j] : c_ptr[j] + max_phrase]``
     relies on the pool's ``max_phrase`` zeros of tail padding.
 
-    ``decode`` is the decode implementation, ``(pool, ptr, base, lens, L) ->
-    (values, valid)``: the plain tensor version by default, the CUDA
-    ``fused_decode`` kernel via ``probe="kernel"``.  Returns (values (B, C),
-    valid (B, C)) in cumulative-gap space — identical to the dense
+    Plain tensor code (``probe="torch"``); ``probe="kernel"`` runs the same
+    function as one ``fused_decode.decode_window`` launch.  Returns (values
+    (B, C), valid (B, C)) in cumulative-gap space — identical to the dense
     generator's output for the same store.
     """
-    if decode is None:
-        from ..kernels.fused_decode.ops import decode_rows_torch as decode
+    from ..kernels.fused_decode.ops import decode_rows_torch as decode
+
     rows, valid_rows = _window_rows(idx.c_offsets, list_ids, row_start,
                                     idx.anchors.shape[0])
     flat = rows.reshape(-1).long()
@@ -172,7 +170,9 @@ def _probe_terms(idx, query_terms, query_lens, cand_vals, cand_valid,
     """AND / phrase probe loop shared by all steps.  For phrase queries term
     ``t`` probes candidate + t (offset-shifted intersection, §3).  ``member``
     is the probe implementation (the plain batched binary search by default —
-    picked by index layout — or the CUDA kernels via ``probe="kernel"``)."""
+    picked by index layout — or the dense layout's CUDA kernel via
+    ``probe="kernel"``; the fused layout's kernel step runs this loop as one
+    ``fused_decode.probe_window`` launch instead)."""
     if member is None:
         member = (member_batch_compressed
                   if isinstance(idx, CompressedAnchoredIndex) else member_batch)
@@ -204,28 +204,6 @@ def _kernel_member():
     def member(idx: AnchoredIndex, list_ids, values):
         return member_batch_kernel(idx.anchors, idx.c_offsets, idx.expand,
                                    idx.expand_valid, list_ids, values)
-
-    return member
-
-
-def _kernel_member_fused():
-    """Fused-layout kernel probe: ``anchor_intersect``'s sliced lower bound
-    finds the covering C entry, then ``fused_decode.probe_rows`` searches its
-    pool row in place — decoded postings never touch device memory."""
-    from ..kernels.anchor_intersect.ops import anchor_probe_sliced
-    from ..kernels.fused_decode.ops import probe_rows
-
-    def member(idx: CompressedAnchoredIndex, list_ids, values):
-        if idx.anchors.shape[0] == 0:
-            return torch.zeros(values.shape, dtype=torch.bool, device=values.device)
-        targets = (values.to(torch.int32) + 1).contiguous()
-        ids = list_ids.long()
-        lo = idx.c_offsets[ids]
-        hi = idx.c_offsets[ids + 1]
-        l = anchor_probe_sliced(targets, lo, hi, idx.anchors)
-        j = torch.maximum(l - 1, lo).long()
-        hit = probe_rows(idx.pool, idx.c_ptr[j], idx.anchors[j], idx.c_len[j], targets)
-        return hit & (lo < hi)
 
     return member
 
@@ -291,9 +269,13 @@ def make_serve_step(max_terms: int = 8, mode: str = AND, topk: int = 0,
     and duplicates are dropped *on device* by a running maximum — matched
     values are sorted within a window, so an entry is the first of its
     document iff its doc id exceeds the running maximum of everything
-    before it.  ``probe="kernel"`` routes the inner membership probes
-    through the CUDA kernels: ``anchor_intersect``'s sliced lower bound for
-    both layouts, plus ``fused_decode`` decode and probe for the fused one.
+    before it.  ``probe="kernel"`` routes candidate generation and the
+    probes through the CUDA kernels: for the dense layout
+    ``anchor_intersect``'s sliced lower bound once per probed term; for the
+    fused one two launches a window whatever the width —
+    ``fused_decode.decode_window`` (the window's rows derived and decoded)
+    and ``fused_decode.probe_window`` (every term's anchor search and row
+    probe, the AND of the terms).
 
     ``layout`` selects the device memory model: "dense" reads the
     ``(n_c, expand_len)`` expand tables; "fused" keeps only the compressed
@@ -305,27 +287,32 @@ def make_serve_step(max_terms: int = 8, mode: str = AND, topk: int = 0,
     phrase = mode == PHRASE
     fused = layout == "fused"
     member = None
-    decode = None
+    window = None  # (decode_window, probe_window): the fused kernel step
     if probe == "kernel":
         if fused:
-            from ..kernels.fused_decode.ops import decode_rows
+            from ..kernels.fused_decode.ops import decode_window, probe_window
 
-            member = _kernel_member_fused()
-            decode = decode_rows
+            window = (decode_window, probe_window)
         else:
             member = _kernel_member()
 
     def serve(index: dict, query_terms: torch.Tensor, query_lens: torch.Tensor,
               row_start: int = 0):
-        if fused:
-            idx = _as_compressed(index, max_phrase)
-            cand_vals, cand_valid = fused_candidates_for(
-                idx, query_terms[:, 0], row_start, decode=decode)
+        idx = _as_compressed(index, max_phrase) if fused else _as_anchored(index)
+        if window is not None:
+            decode_window, probe_window = window
+            cand_vals, cand_valid = decode_window(
+                idx.pool, idx.c_offsets, idx.anchors, idx.c_ptr, idx.c_len,
+                query_terms[:, 0], row_start, MAX_CAND_ROWS,
+                max(int(max_phrase), 1))
+            match = probe_window(cand_vals, cand_valid, query_terms[:, :max_terms],
+                                 query_lens, idx.c_offsets, idx.anchors, idx.c_ptr,
+                                 idx.c_len, idx.pool, phrase)
         else:
-            idx = _as_anchored(index)
-            cand_vals, cand_valid = candidates_for(idx, query_terms[:, 0], row_start)
-        match = _probe_terms(idx, query_terms, query_lens, cand_vals, cand_valid,
-                             max_terms, phrase, member=member)
+            generate = fused_candidates_for if fused else candidates_for
+            cand_vals, cand_valid = generate(idx, query_terms[:, 0], row_start)
+            match = _probe_terms(idx, query_terms, query_lens, cand_vals, cand_valid,
+                                 max_terms, phrase, member=member)
         if doclist:
             vals = cand_vals - 1
             ds = index.get("doc_starts")
