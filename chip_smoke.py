@@ -72,7 +72,11 @@ their comparison rows name it, ragged and cancelling edge inputs reach
 every route, and on both LM paths every prefill launch of the first two
 must take ``wgmma``, every MoE decode ``moe_gemm`` ``small_c`` and every
 ``flash_decode`` ``vec16``.  ``dgap_decode`` picks 16-byte or element loads
-from the stream's alignment (offset views reach the second).  float32
+from the stream's alignment (offset views reach the second);
+``embedding_bag`` 16-byte, 8-byte or element loads from the table's width,
+row stride and alignment (the x0 lookups must take ``vec8``, the linear
+terms ``scalar``); ``minhash_rows`` one launch (``one_pass``) or a clearing
+kernel and a chunked one (``chunked``) from the tile's width.  float32
 matrix products run without TF32.  Each phase prints one
 JSON line; any failure ends the run with a non-zero exit code.  The last line
 is ``{"ok": true, "device": {...}}``, after the card's name and power limit; the
@@ -365,6 +369,19 @@ def minhash_bound(shingles, lens, a):
     return bound(4 * live + 4 * d + 8 * p + 4 * d * p, 2 * live * p), live
 
 
+def minhash_ceiling(live: int, p: int) -> list[float]:
+    """The signature kernel's own ceiling (ms), [low, high]: its inner loop
+    issues one 32-bit multiply-add and one unsigned min per (live lane,
+    hash), and an int32 multiply-add issues at half the float32 rate, 64
+    lanes a clock on each SM (at the card's largest SM clock).  Low if the
+    min issues beside it on another pipe, high if both share that rate."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    hz = float(smi.stdout.split()[0]) * 1e6
+    rate = torch.cuda.get_device_properties(0).multi_processor_count * 64 * hz
+    return [live * p / rate * 1e3, 2 * live * p / rate * 1e3]
+
+
 def diff_stats(got, want) -> tuple[int, int]:
     """(mismatching elements, max abs difference) over paired outputs."""
     if not isinstance(got, tuple):
@@ -594,41 +611,79 @@ def window_edge_cases(dev, seed: int) -> list[dict]:
     return out
 
 
-#: edge shapes of the MinHash kernel: rows, lanes, hashes
+#: edge shapes of the MinHash kernel: rows, lanes (512 = one warp's chunk:
+#: wider tiles take the chunked route), hashes
 MINHASH_ROWS = (0, 1, 31, 32, 33, 4097)
-MINHASH_LANES = (0, 1, 127, 128, 129, 4096)
+MINHASH_LANES = (0, 1, 127, 128, 129, 512, 513, 4096)
 MINHASH_PERMS = (1, 64, 200)
+#: hash counts at the edges of a thread's 16 and of MAX_PERM, on a few tiles
+MINHASH_EDGE_PERMS = (15, 17, 63, 65, 512, 4096)
+#: the skewed tile: (rows, lanes); row 0 is long, the others short
+MINHASH_SKEWED = (300, 3000)
+
+
+def _minhash_row(out: list, shape: dict, s, lens, a, b) -> None:
+    from repro_torch.kernels.minhash_sig.ops import (
+        minhash_rows, minhash_rows_route, minhash_rows_torch)
+
+    mism, err = diff_stats(minhash_rows(s, lens, a, b), minhash_rows_torch(s, lens, a, b))
+    out.append({"kernel": "minhash_rows", "shape": shape, "route": minhash_rows_route(s),
+                "mismatches": mism, "max_abs_err": err})
 
 
 def minhash_edge_cases(dev, seed: int) -> list[dict]:
     """minhash_rows against its plain version at every (D, L, P) of the edge
     shapes, with garbage in the dead lanes, rows with ``lens == 0``, the
     shingles 0 and 0xFFFFFFFF among the live lanes and an ``a`` with its top
-    bit set."""
-    from repro_torch.kernels.minhash_sig.ops import (
-        hash_params, minhash_rows, minhash_rows_torch)
+    bit set; at ``MINHASH_EDGE_PERMS`` hashes on a few tiles; and on a
+    skewed tile (lens 0, 1, L and past L, a long row beside many short
+    ones, rows at the chunk's edges) of both routes."""
+    from repro_torch.kernels.minhash_sig.ops import CHUNK_LANES, hash_params
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    out = []
+    out: list = []
+
+    def params(p: int):
+        a, b = hash_params(p, seed + p)
+        a[0] |= np.uint32(0x80000000)
+        return [torch.from_numpy(x.view(np.int32)).to(dev) for x in (a, b)]
+
+    def tile(d: int, l: int):
+        s = torch.randint(-2**31, 2**31, (d, l), generator=g, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+        lens = torch.randint(0, l + 1, (d,), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+        lens[::4] = 0
+        lens[2::5] = l
+        if l:
+            s[:, 0] = 0
+            s[1::3, l // 2] = -1  # 0xFFFFFFFF
+        return s, lens
+
     for d in MINHASH_ROWS:
         for l in MINHASH_LANES:
-            s = torch.randint(-2**31, 2**31, (d, l), generator=g, device=dev,
-                              dtype=torch.int64).to(torch.int32)
-            lens = torch.randint(0, l + 1, (d,), generator=g, device=dev,
-                                 dtype=torch.int64).to(torch.int32)
-            lens[::4] = 0
-            lens[2::5] = l
-            if l:
-                s[:, 0] = 0
-                s[1::3, l // 2] = -1  # 0xFFFFFFFF
+            s, lens = tile(d, l)
             for p in MINHASH_PERMS:
-                a, b = hash_params(p, seed + p)
-                a[0] |= np.uint32(0x80000000)
-                ab = [torch.from_numpy(x.view(np.int32)).to(dev) for x in (a, b)]
-                mism, err = diff_stats(minhash_rows(s, lens, *ab),
-                                       minhash_rows_torch(s, lens, *ab))
-                out.append({"kernel": "minhash_rows", "shape": {"D": d, "L": l, "P": p},
-                            "mismatches": mism, "max_abs_err": err})
+                _minhash_row(out, {"D": d, "L": l, "P": p}, s, lens, *params(p))
+    for d, l in ((33, 129), (33, 513), (5, 4096)):
+        s, lens = tile(d, l)
+        for p in MINHASH_EDGE_PERMS:
+            _minhash_row(out, {"D": d, "L": l, "P": p}, s, lens, *params(p))
+    d, l = MINHASH_SKEWED
+    for width in (l, CHUNK_LANES):
+        s, _ = tile(d, width)
+        lens = torch.randint(1, 41, (d,), generator=g, device=dev, dtype=torch.int64)
+        lens[0] = width - 100  # the long row
+        lens[1:6] = torch.tensor([0, 1, width, width + 7, -3])
+        if width > CHUNK_LANES:  # rows at the chunks' edges
+            lens[6:11] = torch.tensor([CHUNK_LANES - 1, CHUNK_LANES, CHUNK_LANES + 1,
+                                       2 * CHUNK_LANES, 2 * CHUNK_LANES + 1])
+        lens = lens.to(torch.int32)
+        for p in (1, 64, 65):
+            _minhash_row(out, {"D": d, "L": width, "P": p, "lens": "skewed"}, s, lens,
+                         *params(p))
+    routes = {r["route"] for r in out}
+    require(routes == {"one_pass", "chunked"}, f"minhash edge cases reach the routes {routes}")
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return out
@@ -725,8 +780,11 @@ def recorded_wrappers():
         def rec(*a):
             seen[name].append(a)
             return originals[name](*a)
-        # a wrapper counts its launches on its module-level name
+        # a wrapper counts its launches on its module-level name (its routes'
+        # counts in a dict, shared)
         rec.launches = originals[name].launches
+        if hasattr(originals[name], "launches_by_route"):
+            rec.launches_by_route = originals[name].launches_by_route
         return rec
 
     for name, mod in homes.items():
@@ -2001,10 +2059,14 @@ def _model_row(rows: list, kernel: str, shape: dict, got, want, limit=None) -> N
 
 
 def embedding_bag_check(rows: list, shape: dict, idx, table, bag: int) -> None:
-    from repro_torch.kernels.embedding_bag.ops import embedding_bag, embedding_bag_torch
+    """embedding_bag against its plain version (tolerance 0, NaN pattern
+    equal), the row carrying the load route the launch took."""
+    from repro_torch.kernels.embedding_bag.ops import (embedding_bag, embedding_bag_route,
+                                                       embedding_bag_torch)
 
     _model_row(rows, "embedding_bag", shape, embedding_bag(idx, table, bag),
                embedding_bag_torch(idx, table, bag))
+    rows[-1]["route"] = embedding_bag_route(table)
 
 
 def cin_check(rows: list, shape: dict, x0, xk, w) -> None:
@@ -2041,8 +2103,11 @@ def cancelling_moe(g, e: int, c: int, d: int, f: int, dev):
     return buf.to(torch.bfloat16), w.to(torch.bfloat16)
 
 
-EB_DIMS = (1, 10, 128, 130)
-EB_BAGS = (1, 3, 39)
+#: embedding_bag's edge widths (the paths' 1, 10, 50, 256; 2 and 3 at the
+#: 8-byte and element routes' edges; 128 and 130) and bag lengths (the
+#: paths' 1 and 39; 0; 3; 8 and 9 at the staging pass's edge)
+EB_DIMS = (1, 2, 3, 10, 50, 128, 130, 256)
+EB_BAGS = (0, 1, 3, 8, 9, 39)
 CIN_SHAPES = ((1, 1, 1, 1, 1), (3, 4, 6, 7, 1), (2, 5, 8, 41, 130), (300, 3, 7, 5, 10),
               (17, 39, 39, 200, 10), (9, 39, 200, 200, 10), (0, 3, 4, 5, 10), (4, 2, 3, 0, 10))
 #: (B, m, Hk, H, D) at the edges of the kernel's tiles (200 rows of H, 64
@@ -2064,9 +2129,11 @@ MOE_ROUTE_SHAPES = ((2, 130, 64, 136), (3, 960, 2048, 1408), (3, 960, 1408, 2048
 @torch.no_grad()
 def model_kernel_edge_cases(dev, seed: int) -> list[dict]:
     """The three model-side kernels against their plain versions at edge
-    shapes: embedding_bag at D 1, 10, 128, 130, bags of 1, 3 and 39, 0, 1 and
-    1,000 bags, float32 and bf16 tables, rows out of range (NaN bags), 2-D and
-    int64 indices, rows read by stride (``linear[:, None]``) and bags of 0;
+    shapes: embedding_bag at ``EB_DIMS`` x ``EB_BAGS``, 0, 1 and 1,000 bags,
+    float32 and bf16 tables in place, one element in and at row strides of
+    D + 1, 2 and 4 (every load route of both dtypes), rows out of range (NaN
+    bags) on every layout, 2-D and int64 indices, rows read by stride
+    (``linear[:, None]``) and bags of 0;
     cin_layer at one element, D 1, ragged H / N tiles, the path's (m, Hk, H)
     at small batches, empty outputs, the tiles' edges (``CIN_TILE_EDGES``)
     and a misaligned w; moe_gemm at one element, C 1 with
@@ -2080,13 +2147,33 @@ def model_kernel_edge_cases(dev, seed: int) -> list[dict]:
         lo, hi, shape, generator=g, device=dev, dtype=torch.int32)
     rows: list = []
     for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
         for d in EB_DIMS:
-            table = randn(1000, d, dtype=dtype)
-            for bag in EB_BAGS:
-                for n_bags in (0, 1, 1000):
-                    embedding_bag_check(rows, {"V": 1000, "D": d, "bag": bag, "n_bags": n_bags,
-                                               "dtype": str(dtype).split(".")[-1]},
-                                        randint(0, 1000, n_bags * bag), table, bag)
+            # in place, one element in (misaligned: the element route), and
+            # rows 1, 2 and 4 elements further apart than D (row strides that
+            # break the vector routes or keep the 8-byte one)
+            tables = {"contiguous": randn(1000, d, dtype=dtype),
+                      "one element in": randn(1000 * d + 1, dtype=dtype)[1:].view(1000, d)}
+            tables.update({f"row stride D + {k}": randn(1000, d + k, dtype=dtype)[:, :d]
+                           for k in (1, 2, 4)})
+            for layout, table in tables.items():
+                for bag in EB_BAGS if layout == "contiguous" else (1, 39):
+                    for n_bags in (0, 1, 1000) if layout == "contiguous" else (1000,):
+                        shape = {"V": 1000, "D": d, "bag": bag, "n_bags": n_bags,
+                                 "dtype": name, "table": layout}
+                        # bags of 0 only exist as (n_bags, 0) indices
+                        embedding_bag_check(rows, shape, randint(0, 1000, n_bags, bag),
+                                            table, bag)
+                # rows outside [0, V): their bags NaN on every route
+                embedding_bag_check(rows, {"V": 1000, "D": d, "bag": 3, "n_bags": 300,
+                                           "dtype": name, "table": layout,
+                                           "indices": "some outside [0, 1000)"},
+                                    randint(-5, 1005, 900), table, 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        seen = {r["route"] for r in rows if r["kernel"] == "embedding_bag"
+                and r["shape"].get("dtype") == str(dtype).split(".")[-1]}
+        require(seen == {"scalar", "vec8", "vec16"},
+                f"embedding_bag edge cases reach the routes {seen} in {dtype}")
     table = randn(50, 10)
     idx = randint(-3, 53, 40, 4)
     embedding_bag_check(rows, {"indices": "(40, 4), some outside [0, 50)"}, idx, table, 1)
@@ -2130,6 +2217,20 @@ def embedding_bag_bound(idx, table, bag: int):
     (the rows an index names, once each); one add per element read."""
     n, d = idx.numel(), table.shape[1]
     return bound(4 * n + n * d * table.element_size() + 4 * (n // max(bag, 1)) * d, n * d)
+
+
+def embedding_bag_ceiling(idx, table, bag: int) -> float:
+    """The design's own ceiling (ms): the bound's bytes, but each lookup's
+    row counted as the 32-byte sectors it spans (what a gather moves from
+    device memory when the row is not in L2; a row outside [0, V) moves
+    nothing)."""
+    n, d = idx.numel(), table.shape[1]
+    size = table.element_size()
+    r = idx.reshape(-1).long()
+    r = r[(r >= 0) & (r < table.shape[0])]
+    first = table.data_ptr() + r * table.stride(0) * size
+    sectors = int(((first + d * size - 1) // 32 - first // 32 + 1).sum().item())
+    return (4 * n + 32 * sectors + 4 * (n // max(bag, 1)) * d) / PEAK_BYTES_PER_S * 1e3
 
 
 def cin_bound(x0, xk, w):
@@ -2182,11 +2283,14 @@ def model_kernel_at_path(kernel: str, args: tuple, at: str, reps: int, timed: bo
     from repro_torch.kernels.moe_gemm.ops import moe_gemm, moe_gemm_torch
 
     rows: list = []
+    extra: dict = {}
     if kernel == "embedding_bag":
         idx, table, bag = args
         shape = {"n_bags": idx.numel() // bag, "bag": bag, "V": table.shape[0],
-                 "D": table.shape[1], "dtype": str(table.dtype).split(".")[-1]}
+                 "D": table.shape[1], "row_stride": table.stride(0),
+                 "dtype": str(table.dtype).split(".")[-1]}
         embedding_bag_check(rows, shape, idx, table, bag)
+        extra["design_ceiling_ms"] = embedding_bag_ceiling(idx, table, bag)
         fn = lambda: embedding_bag(idx, table, bag)  # noqa: E731
         plain = lambda: embedding_bag_torch(idx, table, bag)  # noqa: E731
         bags = idx.reshape(-1, bag)
@@ -2216,7 +2320,7 @@ def model_kernel_at_path(kernel: str, args: tuple, at: str, reps: int, timed: bo
         lib = lambda: torch.bmm(buf, w)  # noqa: E731
         lib_name = f"torch.bmm in {str(buf.dtype).split('.')[-1]} (its output rounded to it)"
         b_ms, b_by = moe_gemm_bound(buf, w)
-    row = {**rows[0], "at": at, "bound_ms": b_ms, "bound_by": b_by, "library": lib_name}
+    row = {**rows[0], "at": at, "bound_ms": b_ms, "bound_by": b_by, "library": lib_name, **extra}
     if timed:
         row["library_max_abs_err"] = float((lib().float() - fn()).abs().nan_to_num().max())
         row.update(ms=time_any(fn, reps), call_ms=time_any(fn, reps, preload=False),
@@ -2266,11 +2370,13 @@ def model_refusals(dev) -> int:
 # recsys_serve phase
 # ----------------------------------------------------------------------
 @contextlib.contextmanager
-def recsys_kernels(plain: bool = False, seen: list | None = None):
+def recsys_kernels(plain: bool = False, seen: list | None = None,
+                   names: tuple = ("embedding_bag", "cin_layer")):
     """For the time of the block, the recsys models' two kernel names point
     at the plain versions (``plain``), or at recorders that append each
     call's ``(kernel, args)`` to ``seen`` (by reference: the models never
-    change a kernel's inputs) and call the wrapper."""
+    change a kernel's inputs; only the calls of the kernels in ``names``)
+    and call the wrapper."""
     from repro_torch.kernels.cin_interaction.ops import cin_layer_torch
     from repro_torch.kernels.embedding_bag.ops import embedding_bag_torch
     from repro_torch.models import recsys
@@ -2281,7 +2387,8 @@ def recsys_kernels(plain: bool = False, seen: list | None = None):
     else:
         def recorder(name):
             def rec(*a):
-                seen.append((name, a))
+                if name in names:
+                    seen.append((name, a))
                 return originals[name](*a)
             return rec
         swap = {name: recorder(name) for name in originals}
@@ -2351,6 +2458,7 @@ def recsys_serve_path(args, dev) -> tuple[dict, list]:
     inputs = {shape: _recsys_inputs(cfg, shape, args.seed, dev) for shape in RECSYS_SERVE}
     by_shape: dict = {}
     seen: list = []
+    recorded = {"serve_bulk": ("embedding_bag", "cin_layer"), "retrieval_cand": ("embedding_bag",)}
     reset_launch_counts()
     for shape in RECSYS_SERVE:
         inp, rows = inputs[shape]
@@ -2358,7 +2466,8 @@ def recsys_serve_path(args, dev) -> tuple[dict, list]:
         if on_gpu:
             torch.cuda.reset_peak_memory_stats()
         before = launch_counts()
-        with recsys_kernels(seen=seen) if shape == "serve_bulk" else contextlib.nullcontext():
+        with (recsys_kernels(seen=seen, names=recorded[shape]) if shape in recorded
+              else contextlib.nullcontext()):
             sync()
             t1 = time.perf_counter()
             logits = step(params, **inp)
@@ -2371,6 +2480,7 @@ def recsys_serve_path(args, dev) -> tuple[dict, list]:
                                                     if on_gpu else None)}
         by_shape[shape]["logits"] = logits
     launches = launch_counts()
+    routes = route_counts()
     for shape in RECSYS_SERVE:
         inp, _ = inputs[shape]
         with recsys_kernels(plain=True):
@@ -2394,11 +2504,17 @@ def recsys_serve_path(args, dev) -> tuple[dict, list]:
         want.update(embedding_bag=2 * n, cin_layer=len(cfg.cin_layers) * n)
         require(launches == want, f"kernel launches on the recsys_serve path: {launches}, "
                 f"expected {want}")
+        # the x0 lookups read 40-byte float32 rows 8 bytes a load, the linear
+        # terms linear[:, None] an element a load
+        eb = {"scalar": n, "vec8": n, "vec16": 0}
+        require(routes["embedding_bag"] == eb, f"embedding_bag routes on the recsys_serve "
+                f"path: {routes['embedding_bag']}, expected {eb}")
     line = {"config": {"name": cfg.name, "embed_dim": cfg.embed_dim, "n_fields": cfg.n_fields,
                        "table_rows": sum(cfg.field_vocab_sizes),
                        "cin_layers": list(cfg.cin_layers), "mlp_dims": list(cfg.mlp_dims)},
             "params": _n_params(params), "n_params_config": cfg.n_params(), "init_s": init_s,
             "logits_tolerance_rel": RECSYS_LOGIT_REL, "launches": launches,
+            "launches_by_route": {"embedding_bag": routes["embedding_bag"]},
             "shapes": by_shape}
     del params, inputs
     if on_gpu:
@@ -2448,19 +2564,22 @@ def recsys_serve_path(args, dev) -> tuple[dict, list]:
 
 
 def recsys_kernels_at_path(seen: list, reps: int) -> list[dict]:
-    """The recsys path's serve_bulk kernel calls against their plain
-    versions: the x0 lookup (bags of 1) and the linear term (bags of
-    n_fields), each CIN layer; timed: the x0 lookup and CIN layers 1 and 2
+    """The recsys path's recorded kernel calls against their plain
+    versions: at serve_bulk the x0 lookup (bags of 1), the linear term (bags
+    of n_fields) and each CIN layer, at retrieval_cand the x0 lookup and the
+    linear term; timed: both lookups at both shapes and CIN layers 1 and 2
     (layer 3 has layer 2's shape)."""
     rows = []
     names = [name for name, _ in seen]
-    require(names == ["embedding_bag", "embedding_bag", "cin_layer", "cin_layer", "cin_layer"],
-            f"the serve_bulk run made the kernel calls {names}")
+    require(names == ["embedding_bag", "embedding_bag", "cin_layer", "cin_layer", "cin_layer",
+                      "embedding_bag", "embedding_bag"],
+            f"the serve_bulk and retrieval_cand runs made the kernel calls {names}")
     labels = ["recsys_serve/serve_bulk/x0 lookup", "recsys_serve/serve_bulk/linear term",
               "recsys_serve/serve_bulk/CIN layer 1", "recsys_serve/serve_bulk/CIN layer 2",
-              "recsys_serve/serve_bulk/CIN layer 3"]
+              "recsys_serve/serve_bulk/CIN layer 3", "recsys_serve/retrieval_cand/x0 lookup",
+              "recsys_serve/retrieval_cand/linear term"]
     for i, ((name, args), at) in enumerate(zip(seen, labels)):
-        rows.append(model_kernel_at_path(name, args, at, reps, timed=i in (0, 2, 3)))
+        rows.append(model_kernel_at_path(name, args, at, reps, timed=i != 4))
     return rows
 
 
@@ -2545,7 +2664,8 @@ def launch_counts() -> dict:
 
 
 #: the kernels whose wrappers pick a route before each launch
-ROUTED_KERNELS = ("dgap_decode", "flash_attention_tpu", "flash_decode", "moe_gemm")
+ROUTED_KERNELS = ("dgap_decode", "flash_attention_tpu", "flash_decode", "moe_gemm",
+                  "embedding_bag", "minhash_rows")
 
 
 def route_counts() -> dict:
@@ -2600,6 +2720,7 @@ def build_indexes(args, device: str) -> dict:
     if device != "cpu":
         torch.cuda.synchronize()
     mining_launches = launch_counts()
+    mining_routes = route_counts()["minhash_rows"]
     t2 = time.perf_counter()
     pidx = PositionalIndex.build(col.docs, store="repair_skip")
     t3 = time.perf_counter()
@@ -2607,7 +2728,8 @@ def build_indexes(args, device: str) -> dict:
         require(mining_launches["minhash_rows"] > 0,
                 f"minhash_rows was not launched on the mining path: {mining_launches}")
     return {"docs": col.docs, "idx": idx, "pidx": pidx,
-            "mining_launches": mining_launches, "mining_calls": seen["minhash_rows"],
+            "mining_launches": mining_launches, "mining_routes": mining_routes,
+            "mining_calls": seen["minhash_rows"],
             "info": {"articles": args.articles, "versions_per_article": args.versions,
                      "words_per_doc": args.words, "seed": args.seed,
                      "documents": len(col.docs), "tokens": int(pidx.n_tokens),
@@ -2689,6 +2811,7 @@ def rlz_path(built: dict, batch, device: str) -> dict:
     sync()
     t1 = time.perf_counter()
     build_launches = launch_counts()
+    build_routes = route_counts()["minhash_rows"]
     sess = Session.build(idx, device=device)
     t2 = time.perf_counter()
     got = sess.execute(queries)
@@ -2723,16 +2846,19 @@ def rlz_path(built: dict, batch, device: str) -> dict:
             "layout": sess.server.layout, "device_bytes": sess.server.device_bytes(),
             "build_s": t1 - t0, "session_build_s": t2 - t1, "serve_s": t3 - t2,
             "host_session_s": t4 - t3, "build_on_cpu_s": t5 - t4,
-            "launches_build": build_launches, "launches": launches,
-            "calls": seen["minhash_rows"]}
+            "launches_build": build_launches, "minhash_rows_routes_build": build_routes,
+            "launches": launches, "calls": seen["minhash_rows"]}
 
 
 def minhash_at_mining(inputs: dict, reps: int) -> list[dict]:
     """minhash_rows at the inputs the two paths handed it (documents, posting
     lists): against its plain version (tolerance 0), timed beside the plain
     version and the bound, and beside the host-to-device copy of the padded
-    shingle matrix that each call needs first."""
-    from repro_torch.kernels.minhash_sig.ops import minhash_rows, minhash_rows_torch
+    shingle matrix that each call needs first; and timed once more with every
+    row's length set to 0 (``ms_no_live_lanes``: the launches, the lengths'
+    reads and the writes, no hashing)."""
+    from repro_torch.kernels.minhash_sig.ops import (minhash_rows, minhash_rows_route,
+                                                     minhash_rows_torch)
 
     rows = []
     for at, calls in inputs.items():
@@ -2741,13 +2867,17 @@ def minhash_at_mining(inputs: dict, reps: int) -> list[dict]:
         mism, err = diff_stats(minhash_rows(*args), minhash_rows_torch(*args))
         (b_ms, b_by), live = minhash_bound(args[0], args[1], args[2])
         host = args[0].cpu()
-        row = {"kernel": "minhash_rows", "at": at,
+        no_lanes = torch.zeros_like(args[1])
+        row = {"kernel": "minhash_rows", "at": at, "route": minhash_rows_route(args[0]),
                "shape": {"D": args[0].shape[0], "L": args[0].shape[1],
                          "P": args[2].numel(), "live_lanes": live},
+               "design_ceiling_ms": minhash_ceiling(live, args[2].numel()),
                "mismatches": mism, "max_abs_err": err,
                "ms": time_ms(lambda: minhash_rows(*args), reps),
                "call_ms": time_ms(lambda: minhash_rows(*args), reps, preload=False),
                "plain_ms": time_ms(lambda: minhash_rows_torch(*args), reps),
+               "ms_no_live_lanes": time_ms(lambda: minhash_rows(args[0], no_lanes, *args[2:]),
+                                           reps),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
                "copy_bytes": host.numel() * host.element_size(),
                "copy_ms": time_ms(lambda: host.to(args[0].device), reps, preload=False)}
@@ -2783,13 +2913,16 @@ def window_splits(sessions: dict, batch, reps: int) -> dict:
     return out
 
 
-def save_windows(sessions: dict, batch, path: str) -> None:
-    """The fused servers' arrays and the phrase2 / and2 term batches, for
+def save_windows(sessions: dict, batch, sig_calls: dict, path: str) -> None:
+    """The fused servers' arrays and the phrase2 / and2 term batches, and the
+    shingles, lens and hash parameters of the two signature calls, for
     ``src/repro_torch/kernels/ab_timing.py --windows`` (parent against
-    change on the windows the serving path records)."""
-    from repro_torch.kernels.ab_timing import FUSED_ARRAYS
+    change on the inputs the paths record)."""
+    from repro_torch.kernels.ab_timing import FUSED_ARRAYS, SIGNATURE_ARGS
 
     data = {}
+    for at, calls in sig_calls.items():
+        data.update({f"{at}/{k}": t.cpu().numpy() for k, t in zip(SIGNATURE_ARGS, calls[0])})
     for name, srv, kind in (("phrase2", sessions["fused"].positional_server, "phrase"),
                             ("and2", sessions["fused"].server, "and")):
         qt, ql, _ = group_terms(srv, batch, kind, (2,))
@@ -2950,8 +3083,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--save-windows", default=None, metavar="FILE.npz",
-                    help="also write the fused servers' arrays and the phrase2 / and2 "
-                         "batches for ab_timing.py --windows")
+                    help="also write the fused servers' arrays, the phrase2 / and2 "
+                         "batches and the two signature calls' inputs for "
+                         "ab_timing.py --windows")
     ap.add_argument("--lm-layers", type=int, default=None,
                     help="cut the lm_serve phase's model to this many layers "
                          "(default: full depth)")
@@ -3043,9 +3177,8 @@ def main() -> int:
                     inp = main_path_inputs(srv, mode, qt, ql, window)
                     measured += kernels_at_main_path(name, inp, args.reps, timed)
                     del inp
-    measured += minhash_at_mining({"mining/documents": built.pop("mining_calls"),
-                                   "rlz/posting-lists": rlz_calls}, args.reps)
-    del rlz_calls
+    sig_calls = {"mining/documents": built.pop("mining_calls"), "rlz/posting-lists": rlz_calls}
+    measured += minhash_at_mining(sig_calls, args.reps)
     torch.cuda.synchronize()
     total_mism = sum(r["mismatches"] for r in edges + measured)
     emit("kernels", tolerance={name: 0 for name in INTEGER_KERNELS},
@@ -3061,7 +3194,8 @@ def main() -> int:
             "torch.searchsorted yardstick disagrees with anchor_probe_sliced")
 
     if args.save_windows:
-        save_windows(sessions, batch, args.save_windows)
+        save_windows(sessions, batch, sig_calls, args.save_windows)
+    del sig_calls, rlz_calls
     result = serve(built, sessions, batch, "cuda", args.reps)
     emit("serve", card=card, collection=built["info"], session_build_s=session_s, **result)
     del sessions
@@ -3168,13 +3302,17 @@ def main() -> int:
     mh = {r["at"]: r for r in measured if r["kernel"] == "minhash_rows"}
     by_path = {"mining": built["mining_launches"]["minhash_rows"],
                "rlz": rlz["launches_build"]["minhash_rows"]}
+    sig_keys = timing_keys + ("route", "design_ceiling_ms", "ms_no_live_lanes", "copy_ms")
     kernels.append({"name": "minhash_rows", **KERNEL_META["minhash_rows"],
                     "launches": sum(by_path.values()), "launches_by_path": by_path,
+                    "launches_by_route": {"mining": built["mining_routes"],
+                                          "rlz": rlz["minhash_rows_routes_build"]},
+                    "kernels_per_call": {"one_pass": ["minhash_rows_kernel"],
+                                         "chunked": ["minhash_clear_kernel",
+                                                     "minhash_rows_kernel"]},
                     "max_abs_err": max_err("minhash_rows"),
-                    **{k: mh["mining/documents"][k] for k in timing_keys},
-                    "copy_ms": mh["mining/documents"]["copy_ms"], "at": "mining/documents",
-                    "at_posting_lists": {k: mh["rlz/posting-lists"][k]
-                                         for k in timing_keys + ("copy_ms",)}})
+                    **{k: mh["mining/documents"][k] for k in sig_keys}, "at": "mining/documents",
+                    "at_posting_lists": {k: mh["rlz/posting-lists"][k] for k in sig_keys}})
     for name, e in entry.items():
         kernels.append({"name": name, **KERNEL_META[name], "launches": e["launches"],
                         "max_abs_err": e["max_abs_err"],
@@ -3200,7 +3338,13 @@ def main() -> int:
                         "max_abs_err": max(x["max_abs_err"] for x in model_edges + model_path
                                            if x["kernel"] == name),
                         **{k: r[k] for k in timing_keys}, "at": at})
-        if name in ROUTED_KERNELS:
+        if name == "embedding_bag":
+            lookups = {x["at"]: {k: x[k] for k in timing_keys + ("route", "design_ceiling_ms")}
+                       for x in model_path if x["kernel"] == name and "ms" in x}
+            kernels[-1].update(kernel_route=r["route"], design_ceiling_ms=r["design_ceiling_ms"],
+                               launches_by_route=rec["launches_by_route"][name],
+                               at_path=lookups)
+        elif name in ROUTED_KERNELS:
             kernels[-1].update(kernel_route=r["route"], launches_by_route={
                 phase: by[name] for phase, by in moe["launches_by_route"].items()})
     require(len(kernels) == len(KERNEL_META), f"the kernels line lists {len(kernels)} "

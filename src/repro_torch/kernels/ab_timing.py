@@ -15,15 +15,21 @@ card: run them in turns in one call (A B B A).  Inputs are random, seeded.
   the element-load route too (a view one element in).  Outputs equal the
   plain version.  With ``--windows`` (a file ``chip_smoke.py
   --save-windows`` writes: the fused servers' arrays and the serving path's
-  phrase2 / and2 term batches), one fused ``probe="kernel"`` serve step of
-  the checkout on the first window of each batch: :func:`window_split`'s
-  host ms, window ms, device ms and kernels a window, and a digest of its
-  answers (equal across checkouts).
-* model side: ``flash_decode`` and ``cin_layer`` at the LM and recsys
+  phrase2 / and2 term batches, and the inputs of the mining and ``rlz``
+  signature calls), one fused ``probe="kernel"`` serve step of the checkout
+  on the first window of each batch: :func:`window_split`'s host ms, window
+  ms, device ms and kernels a window, and a digest of its answers (equal
+  across checkouts); and ``minhash_rows`` on the two recorded signature
+  calls, equal to the plain version, with a digest of its output, and once
+  more with every row's length 0 (``ms_no_live_lanes``: no hashing).
+* model side: ``embedding_bag`` at xDeepFM's ``serve_bulk`` x0 lookup and
+  linear term (the registry's table, seeded ids in each field's
+  vocabulary), ``flash_decode`` and ``cin_layer`` at the LM and recsys
   serving paths' shapes, and xDeepFM's ``serve_p99`` step end to end; each
-  output is checked against its plain version (float32 within 1e-5 absolute
-  / bf16 within 2^-7 of the value + 1e-5 for the attention, 2 gamma_(m Hk +
-  2) of the sum of |terms| for the CIN).
+  output is checked against its plain version (bit for bit, NaN where NaN,
+  for the lookups; float32 within 1e-5 absolute / bf16 within 2^-7 of the
+  value + 1e-5 for the attention, 2 gamma_(m Hk + 2) of the sum of |terms|
+  for the CIN).
 
 Prints one JSON line: the card's name and power limit, the checkout's
 ``src``, the timing's own floor (two events back to back, an almost empty
@@ -112,6 +118,34 @@ def window_split(torch, step, arrays: dict, qt, ql, row_start: int = 0, reps: in
 
 #: the fused server's arrays a windows file holds for each batch
 FUSED_ARRAYS = ("anchors", "c_offsets", "c_ptr", "c_len", "pool", "lengths")
+#: the arguments of a signature call a windows file holds, under
+#: ``mining/documents/`` and ``rlz/posting-lists/``
+SIGNATURE_ARGS = ("shingles", "lens", "a", "b")
+
+
+def digest(torch, x) -> int:
+    """A sum of the output's bits, equal across checkouts that agree."""
+    bits = x.view(torch.int32) if x.dtype == torch.float32 else x
+    return int(bits.long().sum().item())
+
+
+def signature_calls(torch, out: dict, reps: int, path: str) -> None:
+    import numpy as np
+
+    from repro_torch.kernels.minhash_sig import ops as mh
+
+    data = np.load(path)
+    for at in ("mining/documents", "rlz/posting-lists"):
+        args = [torch.from_numpy(data[f"{at}/{k}"]).cuda() for k in SIGNATURE_ARGS]
+        got = mh.minhash_rows(*args)
+        no_lanes = [args[0], torch.zeros_like(args[1]), *args[2:]]
+        row = {"ms": device_ms(torch, lambda: mh.minhash_rows(*args), reps),
+               "ms_no_live_lanes": device_ms(torch, lambda: mh.minhash_rows(*no_lanes), reps),
+               "equal": bool(torch.equal(got, mh.minhash_rows_torch(*args))),
+               "digest": digest(torch, got), "shape": list(args[0].shape)}
+        if hasattr(mh, "minhash_rows_route"):
+            row["route"] = mh.minhash_rows_route(args[0])
+        out[f"minhash_rows/{at}"] = row
 
 
 def fused_steps(torch, out: dict, reps: int, path: str) -> None:
@@ -159,6 +193,38 @@ def index_side(torch, out: dict, reps: int, seed: int, dev=None) -> None:
         out[f"dgap_decode/{name}, n {n}"] = row
 
 
+def lookups(torch, out: dict, reps: int, seed: int) -> None:
+    """``embedding_bag`` at xDeepFM's serve_bulk calls: the x0 lookup (one
+    id a bag into the (3,008,562, 10) float32 table) and the linear term
+    (bags of the 39 fields' ids into ``linear[:, None]``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipelines import recsys_batches
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.models import steps
+
+    dev = torch.device("cuda")
+    cfg = get_config("xdeepfm")
+    params = steps.init_model_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    rows = cfg.shapes["serve_bulk"].dims["batch"]
+    fields = next(recsys_batches(cfg, rows, seed=seed))["fields"]
+    offsets = np.concatenate([[0], np.cumsum(cfg.field_vocab_sizes)[:-1]])
+    ids = torch.from_numpy((fields + offsets).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        for name, args in (("x0 lookup", (ids.reshape(-1), params.table, 1)),
+                           ("linear term", (ids, params.linear[:, None], cfg.n_fields))):
+            got, want = eb.embedding_bag(*args), eb.embedding_bag_torch(*args)
+            row = {"ms": device_ms(torch, lambda: eb.embedding_bag(*args), reps),
+                   "equal": bool(torch.equal(got.nan_to_num(), want.nan_to_num())
+                                 and torch.equal(got.isnan(), want.isnan())),
+                   "digest": digest(torch, got)}
+            if hasattr(eb, "embedding_bag_route"):
+                row["route"] = eb.embedding_bag_route(args[1])
+            out[f"embedding_bag/serve_bulk {name}, {args[0].numel()} ids"] = row
+    del params
+
+
 def model_side(torch, out: dict, reps_arg: int, seed: int) -> None:
     from repro_torch.configs import get_config
     from repro_torch.data.pipelines import recsys_batches
@@ -167,6 +233,7 @@ def model_side(torch, out: dict, reps_arg: int, seed: int) -> None:
     from repro_torch.models import steps
 
     dev = torch.device("cuda")
+    lookups(torch, out, reps_arg, seed)
     g = torch.Generator(device=dev).manual_seed(seed)
     for name, h, kh in (("qwen3-8b", 32, 8), ("moonshot-v1-16b-a3b", 16, 16)):
         cache = torch.randn((2, 2, 4, 2080, kh, 128), generator=g, device=dev).bfloat16()
@@ -238,6 +305,7 @@ def main() -> int:
         index_side(torch, out, args.reps, args.seed)
         if args.windows:
             fused_steps(torch, out, args.reps, args.windows)
+            signature_calls(torch, out, args.reps, args.windows)
     if args.only != "index":
         model_side(torch, out, args.reps, args.seed)
     print(json.dumps(out), flush=True)

@@ -54,8 +54,8 @@ SIGNATURES = {
     #  phrase, hit, B, stream)
     "probe_window_launch": (_P, _P, _L, _P, _L, _I, _P, _P, _L, _P, _P, _P, _L, _P, _L,
                             _I, _P, _L, _P),
-    # (shingles, lens, a, b, out, D, L, P, stream)
-    "minhash_rows_launch": (_P, _P, _P, _P, _P, _L, _L, _I, _P),
+    # (shingles, lens, a, b, out, D, L, P, route, stream)
+    "minhash_rows_launch": (_P, _P, _P, _P, _P, _L, _L, _I, _I, _P),
     # (q, k, v, out, B, T, S, H, K, hd, dtype, causal, scale,
     #  q strides b/t/h, k strides b/s/k, v strides b/s/k, route, stream)
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -65,8 +65,8 @@ SIGNATURES = {
     #  stream)
     "flash_decode_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _P),
-    # (idx, table, out, n_bags, bag, D, V, row stride, dtype, stream)
-    "embedding_bag_launch": (_P, _P, _P, _L, _I, _I, _L, _L, _I, _P),
+    # (idx, table, out, n_bags, bag, D, V, row stride, dtype, route, stream)
+    "embedding_bag_launch": (_P, _P, _P, _L, _I, _I, _L, _L, _I, _I, _P),
     # (x0, xk, w, out, B, m, Hk, H, D, stream)
     "cin_layer_launch": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     # (buf, w, out, E, C, D, F, buf dtype, w dtype, route, stream)

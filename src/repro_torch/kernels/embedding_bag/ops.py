@@ -2,8 +2,11 @@
 float32, for a table of any float dtype.
 
 On a CUDA tensor ``embedding_bag`` launches ``csrc/embedding_bag.cu`` (or
-raises); on a CPU tensor it runs ``embedding_bag_torch``, the plain PyTorch
-version of the same function.  Both sum each bag from 0 in the order of its
+raises), by the load route :func:`embedding_bag_route` picks from the
+table's dtype, width, row stride and alignment before the launch:
+``vec16`` (16 bytes a load), ``vec8`` (8) or ``scalar`` (one element).  On a
+CPU tensor it runs ``embedding_bag_torch``, the plain PyTorch version of the
+same function.  Both sum each bag from 0 in the order of its
 indices, one float32 add at a time, so they agree bit for bit.  A row
 outside ``[0, V)`` is never read: its bag comes out NaN, as the reference's
 ``jnp.take`` fills such rows with NaN (callers that want an error check
@@ -51,6 +54,24 @@ def embedding_bag_torch(indices: torch.Tensor, table: torch.Tensor,
     return out
 
 
+#: the kernel's load routes and the codes its launch function takes
+ROUTE_CODES = {"scalar": 0, "vec8": 1, "vec16": 2}
+
+
+def embedding_bag_route(table: torch.Tensor) -> str:
+    """The load route of a launch on ``table`` (V, D): ``"vec16"`` when a
+    row's D elements, the row stride and the table's first element are all
+    whole 16-byte words, else ``"vec8"`` when they are whole 8-byte words,
+    else ``"scalar"`` (an odd float32 D, a bf16 D not a multiple of 4, a
+    view one element in, ``linear[:, None]``)."""
+    size = table.element_size()
+    spans = (table.shape[1] * size, table.stride(0) * size, table.data_ptr())
+    for width, route in ((16, "vec16"), (8, "vec8")):
+        if all(x % width == 0 for x in spans):
+            return route
+    return "scalar"
+
+
 def embedding_bag(indices: torch.Tensor, table: torch.Tensor, bag_size: int = 1) -> torch.Tensor:
     """indices (n_bags, bag) — or flat, with ``bag_size`` — of any integer
     dtype (cast to int32, as the reference's op does); table (V, D) ->
@@ -74,15 +95,19 @@ def embedding_bag(indices: torch.Tensor, table: torch.Tensor, bag_size: int = 1)
     out = torch.empty((n_bags, d), dtype=torch.float32, device=table.device)
     if out.numel() == 0:
         return out
+    route = embedding_bag_route(table)
     lib = cuda_build.load()
     with torch.cuda.device(table.device):
         code = lib.embedding_bag_launch(idx.data_ptr(), table.data_ptr(), out.data_ptr(),
                                         n_bags, bag, d, v, table.stride(0), dtype,
-                                        cuda_build.stream_ptr())
-    cuda_build.check(code, "embedding_bag")
+                                        ROUTE_CODES[route], cuda_build.stream_ptr())
+    cuda_build.check(code, f"embedding_bag ({route})")
     embedding_bag.launches += 1
+    embedding_bag.launches_by_route[route] += 1
     return out
 
 
-#: kernel launches made by the wrapper (never raised by the plain version)
+#: kernel launches made by the wrapper, in all and by load route (never
+#: raised by the plain version)
 embedding_bag.launches = 0
+embedding_bag.launches_by_route = dict.fromkeys(ROUTE_CODES, 0)

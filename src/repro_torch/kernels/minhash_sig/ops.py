@@ -4,8 +4,12 @@
 row ``d`` of ``a[p] * s + b[p]`` in wraparound uint32 arithmetic; an empty row
 signs as ``2^32 - 1`` (``ref.EMPTY_SIG``).  ``minhash_rows`` is the wrapper
 on int32 tensors that carry the uint32 bits: on a CUDA tensor it launches the
-kernel of ``csrc/minhash_sig.cu`` (or raises), on a CPU tensor it runs
-``minhash_rows_torch``, the plain PyTorch version of the same function.
+kernel of ``csrc/minhash_sig.cu`` (or raises), by the route
+:func:`minhash_rows_route` picks from the tile's width before the launch
+(``one_pass``: one kernel; ``chunked``: a clearing kernel, then the
+signature kernel, whose warps combine a long row's chunks by an unsigned
+atomic min); on a CPU tensor it runs ``minhash_rows_torch``, the plain
+PyTorch version of the same function.
 ``minhash_signatures`` is the NumPy-in, NumPy-out entry point the miners
 call; its ``device`` is the card unless the caller asks for the CPU.
 """
@@ -18,9 +22,13 @@ import torch
 from ...core.device import resolve_device
 from .. import cuda_build
 
-#: most hash permutations one launch takes (the kernel stages ``a`` and ``b``
-#: in shared memory: 32 KiB at this bound)
+#: most hash permutations one launch takes
 MAX_PERM = 4096
+#: lanes of one row that one warp of the kernel takes (``kChunkLanes`` in
+#: ``csrc/minhash_sig.cu``): a wider tile takes the ``chunked`` route
+CHUNK_LANES = 512
+#: the kernel's routes and the codes its launch function takes
+ROUTE_CODES = {"one_pass": 0, "chunked": 1}
 
 _MASK32 = 0xFFFFFFFF
 
@@ -52,6 +60,12 @@ def minhash_rows_torch(shingles: torch.Tensor, lens: torch.Tensor, a: torch.Tens
     return (out - ((out >> 31) << 32)).to(torch.int32)
 
 
+def minhash_rows_route(shingles: torch.Tensor) -> str:
+    """The route of a launch on a (D, L) tile: ``"one_pass"`` when every row
+    fits one warp's chunk (L <= :data:`CHUNK_LANES`), else ``"chunked"``."""
+    return "one_pass" if shingles.shape[1] <= CHUNK_LANES else "chunked"
+
+
 def minhash_rows(shingles: torch.Tensor, lens: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """MinHash signature matrix of a shingle tile.
@@ -78,18 +92,23 @@ def minhash_rows(shingles: torch.Tensor, lens: torch.Tensor, a: torch.Tensor,
     out = torch.empty((d, p), dtype=torch.int32, device=shingles.device)
     if d == 0 or p == 0:
         return out
+    route = minhash_rows_route(shingles)
     lib = cuda_build.load()
     with torch.cuda.device(shingles.device):
         code = lib.minhash_rows_launch(
             shingles.data_ptr(), lens.data_ptr(), a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), d, l, p, cuda_build.stream_ptr())
-    cuda_build.check(code, "minhash_rows")
+            out.data_ptr(), d, l, p, ROUTE_CODES[route], cuda_build.stream_ptr())
+    cuda_build.check(code, f"minhash_rows ({route})")
     minhash_rows.launches += 1
+    minhash_rows.launches_by_route[route] += 1
     return out
 
 
-#: kernel launches made by the wrapper (never raised by the plain version)
+#: calls that launched the kernel (one kernel on ``one_pass``, the clearing
+#: kernel and the signature kernel on ``chunked``), in all and by route
+#: (never raised by the plain version)
 minhash_rows.launches = 0
+minhash_rows.launches_by_route = dict.fromkeys(ROUTE_CODES, 0)
 
 
 def hash_params(num_perm: int, seed: int) -> tuple[np.ndarray, np.ndarray]:

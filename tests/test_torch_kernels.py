@@ -637,6 +637,70 @@ def test_embedding_bag_plain_vs_pallas(nb, bs, v, d, dtype):
     assert np.abs(got.numpy() - oracle).max() <= _gamma(bs) * np.abs(oracle).max() + 1e-30
 
 
+def _eb_table(jt, dtype, layout: str):
+    """The table of the JAX pair as the layout lays it out in torch: in place,
+    as ``linear[:, None]`` of a (V,) vector, as the first D columns of a
+    table 2 columns wider (a row stride of D + 2), or one element into a
+    flat buffer (misaligned for every vector route)."""
+    vals = torch.from_numpy(np.array(jt.astype(jnp.float32))).to(dtype)
+    v, d = vals.shape
+    if layout == "linear[:, None]":
+        return vals.reshape(-1).clone()[:, None]
+    if layout == "row stride":
+        wide = torch.zeros((v, d + 2), dtype=dtype)
+        wide[:, :d] = vals
+        return wide[:, :d]
+    if layout == "one element in":
+        flat = torch.zeros(v * d + 1, dtype=dtype)
+        flat[1:] = vals.reshape(-1)
+        return flat[1:].view(v, d)
+    return vals
+
+
+@pytest.mark.parametrize("d,bs,layout", [(d, bs, "contiguous") for d in (1, 10, 50, 256)
+                                         for bs in (1, 39)]
+                         + [(1, bs, "linear[:, None]") for bs in (1, 39)]
+                         + [(10, bs, "row stride") for bs in (1, 39)]
+                         + [(d, bs, "one element in") for d in (10, 50) for bs in (1, 39)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_plain_vs_pallas_at_path_widths(d, bs, layout, dtype):
+    """At the recsys paths' widths (1: the linear term, 10: xDeepFM and FM,
+    50: SASRec, 256: two-tower) and bag lengths (1: the field lookups, 39:
+    the linear term and FM's field sum), on every table layout the kernel's
+    routes tell apart: bit for bit the Pallas op in interpret mode."""
+    from repro.kernels.embedding_bag.ops import embedding_bag as ref_embedding_bag
+
+    rng = np.random.default_rng(d * 100 + bs)
+    v, nb = 300, 4
+    idx = rng.integers(0, v, (nb, bs)).astype(np.int32)
+    jt, _ = _jax_pair(rng, (v, d), dtype)
+    table = _eb_table(jt, dtype, layout)
+    got = eb_ops.embedding_bag(torch.from_numpy(idx), table, bs)
+    want = ref_embedding_bag(jnp.asarray(idx), jt, bs, interpret=True)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (nb, d)
+    assert np.array_equal(got.numpy().view(np.int32), np.asarray(want).view(np.int32))
+
+
+@pytest.mark.parametrize("dtype,d,layout,route", [
+    (torch.float32, 4, "contiguous", "vec16"), (torch.float32, 256, "contiguous", "vec16"),
+    (torch.float32, 10, "contiguous", "vec8"), (torch.float32, 2, "row stride", "vec8"),
+    (torch.float32, 10, "row stride", "vec8"), (torch.float32, 3, "contiguous", "scalar"),
+    (torch.float32, 1, "linear[:, None]", "scalar"), (torch.float32, 10, "one element in", "scalar"),
+    (torch.bfloat16, 8, "contiguous", "vec16"), (torch.bfloat16, 4, "contiguous", "vec8"),
+    (torch.bfloat16, 6, "contiguous", "scalar"), (torch.bfloat16, 50, "contiguous", "scalar"),
+    (torch.bfloat16, 8, "one element in", "scalar")])
+def test_embedding_bag_route_choice(dtype, d, layout, route):
+    """The load route follows D x element size, the row stride and the
+    table's address: a table whose rows and start are whole 16- (8-) byte
+    words takes vec16 (vec8); an odd float32 D, a bf16 D not a multiple of
+    4, a misaligned base or stride, or ``linear[:, None]`` the element
+    route."""
+    jt, _ = _jax_pair(np.random.default_rng(0), (20, d), dtype)
+    table = _eb_table(jt, dtype, layout)
+    assert eb_ops.embedding_bag_route(table) == route
+    assert set(eb_ops.ROUTE_CODES) == {"scalar", "vec8", "vec16"}
+
+
 def test_embedding_bag_edges():
     """A bag holding a row outside [0, V) is NaN (never read); int64 indices,
     a table read by row stride (``linear[:, None]``), bags of 0 and no bags."""

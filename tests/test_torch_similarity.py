@@ -100,6 +100,61 @@ def test_signatures_equal_pallas_kernel(d, l, p):
     assert np.array_equal(got, ref_ops.minhash_signatures(s, lens, a, b, backend="kernel"))
 
 
+def _skewed_tile(p: int):
+    """One tile like the ``rlz`` call's: 40 rows of 1 to 30 lanes beside one
+    of 650 (longer than one chunk of the kernel), with lens 0, 1, L and
+    past L, garbage past every row's length."""
+    rng = np.random.default_rng(p)
+    d, l = 40, 700
+    assert l > ops.CHUNK_LANES
+    s = rng.integers(0, 2**32, (d, l), dtype=np.uint32)
+    lens = rng.integers(1, 31, d)
+    lens[0], lens[1:5] = 650, [0, 1, l, l + 9]
+    s[2, 0] = 0xFFFFFFFF
+    a, b = ops.hash_params(p, p)
+    a[0] |= np.uint32(0x80000000)
+    return s, lens, a, b
+
+
+@pytest.mark.parametrize("backend", ["ref", "kernel"])
+@pytest.mark.parametrize("p", [1, 63, 65])
+def test_skewed_tile_equals_reference(p, backend):
+    """The plain version on a skewed tile equals the reference's oracle and
+    its Pallas kernel (interpret mode on the CPU) bit for bit.  The Pallas
+    op is handed lengths past L as L: it pads L to its lane tile and would
+    read the zero padding as live lanes
+    (``test_reference_kernel_reads_its_padding_past_l``)."""
+    s, lens, a, b = _skewed_tile(p)
+    got = ops.minhash_signatures(s, lens, a, b, device="cpu")
+    ref_lens = np.minimum(lens, s.shape[1]) if backend == "kernel" else lens
+    want = ref_ops.minhash_signatures(s, ref_lens, a, b, backend=backend)
+    assert got.shape == (40, p) and np.array_equal(got, want)
+    assert (got[1] == 0xFFFFFFFF).all()  # lens 0: the empty signature
+
+
+def test_reference_kernel_reads_its_padding_past_l():
+    """A fault of the reference: with lens[d] > L its Pallas op pads L to a
+    multiple of its lane tile with zeros and reads them as live lanes, so a
+    zero shingle enters the row's minimum; its own oracle, and the port,
+    read the L lanes only."""
+    s = np.full((1, 100), 3, dtype=np.uint32)  # a * 3 + 0 is odd, never 0
+    lens = np.array([110])
+    a, b = np.array([5], dtype=np.uint32), np.array([0], dtype=np.uint32)
+    got = ops.minhash_signatures(s, lens, a, b, device="cpu")
+    assert got[0, 0] == 15
+    assert ref_ops.minhash_signatures(s, lens, a, b, backend="ref")[0, 0] == 15
+    assert ref_ops.minhash_signatures(s, lens, a, b, backend="kernel")[0, 0] == 0
+
+
+@pytest.mark.parametrize("l,route", [(0, "one_pass"), (455, "one_pass"),
+                                     (ops.CHUNK_LANES, "one_pass"),
+                                     (ops.CHUNK_LANES + 1, "chunked"), (4000, "chunked")])
+def test_minhash_rows_route(l, route):
+    """A tile whose rows all fit one chunk takes one launch; a wider one the
+    clearing kernel and the chunked signature kernel."""
+    assert ops.minhash_rows_route(torch.zeros((3, l), dtype=torch.int32)) == route
+
+
 def test_plain_version_on_int32_bits():
     """The wrapper's own contract on int32 tensors: uint32 bits in and out,
     lengths past the row read as the whole row, negative ones as empty."""
