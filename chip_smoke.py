@@ -34,6 +34,18 @@ launch counts set to 0 just before it and read just after:
   split into host and device time beside the same window served by the
   row-given route (``decode_rows``, then ``anchor_probe_sliced`` and
   ``probe_rows`` per probed term: the fused step before the window kernels);
+* ranked — a batch of ``rank10:`` queries (24 each of 2, 3 and 4 terms, an
+  rng of its own) through both card sessions: the BM25 ranked step (padded
+  run arrays, scatter-add, stable sort; no kernel of the table), every
+  answer equal to the host-only session's and to the same step on CPU
+  tensors;
+* lifecycle — the full-size indexes saved as a bundle (``save_index``) and
+  served through ``Session.open(..., device="cuda")``, eager and memory-mapped,
+  answers and ``device_bytes()`` equal to the in-memory fused session's;
+  then an ``IndexWriter`` (``repair_skip``, positional, mining on the card)
+  over the first 300 documents in three commits, opened segment-aware and
+  held against one-shot builds (host-only and on the card), compacted in the
+  background while it serves, refreshed once;
 * lm_serve — LM serving of qwen3-8b at full width (depth cut only by
   ``--lm-layers``), random bf16 weights drawn on the card: 4 prompts of 2,048
   tokens from ``lm_batches`` prefilled through ``make_lm_prefill_step`` (the
@@ -2939,6 +2951,7 @@ def serve(built: dict, sessions: dict, batch: list[tuple[str, str]], device: str
     the launch counts read around it), the dense session and the host-only
     session, and compare every answer exactly; on a card, also
     ``window_splits``."""
+    from repro_torch.serving.engine import RANK_ARRAYS
     from repro_torch.serving.session import Session
 
     on_gpu = device != "cpu"
@@ -3007,8 +3020,19 @@ def serve(built: dict, sessions: dict, batch: list[tuple[str, str]], device: str
                    for k in srv._LAYOUT_ARRAYS[srv.layout])
         require(srv.device_bytes() == want,
                 f"{name}: device_bytes() {srv.device_bytes()} != {want} from array sizes")
+        # the layout arrays and doc_starts are int32 or bool; the ranked step's
+        # arrays (non-positional servers) carry the reference's dtypes, float32
+        # among them, and stay outside device_bytes()
+        rank_keys = {k for k in srv.arrays if k.startswith("rank_")}
         require(all(srv.arrays[k].dtype in (torch.int32, torch.bool)
-                    for k in srv.arrays), f"{name}: an array is neither int32 nor bool")
+                    for k in set(srv.arrays) - rank_keys),
+                f"{name}: a layout array is neither int32 nor bool")
+        want_keys = set(RANK_ARRAYS) if name.endswith("/nonpositional") else set()
+        require(rank_keys == want_keys and all(
+                    srv.arrays[k].dtype == torch.from_numpy(np.zeros(0, RANK_ARRAYS[k])).dtype
+                    for k in rank_keys),
+                f"{name}: rank arrays {sorted(rank_keys)} or their dtypes differ from "
+                f"the reference's")
         dev_bytes[name] = srv.device_bytes()
     splits = None
     if on_gpu:
@@ -3043,6 +3067,291 @@ def serve(built: dict, sessions: dict, batch: list[tuple[str, str]], device: str
                       for name, srv in servers.items() if srv.layout == "fused"},
         "max_memory_allocated": torch.cuda.max_memory_allocated() if on_gpu else None,
     }
+
+
+RANK_PER_CELL = 24  # rank10: queries per term count (2, 3, 4) of the ranked batch
+WRITER_DOCS = 300  # the writer's documents (the Python Re-Pair build bounds it)
+WRITER_COMMITS = 3
+LIFECYCLE_DIR = ROOT / "build" / "lifecycle"
+
+
+def rank_batch(docs, idx, seed: int) -> list[str]:
+    """``rank10:`` queries, ``RANK_PER_CELL`` each of 2, 3 and 4 random
+    vocabulary words, from an rng of their own (the mixed batch's stream is
+    not touched)."""
+    from repro_torch.data.queries import sample_traffic
+
+    rng = np.random.default_rng(seed)
+    words = sorted(idx.vocab.token_to_id)
+    return [q for nt in (2, 3, 4)
+            for q in sample_traffic("rank", RANK_PER_CELL, docs, words, rng, n_terms=nt, k=10)]
+
+
+def _differ(queries, got, want) -> list[str]:
+    return [q for q, a, b in zip(queries, got, want) if not np.array_equal(a, np.asarray(b))]
+
+
+def ranked(built: dict, sessions: dict, queries: list[str], device: str,
+           reps: int = 20) -> dict:
+    """The ``rank10:`` batch through the fused and the dense card sessions
+    (the ranked step, counts read around each), held exactly against the
+    host-only session and against the same step on CPU tensors (the same
+    float32 arithmetic); queries/s per session, the step's device ms per
+    call and calls per batch, the rank arrays' bytes."""
+    from repro_torch.serving.engine import RANK_ARRAYS, BatchedServer
+    from repro_torch.serving.plan import RANK
+    from repro_torch.serving.session import Session
+
+    on_gpu = device != "cpu"
+    sync = torch.cuda.synchronize if on_gpu else (lambda: None)
+    host = Session(built["idx"])
+    src = sessions["fused"].server
+    cpu = Session(built["idx"], server=BatchedServer.from_arrays(
+        built["idx"], {k: v.cpu().numpy() for k, v in src.arrays.items()},
+        layout=src.layout, max_phrase=src.max_phrase, n_docs=src.n_docs, device="cpu"))
+    t0 = time.perf_counter()
+    want = host.execute(queries)
+    host_s = time.perf_counter() - t0
+    want_cpu = cpu.execute(queries)
+    require(not _differ(queries, want_cpu, want), f"the ranked step on CPU tensors differs "
+            f"from the host scorer: {_differ(queries, want_cpu, want)[:3]}")
+    out: dict = {"queries": len(queries), "host_queries_per_s": len(queries) / host_s}
+    for name in ("fused", "dense"):
+        sess = sessions[name]
+        srv = sess.server
+        require(RANK in srv.kinds, f"{name}: the server lists no 'rank'")
+        routes = [sess.plan(q).route for q in queries]
+        require(all(r == "device" for r in routes),
+                f"{name}: {routes.count('host')} rank queries routed to the host")
+        steps0, batches0 = srv.ranked_steps, sess.device_batches
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        got = sess.execute(queries)
+        sync()
+        first_s = time.perf_counter() - t0
+        launches = {k: n for k, n in launch_counts().items() if n}
+        calls = srv.ranked_steps - steps0
+        require(calls == sess.device_batches - batches0 and calls > 0,
+                f"{name}: {calls} ranked steps for {sess.device_batches - batches0} batches")
+        bad = _differ(queries, got, want)
+        require(not bad, f"{name}: {len(bad)} rank answers differ from the host "
+                f"session's, first {bad[:3]}")
+        require(not _differ(queries, got, want_cpu), f"{name}: differs from the CPU step")
+        sync()
+        t0 = time.perf_counter()
+        sess.execute(queries)
+        sync()
+        warm_s = time.perf_counter() - t0
+        out[name] = {"queries_per_s": len(queries) / warm_s, "first_pass_s": first_s,
+                     "warm_pass_s": warm_s, "ranked_steps_per_batch": calls,
+                     "launches": launches,
+                     "rank_array_bytes": sum(srv.arrays[k].numel() * srv.arrays[k].element_size()
+                                             for k in RANK_ARRAYS),
+                     "rank_arrays": {k: [list(srv.arrays[k].shape), str(srv.arrays[k].dtype)]
+                                     for k in RANK_ARRAYS},
+                     "device_bytes": srv.device_bytes()}
+    srv = sessions["fused"].server
+    live = int(srv.arrays["rank_run_valid"].sum().item())
+    out["live_slots"] = live
+    out["live_share"] = live / srv.arrays["rank_run_valid"].numel()
+    steps = {}
+    if on_gpu:
+        # the step alone, per width group of the batch: CUDA events around it
+        # with the card kept busy (ms), then split by ab_timing.window_split
+        # into its host side, the call with its outputs' copies, and the
+        # traced device time and kernels a call
+        from repro_torch.kernels.ab_timing import window_split
+        from repro_torch.serving.plan import parse_query, width_bucket
+
+        parsed = [parse_query(q) for q in queries]
+        for width in sorted({width_bucket(len(pq.terms)) for pq in parsed}):
+            qs = [list(dict.fromkeys(pq.terms)) for pq in parsed
+                  if width_bucket(len(pq.terms)) == width]
+            qt, ql, _ = srv.encode(qs, width=width)
+            step = srv._step(RANK, width, topk=10)
+            qt_d, ql_d = torch.from_numpy(qt).cuda(), torch.from_numpy(ql).cuda()
+            with torch.no_grad():
+                ms = time_ms(lambda: step(srv.arrays, qt_d, ql_d), reps)
+            split = window_split(torch, step, srv.arrays, qt, ql, 0, reps)
+            split.pop("answer")
+            steps[f"width {width}"] = {"queries": len(qs), "ms": ms, **split}
+    out["step"] = steps
+    return out
+
+
+def lifecycle(built: dict, sessions: dict, batch: list[tuple[str, str]],
+              rank_queries: list[str], args, device: str) -> dict:
+    """(a) Save the full-size indexes as a bundle and serve it through
+    ``Session.open`` (eager verify, then memory maps); (b) an ``IndexWriter``
+    over the first ``WRITER_DOCS`` documents in ``WRITER_COMMITS`` commits
+    (mining on ``device``), opened segment-aware, held against one-shot
+    builds, then compacted in the background while it serves."""
+    import shutil
+
+    from repro_torch.core.artifact import save_index
+    from repro_torch.core.index import NonPositionalIndex, PositionalIndex
+    from repro_torch.core.writer import IndexWriter
+    from repro_torch.serving.session import Session
+
+    on_gpu = device != "cpu"
+    sync = torch.cuda.synchronize if on_gpu else (lambda: None)
+    probe = "kernel" if on_gpu else "torch"
+    shutil.rmtree(LIFECYCLE_DIR, ignore_errors=True)
+    LIFECYCLE_DIR.mkdir(parents=True)
+    out: dict = {}
+    try:
+        # (a) the full-size indexes, saved and opened
+        queries = [q for _, q in batch] + rank_queries
+        fused = sessions["fused"]
+        want = fused.execute(queries)
+        bundle = LIFECYCLE_DIR / "bundle"
+        t0 = time.perf_counter()
+        save_index(built["idx"], bundle / "nonpositional")
+        save_index(built["pidx"], bundle / "positional")
+        out["save_s"] = time.perf_counter() - t0
+        out["bundle_bytes"] = sum(p.stat().st_size for p in bundle.rglob("*") if p.is_file())
+        for mode, kw in (("eager", {}), ("mmap", {"mmap": True})):
+            t0 = time.perf_counter()
+            sess = Session.open(bundle, device=device, probe=probe, **kw)
+            sync()
+            open_s = time.perf_counter() - t0
+            pairs = (("nonpositional", sess.server, fused.server),
+                     ("positional", sess.positional_server, fused.positional_server))
+            for which, srv, mem in pairs:
+                require(srv.layout == "fused" and srv.probe == probe,
+                        f"opened {mode}: {which} server is {srv.layout} / {srv.probe}")
+                require(srv.device_bytes() == mem.device_bytes(),
+                        f"opened {mode}: {which} device_bytes() {srv.device_bytes()} != "
+                        f"{mem.device_bytes()} in memory")
+                require(set(srv.arrays) == set(mem.arrays) and all(
+                    torch.equal(srv.arrays[k], mem.arrays[k]) for k in mem.arrays),
+                    f"opened {mode}: {which} server arrays differ from the in-memory ones")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got = sess.execute(queries)
+            sync()
+            first_s = time.perf_counter() - t0
+            launches = launch_counts()
+            windows = sess.server.windows_swept + sess.positional_server.windows_swept
+            bad = _differ(queries, got, want)
+            require(not bad, f"opened {mode}: {len(bad)} answers differ from the in-memory "
+                    f"fused session's, first {bad[:3]}")
+            if on_gpu:
+                require(all(launches[k] == windows for k in SERVE_KERNELS),
+                        f"opened {mode}: {windows} windows swept but launched "
+                        f"{ {k: launches[k] for k in SERVE_KERNELS} }")
+                require(all(launches[k] == 0 for k in ROW_GIVEN_KERNELS),
+                        f"opened {mode}: a row-given kernel was launched: {launches}")
+            out[f"open_{mode}"] = {
+                "open_s": open_s, "first_answer_s": first_s,
+                "queries": len(queries), "answers_equal_in_memory": True,
+                "windows_swept": windows, "ranked_steps": sess.server.ranked_steps,
+                "launches": {k: n for k, n in launches.items() if n},
+                "device_bytes": {"nonpositional": sess.server.device_bytes(),
+                                 "positional": sess.positional_server.device_bytes()}}
+            del sess, got
+        del want
+
+        # (b) a writer over the first WRITER_DOCS documents
+        docs = built["docs"][:WRITER_DOCS]
+        wdir = LIFECYCLE_DIR / "writer"
+        writer = IndexWriter(wdir, store="repair_skip", positional=True,
+                             mine_similarity=True, device=device)
+        commit_s = []
+        reset_launch_counts()
+        step = WRITER_DOCS // WRITER_COMMITS
+        for lo in range(0, WRITER_DOCS, step):
+            t0 = time.perf_counter()
+            writer.add_documents(docs[lo:lo + step])
+            writer.commit()
+            sync()
+            commit_s.append(time.perf_counter() - t0)
+        commit_launches = launch_counts()
+        require(len(writer.segments) == WRITER_COMMITS, f"{len(writer.segments)} segments")
+        if on_gpu:
+            require(commit_launches["minhash_rows"] >= WRITER_COMMITS,
+                    f"the commits launched minhash_rows {commit_launches['minhash_rows']} "
+                    f"times for {WRITER_COMMITS} mined segments")
+        t0 = time.perf_counter()
+        one_np = NonPositionalIndex.build(docs, store="repair_skip", mine_similarity=True,
+                                          device=device)
+        one_pos = PositionalIndex.build(docs, store="repair_skip")
+        one_shot_build_s = time.perf_counter() - t0
+        rng = np.random.default_rng(args.seed + 2)
+        wbatch = make_batch(docs, one_np, rng, args.per_cell) \
+            + [("rank", q) for q in rank_batch(docs, one_np, args.seed + 3)]
+        wq = [q for _, q in wbatch]
+        # similar: / versions-of: hash segment-local term ids: a segmented
+        # collection answers them per segment, so they are compared with the
+        # host-only session over the same segments, the rest with one-shot builds
+        seg_local = [k in ("similar", "versions") for k, _ in wbatch]
+        t0 = time.perf_counter()
+        seg = Session.open(wdir, device=device, probe=probe)
+        sync()
+        open_s = time.perf_counter() - t0
+        seg_host = Session.open(wdir, device=device, attach=False)
+        one_card = Session.build(one_np, positional=one_pos, device=device, probe=probe)
+        one_host = Session(one_np, positional=one_pos)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = seg.execute(wq)
+        sync()
+        first_s = time.perf_counter() - t0
+        seg_launches = launch_counts()
+        windows = sum(s.session.server.windows_swept + s.session.positional_server.windows_swept
+                      for s in seg._segments)
+        if on_gpu:
+            require(all(seg_launches[k] == windows for k in SERVE_KERNELS),
+                    f"segmented: {windows} windows swept but launched "
+                    f"{ {k: seg_launches[k] for k in SERVE_KERNELS} }")
+        want_seg = seg_host.execute(wq)
+        want_card, want_host = one_card.execute(wq), one_host.execute(wq)
+        terms = [i for i, local in enumerate(seg_local) if not local]
+        bad = ([wq[i] for i in range(len(wq)) if not np.array_equal(got[i], want_seg[i])]
+               + [wq[i] for i in terms if not (np.array_equal(got[i], want_host[i])
+                                              and np.array_equal(got[i], want_card[i]))])
+        require(not bad, f"segmented: {len(bad)} answers differ, first {bad[:3]}")
+        # compaction in the background while the session serves
+        fired = []
+        seg.add_refresh_hook(lambda old, new, added: fired.append((old, new, added is None)))
+        t0 = time.perf_counter()
+        handle = writer.compact_async()
+        served_during = 0
+        while not handle.done:
+            during = seg.execute(wq)
+            served_during += 1
+            bad = _differ(wq, during, got)
+            require(not bad, f"answers changed while compacting: {bad[:3]}")
+        handle.wait()
+        compact_s = time.perf_counter() - t0
+        opened = seg.refresh()
+        require(opened >= 1 and len(fired) == 1 and fired[0][1] == (1,),
+                f"refresh after the swap opened {opened} segments, hooks {fired}")
+        after = seg.execute(wq)
+        after_host = Session.open(wdir, device=device, attach=False).execute(wq)
+        bad = [wq[i] for i in terms if not np.array_equal(after[i], got[i])]
+        bad += _differ(wq, after, after_host)
+        require(not bad, f"answers after the compaction differ: {bad[:3]}")
+        changed_local = sum(not np.array_equal(after[i], got[i])
+                            for i, local in enumerate(seg_local) if local)
+        out["writer"] = {
+            "documents": WRITER_DOCS, "commits": WRITER_COMMITS,
+            "commit_s": commit_s, "commit_launches": {k: n for k, n in commit_launches.items()
+                                                      if n},
+            "one_shot_build_s": one_shot_build_s, "open_s": open_s,
+            "first_answer_s": first_s, "queries": len(wq),
+            "kinds": {k: [x for x, _ in wbatch].count(k) for k in sorted({x for x, _ in wbatch})},
+            "compared_with_one_shot": len(terms),
+            "compared_with_segmented_host": len(wq),
+            "windows_swept": windows,
+            "launches": {k: n for k, n in seg_launches.items() if n},
+            "compaction_s": compact_s, "batches_served_during_compaction": served_during,
+            "refresh_opened": opened, "hook_calls": len(fired),
+            "segment_local_answers_changed_by_compaction": changed_local}
+    finally:
+        shutil.rmtree(LIFECYCLE_DIR, ignore_errors=True)
+    return out
 
 
 def build_sessions(built: dict, device: str, probe: str | None) -> tuple[dict, dict]:
@@ -3198,6 +3507,18 @@ def main() -> int:
     del sig_calls, rlz_calls
     result = serve(built, sessions, batch, "cuda", args.reps)
     emit("serve", card=card, collection=built["info"], session_build_s=session_s, **result)
+
+    # rank10: on the card (the ranked step), then the index lifecycle: the
+    # full-size indexes saved and opened, a writer's segments served and compacted
+    t0 = time.perf_counter()
+    rank_queries = rank_batch(built["docs"], built["idx"], args.seed + 1)
+    emit("ranked", card=card, **ranked(built, sessions, rank_queries, "cuda", args.reps))
+    t1 = time.perf_counter()
+    life = lifecycle(built, sessions, batch, rank_queries, args, "cuda")
+    t2 = time.perf_counter()
+    emit("lifecycle", card=card, ranked_phase_s=t1 - t0, lifecycle_phase_s=t2 - t1,
+         writer_reduction=f"{WRITER_DOCS} of the {len(built['docs'])} documents: the Python "
+                          f"Re-Pair build bounds it", **life)
     del sessions
     torch.cuda.empty_cache()
 

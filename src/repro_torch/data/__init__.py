@@ -1,6 +1,7 @@
 """Seeded collection and query-traffic generators (NumPy, host side)."""
 
 from .collection import VersionedCollection, generate_collection
+from .synthetic import SyntheticSpec, ingest_stream, stream_collection
 from .text import STOPWORDS, Vocabulary, detokenize, tokenize
 
 __all__ = [
@@ -10,4 +11,7 @@ __all__ = [
     "STOPWORDS",
     "VersionedCollection",
     "generate_collection",
+    "SyntheticSpec",
+    "ingest_stream",
+    "stream_collection",
 ]

@@ -1,4 +1,5 @@
-"""Batched device serving: the device steps and the windowed-exact host loop.
+"""Batched device serving: the device steps, the windowed-exact host loop,
+and the legacy engine shims.
 
 The serving stack is plan-first:
 
@@ -6,8 +7,11 @@ The serving stack is plan-first:
   physical plan (`route_query` / `compile_query` / EXPLAIN rendering).
 * ``serving.session.Session`` — the entry point: plan-cached,
   shape-grouped `execute`, plus `explain` and `metrics`.
-* this module — the device-side batched steps (:func:`make_serve_step`) and
-  the windowed-exact host loop around them (:class:`BatchedServer`).
+* this module — the device-side batched steps (:func:`make_serve_step`,
+  the BM25 step :func:`make_ranked_step`), the windowed-exact host loop
+  around them (:class:`BatchedServer`), and thin **deprecation shims**
+  (:class:`QueryEngine`, :class:`QueryPlanner`) that keep the old per-kind
+  call sites working.
 
 Device-step geometry: padded (batch, width) term-id matrices; each step
 generates candidates from the query's first list (dense expand rows, or rows
@@ -18,7 +22,9 @@ must hold ``position + t``.  Candidate generation is **windowed**: the host
 loop sweeps ``row_start`` over the driving list's C-entries so arbitrarily
 long lists are served exactly.  Ranked top-k computes idf-proxy weights on
 device and reduces with a stable descending sort; document listing maps
-matches to doc ids and dedups on device with a running maximum.
+matches to doc ids and dedups on device with a running maximum.  BM25
+``rank<k>:`` scores the whole collection in one step: each term's padded
+(doc, tf) run row scatter-adds into a dense (batch, n_docs) matrix.
 
 Everything runs on the server's ``device``: ``"cuda"`` unless the caller asks
 for ``"cpu"``.  ``probe="kernel"`` routes the probes (and the fused decode)
@@ -28,6 +34,7 @@ same step in plain tensor code.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -42,16 +49,147 @@ from ..core.anchors import (
     member_batch_compressed,
 )
 from ..core.device import resolve_device
+from ..core.doclist import BM25_B, BM25_K1, bm25_idf
 from ..core.index import NonPositionalIndex, PositionalIndex
 from ..core.registry import CAP_DEVICE_RESIDENT, capabilities_of
-from .plan import (
+from .plan import (  # noqa: F401  (re-exported: the legacy import surface)
     AND,
+    DOCS,
+    DOCS_TOPK,
     MAX_CAND_ROWS,
     PHRASE,
+    RANK,
     SERVER_KINDS,
+    TOPK,
+    WORD,
+    ParsedQuery,
+    parse_query,
+    route_query,
+    width_bucket,
 )
+from .session import Session
 
 PROBES = ("kernel", "torch")
+
+
+@dataclass(frozen=True)
+class QueryPlan:
+    """Legacy plan record (the pre-IR surface): see ``serving.plan.Route``
+    and ``Session.explain`` for the first-class replacement."""
+
+    query: ParsedQuery
+    index: str  # "nonpositional" | "positional"
+    route: str  # "host" | "device"
+    strategy: str  # host physical operator or device step name
+
+
+class QueryPlanner:
+    """Deprecated routing shim: ``plan`` wraps the plan compiler's
+    :func:`repro_torch.serving.plan.route_query` decision into the legacy
+    :class:`QueryPlan` record.  Use ``Session.explain`` / ``Session.plan``."""
+
+    def __init__(self, engine: "QueryEngine"):
+        self.engine = engine
+
+    def plan(self, q, prefer_device: bool = True) -> QueryPlan:
+        pq = parse_query(q)
+        rt = route_query(self.engine, pq, prefer_device=prefer_device)
+        return QueryPlan(pq, rt.index, rt.route, rt.strategy)
+
+
+# ----------------------------------------------------------------------
+# legacy host engine (deprecation shim over Session)
+# ----------------------------------------------------------------------
+_DEPRECATION_WARNED = False
+
+
+def _warn_deprecated(method: str) -> None:
+    global _DEPRECATION_WARNED
+    if not _DEPRECATION_WARNED:
+        _DEPRECATION_WARNED = True
+        warnings.warn(
+            f"QueryEngine.{method} (and the other per-kind QueryEngine "
+            f"methods) are deprecated: build a repro_torch.serving.session.Session "
+            f"and go through Session.execute / Session.explain",
+            DeprecationWarning, stacklevel=3)
+
+
+@dataclass
+class QueryEngine:
+    """Deprecated facade: every call delegates to an owned
+    :class:`~repro_torch.serving.session.Session` (``.session``) over the
+    given indexes and servers — the servers, built by the caller, carry the
+    device (``BatchedServer.from_index(..., device=)``); with none the
+    session is host-only.  ``execute`` / ``batch`` stay silent for
+    migration; the per-kind methods emit one ``DeprecationWarning`` per
+    process."""
+
+    # a positional-only engine (index=None) still serves phrase and document
+    # listing queries through the doc-run / grammar structures
+    index: NonPositionalIndex | None
+    positional: PositionalIndex | None = None
+    server: "BatchedServer | None" = None  # device path over `index`
+    positional_server: "BatchedServer | None" = None  # device path over `positional`
+
+    def __post_init__(self):
+        self.session = Session(index=self.index, positional=self.positional,
+                               server=self.server,
+                               positional_server=self.positional_server)
+        self.planner = QueryPlanner(self)
+
+    def __setattr__(self, name, value):
+        # keep the owned Session live: old call sites attach servers (or swap
+        # indexes) after construction, and routes planned under the previous
+        # configuration must not be served from the cache
+        object.__setattr__(self, name, value)
+        if (name in ("index", "positional", "server", "positional_server")
+                and getattr(self, "session", None) is not None):
+            setattr(self.session, name, value)
+            self.session._plan_cache.clear()
+
+    def execute(self, q) -> np.ndarray:
+        """Plan and run one query (a list of words is the legacy AND form)."""
+        return self.session.execute(parse_query(q))
+
+    def batch(self, queries: list) -> list[np.ndarray]:
+        """Serve a mixed batch in original order (see ``Session.execute``)."""
+        return self.session.execute(list(queries))
+
+    def doc_runs(self):
+        return self.session.doc_runs()
+
+    # -- deprecated per-kind surface ------------------------------------
+    def word(self, w: str) -> np.ndarray:
+        _warn_deprecated("word")
+        return self.session._word(w)
+
+    def conjunctive(self, words: list[str]) -> np.ndarray:
+        _warn_deprecated("conjunctive")
+        return self.session._conjunctive(words)
+
+    and_ = conjunctive
+
+    def phrase(self, tokens: list[str]) -> np.ndarray:
+        _warn_deprecated("phrase")
+        return self.session._phrase(tokens)
+
+    def ranked_and(self, words: list[str], k: int = 10) -> np.ndarray:
+        _warn_deprecated("ranked_and")
+        return self.session._ranked_and(words, k=k)
+
+    topk = ranked_and
+
+    def doc_list(self, terms: list[str], phrase: bool = False) -> np.ndarray:
+        _warn_deprecated("doc_list")
+        return self.session._doc_list(terms, phrase=phrase)
+
+    def doc_topk(self, terms: list[str], k: int = 10, phrase: bool = False) -> np.ndarray:
+        _warn_deprecated("doc_topk")
+        return self.session._doc_topk(terms, k=k, phrase=phrase)
+
+
+def _lookup(index, term: str):
+    return index.lookup(term)
 
 
 def resolve_probe(probe: str | None, device: torch.device) -> str:
@@ -339,6 +477,93 @@ def make_serve_step(max_terms: int = 8, mode: str = AND, topk: int = 0,
     return serve
 
 
+def make_ranked_step(max_terms: int = 8, topk: int = 10):
+    """Batched device BM25 top-k over the scoring-run arrays.
+
+    Geometry: per query slot ``t`` the step gathers that term's padded
+    (doc, tf) run row, computes the BM25 contribution against the
+    precomputed per-document length norm, and scatter-adds it into a dense
+    ``(batch, n_docs)`` score matrix, one slot at a time; a stable
+    descending sort then reduces each row (ties → lowest doc id: scores are
+    indexed by doc id, and ``torch.topk`` promises no order among ties).
+    Within one slot each (query, doc) gets at most one nonzero addend — a
+    run holds a doc once and the server deduplicates query terms — and the
+    padding lanes add 0.0 to doc 0, so the scatter (``index_add_`` into the
+    flattened matrix: atomic adds on a GPU) is exact in any order, and the
+    slots add in the reference's order.  A zero score means no query term
+    occurs in the doc — BM25 contributions are strictly positive (log1p
+    idf) — so ``scores > 0`` is the validity mask and padding rows never
+    surface.
+    """
+
+    def serve(index: dict, query_terms: torch.Tensor, query_lens: torch.Tensor,
+              row_start: int = 0):
+        del row_start  # dense scoring has no candidate window to sweep
+        b = query_terms.shape[0]
+        doc_norm = index["rank_doc_norm"]  # (n_docs,) k1*(1-b+b*dl/avgdl)
+        n_docs = doc_norm.shape[0]
+        scores = torch.zeros(b * n_docs, dtype=torch.float32, device=doc_norm.device)
+        row_base = torch.arange(b, device=doc_norm.device)[:, None] * n_docs
+        n_terms = index["rank_idf"].shape[0]
+        for t in range(max_terms):
+            # term ids index the rank arrays: a padded slot holds id 0, a
+            # real row whose lanes `live` masks out; the clamp is the
+            # reference's gather semantics (an out-of-range id reads the
+            # last row there, and never reads past the table here)
+            term = query_terms[:, t].long().clamp(0, n_terms - 1)
+            docs = index["rank_run_docs"][term].long()  # (B, Lmax)
+            tfs = index["rank_run_tfs"][term]
+            live = index["rank_run_valid"][term] & (t < query_lens)[:, None]
+            contrib = (index["rank_idf"][term][:, None] * tfs * (BM25_K1 + 1.0)
+                       / (tfs + doc_norm[docs]))
+            scores.index_add_(0, (row_base + docs).reshape(-1),
+                              torch.where(live, contrib, torch.zeros_like(contrib)).reshape(-1))
+        order = torch.sort(scores.view(b, n_docs), dim=1, descending=True, stable=True)
+        top_scores = order.values[:, :topk]
+        top_docs = order.indices[:, :topk].to(torch.int32)
+        return top_docs, top_scores, top_scores > 0.0
+
+    return serve
+
+
+def make_uihrdc_serve_step(max_terms: int = 8):
+    """The AND-only step of the ``uihrdc`` dry-run arch (kept as an entry
+    point; see :func:`make_serve_step` for phrase/top-k)."""
+    return make_serve_step(max_terms=max_terms, mode=AND)
+
+
+#: the ranked step's arrays and their dtypes (the reference's)
+RANK_ARRAYS = {"rank_run_docs": np.int32, "rank_run_tfs": np.float32,
+               "rank_run_valid": bool, "rank_doc_norm": np.float32,
+               "rank_idf": np.float32}
+
+
+def rank_arrays(index: NonPositionalIndex, device) -> dict[str, torch.Tensor]:
+    """The scoring runs of ``index`` as the padded dense arrays the ranked
+    step reads: a row per term, one (doc, tf) slot per posting, with the
+    per-document length norm and the per-term idf — int32 / float32 / bool
+    as in the reference, each copied onto ``device`` from a fresh array."""
+    scoring = index.scoring
+    n_lists = len(scoring.max_tf)
+    n_docs = scoring.n_docs
+    offsets = np.asarray(scoring.run_offsets, dtype=np.int64)
+    lens = np.diff(offsets)
+    lmax = max(1, int(lens.max()) if n_lists else 1)
+    rows = np.repeat(np.arange(n_lists), lens)
+    cols = np.arange(int(offsets[-1]) if n_lists else 0) - np.repeat(offsets[:-1], lens)
+    out = {k: np.zeros((n_lists, lmax), RANK_ARRAYS[k])
+           for k in ("rank_run_docs", "rank_run_tfs", "rank_run_valid")}
+    out["rank_run_docs"][rows, cols] = scoring.run_docs
+    out["rank_run_tfs"][rows, cols] = scoring.run_tfs
+    out["rank_run_valid"][rows, cols] = True
+    dl = scoring.doc_lengths.astype(np.float32)
+    avgdl = max(scoring.avgdl, 1e-9)
+    out["rank_doc_norm"] = BM25_K1 * (1.0 - BM25_B + BM25_B * dl / avgdl)
+    out["rank_idf"] = np.asarray([bm25_idf(int(ell), n_docs) for ell in lens]).reshape(n_lists)
+    return {k: torch.as_tensor(np.asarray(v, RANK_ARRAYS[k]), device=device)
+            for k, v in out.items()}
+
+
 # ----------------------------------------------------------------------
 # BatchedServer: windowed-exact host loop around the device steps
 # ----------------------------------------------------------------------
@@ -361,11 +586,12 @@ class BatchedServer:
     layout: str = "dense"  # "dense" (expand tables) | "fused" (decode-on-device)
     max_phrase: int = 0  # fused layout's static decode bound (longest rule)
     #: device-step kinds this server can run (Session routes through this);
-    #: no "rank": BM25 queries run on the host scorer
+    #: "rank" where the index carries scoring statistics
     kinds: frozenset = SERVER_KINDS
     _steps: dict = field(default_factory=dict)
     trace_events: int = 0
-    windows_swept: int = 0  # device steps run (one per window per batch)
+    windows_swept: int = 0  # window steps run (one per window per batch)
+    ranked_steps: int = 0  # BM25 steps run (one per rank batch: no windows)
     # host-side copies of the immutable planning arrays, so encode /
     # window counting never does a device->host transfer per batch
     _lengths_np: np.ndarray | None = None
@@ -377,8 +603,8 @@ class BatchedServer:
         if self._c_offsets_np is None:
             self._c_offsets_np = self.arrays["c_offsets"].cpu().numpy()
 
-    #: posting-layout array names (device-memory accounting; doc_starts is a
-    #: layout-independent extra)
+    #: posting-layout array names (device-memory accounting; rank_* and
+    #: doc_starts are layout-independent extras)
     _LAYOUT_ARRAYS = {
         "dense": ("anchors", "c_offsets", "expand", "expand_valid", "lengths"),
         "fused": ("anchors", "c_offsets", "c_ptr", "c_len", "pool", "lengths"),
@@ -424,9 +650,16 @@ class BatchedServer:
             # device-side position -> document mapping for doc listing
             arrays["doc_starts"] = torch.from_numpy(
                 np.asarray(index.doc_starts).astype(np.int32)).to(dev)
+        kinds = SERVER_KINDS
+        if (isinstance(index, NonPositionalIndex)
+                and getattr(index, "scoring", None) is not None):
+            # scoring runs as padded dense matrices: the device ranked step
+            # gathers rows, scatter-adds BM25 contributions, reduces per row
+            arrays.update(rank_arrays(index, dev))
+            kinds = SERVER_KINDS | {RANK}
         return cls(host_index=index, arrays=arrays,
                    n_docs=float(index.universe_size), probe=probe,
-                   layout=layout, max_phrase=max_phrase)
+                   layout=layout, max_phrase=max_phrase, kinds=kinds)
 
     @classmethod
     def from_arrays(cls, host_index, arrays: dict, layout: str, max_phrase: int = 0,
@@ -434,7 +667,8 @@ class BatchedServer:
                     probe: str | None = None) -> "BatchedServer":
         """A server over device state carried across as NumPy arrays (keys
         as in ``_LAYOUT_ARRAYS[layout]``, plus ``doc_starts`` for a
-        positional index; any other key is ignored)."""
+        positional index and the ``rank_*`` arrays where the source server
+        had them; any other key is ignored)."""
         dev = resolve_device(device)
         probe = resolve_probe(probe, dev)
         if layout not in cls._LAYOUT_ARRAYS:
@@ -446,10 +680,16 @@ class BatchedServer:
             a = np.asarray(arrays[k])
             a = a.astype(bool if k == "expand_valid" else np.int32)
             tensors[k] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        kinds = SERVER_KINDS
+        if all(k in arrays for k in RANK_ARRAYS):
+            for k, dtype in RANK_ARRAYS.items():
+                tensors[k] = torch.as_tensor(np.array(arrays[k], dtype=dtype), device=dev)
+            kinds = SERVER_KINDS | {RANK}
         if n_docs is None:
             n_docs = float(host_index.universe_size)
         return cls(host_index=host_index, arrays=tensors, n_docs=float(n_docs),
-                   probe=probe, layout=layout, max_phrase=int(max_phrase))
+                   probe=probe, layout=layout, max_phrase=int(max_phrase),
+                   kinds=kinds)
 
     @property
     def device(self) -> torch.device:
@@ -481,11 +721,14 @@ class BatchedServer:
         key = (kind, width, topk, doclist)
         if key not in self._steps:
             self.trace_events += 1  # a step-cache miss: a new traffic shape
-            mode = PHRASE if kind == PHRASE else AND
-            self._steps[key] = make_serve_step(
-                max_terms=width, mode=mode, topk=topk, n_docs=self.n_docs,
-                probe=self.probe, doclist=doclist, layout=self.layout,
-                max_phrase=self.max_phrase)
+            if kind == RANK:
+                self._steps[key] = make_ranked_step(max_terms=width, topk=topk)
+            else:
+                mode = PHRASE if kind == PHRASE else AND
+                self._steps[key] = make_serve_step(
+                    max_terms=width, mode=mode, topk=topk, n_docs=self.n_docs,
+                    probe=self.probe, doclist=doclist, layout=self.layout,
+                    max_phrase=self.max_phrase)
         return self._steps[key]
 
     def _n_windows(self, qt: np.ndarray, ok: np.ndarray) -> int:
@@ -566,3 +809,30 @@ class BatchedServer:
         empty = np.zeros(0, np.int64)
         return [np.concatenate(g)[:k].astype(np.int64) if (o and g) else empty
                 for g, o in zip(got, ok)]
+
+    def ranked(self, queries: list[list[str]], k: int = 10,
+               width: int | None = None) -> list[np.ndarray]:
+        """Batched BM25 ranked disjunction: top-``k`` doc ids per query,
+        scored and reduced on device (see :func:`make_ranked_step`).  One
+        step covers the whole collection — dense scoring has no candidate
+        window — so a warmed (width, k) shape builds no new step."""
+        if "rank_doc_norm" not in self.arrays:
+            raise ValueError(
+                f"this server holds no scoring arrays "
+                f"({self.host_index.store_name!r}): rebuild the index with "
+                f"scoring statistics to serve rank queries on device")
+        # duplicate query terms would scatter-add twice; the host scorer
+        # dedups, so dedup here for identical answers
+        queries = [list(dict.fromkeys(q)) for q in queries]
+        qt, ql, ok = self.encode(queries, width=width)
+        eff_k = min(int(k), int(self.arrays["rank_doc_norm"].shape[0]))
+        step = self._step(RANK, qt.shape[1], topk=eff_k)
+        dev = self.device
+        with torch.no_grad():
+            docs, _scores, valid = step(self.arrays, torch.from_numpy(qt).to(dev),
+                                        torch.from_numpy(ql).to(dev))
+        self.ranked_steps += 1
+        docs, valid = docs.cpu().numpy(), valid.cpu().numpy()
+        empty = np.zeros(0, np.int64)
+        return [docs[i][valid[i]].astype(np.int64) if ok[i] else empty
+                for i in range(len(queries))]

@@ -30,17 +30,29 @@ session: the paper's sequential algorithms, independent of the device steps.
 ``similar:`` / ``versions-of:`` answer from the similarity index that
 ``NonPositionalIndex.build(..., mine_similarity=True)`` mined.
 
-**Not in this package yet.** :meth:`Session.open` / :meth:`Session.refresh`
-(persisted artifacts, segmented collections) raise ``NotImplementedError``
-naming the ROADMAP queue that ports them.
+**Persistence + segments.** :meth:`Session.open` serves a persisted
+artifact instead of rebuilding: a single-index artifact directory
+(``repro_torch.core.artifact``) opens into a plain session; an
+:class:`~repro_torch.core.writer.IndexWriter` directory opens
+**segment-aware** — one child session per immutable segment, every query
+kind executed on each segment and merged on the recorded doc-id / token
+offsets (top-k via per-segment k then global re-rank; doc listing via
+offset-shifted per-segment dedup).  Plan-cache keys extend with the segment
+shape, so a repeated traffic mix on a segmented collection still reports
+zero re-plans and builds no new device step; :meth:`refresh` picks up
+segments committed by a live writer without a restart.  Artifacts and
+writer directories are the reference's format byte for byte, so either
+package opens what the other wrote.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
+from ..core.artifact import MANIFEST_NAME, ArtifactError, open_index
 from ..core.doclist import (
     BM25_B,
     BM25_K1,
@@ -53,6 +65,7 @@ from ..core.doclist import (
     rank_docs,
 )
 from ..core.index import NonPositionalIndex, PositionalIndex
+from ..core.writer import IndexWriter, is_writer_dir
 from .plan import (
     AND,
     DOCS,
@@ -71,9 +84,20 @@ from .plan import (
     explain_text,
     parse_query,
     plan_key,
+    result_cache_key,
     route_query,
     unparse,
 )
+
+
+@dataclass
+class _Segment:
+    """One opened immutable segment: its child session + global offsets."""
+
+    session: "Session"
+    name: str
+    doc_base: int
+    token_base: int
 
 
 @dataclass
@@ -88,6 +112,12 @@ class Session:
     def __post_init__(self):
         self._plan_cache: dict[tuple, Route] = {}
         self._doc_run_index: DocRunIndex | None = None
+        self._segments: list[_Segment] = []
+        self._source_path: Path | None = None
+        self._open_kw: dict = {}
+        self._storage_kw: dict = {}
+        self._refresh_hooks: list = []
+        self.data_version = 0
         self.plans_compiled = 0
         self.plan_cache_hits = 0
         self.queries_executed = 0
@@ -133,21 +163,141 @@ class Session:
 
     # -- persisted artifacts / segmented collections --------------------
     @classmethod
-    def open(cls, path, **kw) -> "Session":
-        """Serve a persisted index instead of rebuilding — not in this
-        package yet."""
-        raise NotImplementedError(
-            "Session.open needs core/artifact and core/writer, which this "
-            "package does not hold yet: ROADMAP.md, Queue A (artifact / "
-            "storage / writer + Session.open/refresh)")
+    def open(cls, path, device="cuda", attach: bool = True,
+             probe: str | None = None, expand_len: int = 32,
+             layout: str = "auto", mmap: bool = False,
+             verify: str | None = None) -> "Session":
+        """Serve a persisted index instead of rebuilding.
+
+        ``path`` is either one artifact directory (``manifest.json``), a
+        segment bundle (``nonpositional/`` / ``positional/`` artifact
+        subdirectories), or an :class:`~repro_torch.core.writer.IndexWriter`
+        directory — the latter opens segment-aware: one child session per
+        segment, answers merged on the manifest's doc/token offsets.
+
+        ``device``, ``attach``, ``probe``, ``expand_len`` and ``layout`` are
+        :meth:`build`'s (servers on the GPU unless the caller asks for
+        ``"cpu"``; without a GPU the default raises); ``device`` is also
+        where an ``rlz`` store is restored.  ``mmap=True`` is the scale
+        path: array blobs open as read-only memory maps and eligible
+        backends serve the persisted layout in place (see
+        :func:`repro_torch.core.artifact.open_index`); a server copies what
+        it needs onto its device.  ``verify`` sets the checksum policy
+        (``"eager"`` / ``"lazy"`` / ``"off"``; default eager, lazy under
+        mmap).  All of them persist across :meth:`refresh` — segments
+        opened later inherit the same arguments.
+        """
+        p = Path(path)
+        open_kw = dict(device=device, attach=attach, probe=probe,
+                       expand_len=expand_len, layout=layout)
+        storage_kw = dict(mmap=mmap, verify=verify)
+        if is_writer_dir(p):
+            sess = cls()
+            sess._source_path = p
+            sess._open_kw = open_kw
+            sess._storage_kw = storage_kw
+            if sess.refresh() == 0:
+                raise ArtifactError(
+                    f"writer at {p} has no committed segments — "
+                    f"add_documents + commit before serving it")
+            return sess
+        if (p / MANIFEST_NAME).is_file():
+            ix = open_index(p, **storage_kw, device=device)
+            if isinstance(ix, PositionalIndex):
+                return cls.build(None, positional=ix, **open_kw)
+            return cls.build(ix, **open_kw)
+        npdir, posdir = p / "nonpositional", p / "positional"
+        if npdir.is_dir() or posdir.is_dir():
+            return cls.build(
+                open_index(npdir, **storage_kw, device=device)
+                if npdir.is_dir() else None,
+                positional=(open_index(posdir, **storage_kw, device=device)
+                            if posdir.is_dir() else None),
+                **open_kw)
+        raise ArtifactError(
+            f"nothing to open at {p}: expected an index artifact "
+            f"({MANIFEST_NAME}), a segment bundle, or a writer directory")
 
     def refresh(self) -> int:
-        """Pick up segments committed by a live writer — not in this
-        package yet."""
-        raise NotImplementedError(
-            "Session.refresh needs core/writer, which this package does not "
-            "hold yet: ROADMAP.md, Queue A (artifact / storage / writer + "
-            "Session.open/refresh)")
+        """Re-read the writer manifest and open segments committed since
+        (a compaction replaces the whole set).  Returns the number of
+        newly opened segments; open sessions for untouched segments — and
+        their plan caches / device steps — are reused.
+
+        The visible segment list is replaced atomically (never mutated in
+        place), so an :meth:`execute` racing a refresh from another thread
+        answers against exactly one snapshot — pre- or post-refresh,
+        never a mix."""
+        if self._source_path is None:
+            raise ValueError("refresh() requires a session opened from a "
+                             "writer directory (Session.open)")
+        writer = IndexWriter.open(self._source_path, device=self._open_kw["device"])
+        old_names = [s.name for s in self._segments]
+        old_shape = self.segment_shape
+        current = {s.name: s for s in self._segments}
+        live = [m.name for m in writer.segments]
+        append_only = old_names == live[:len(old_names)]
+        if not append_only:
+            current = {}  # compacted / rewritten: reopen everything
+        fresh: list[_Segment] = []
+        opened = 0
+        for meta in writer.segments:
+            seg = current.get(meta.name)
+            if seg is None:
+                np_idx, pos_idx = writer.open_segment(meta,
+                                                      **self._storage_kw)
+                seg = _Segment(
+                    session=Session.build(np_idx, positional=pos_idx,
+                                          **self._open_kw),
+                    name=meta.name, doc_base=meta.doc_base,
+                    token_base=meta.token_base)
+                opened += 1
+            fresh.append(seg)
+        self._segments = fresh
+        if old_names != [s.name for s in fresh]:
+            # the visible data changed: bump the version and tell listeners
+            # what happened — the appended child sessions when the change was
+            # append-only, None for a rewrite
+            self.data_version += 1
+            added = ([s.session for s in fresh[len(old_names):]]
+                     if append_only else None)
+            for hook in self._refresh_hooks:
+                hook(old_shape, self.segment_shape, added)
+        return opened
+
+    def add_refresh_hook(self, hook) -> None:
+        """Register ``hook(old_shape, new_shape, added_sessions | None)`` to
+        run whenever :meth:`refresh` changes the visible segment set —
+        ``added_sessions`` lists the child sessions of appended segments, or
+        is ``None`` when the set was rewritten (compaction).  A result cache
+        in front of the session uses this to invalidate exactly the
+        affected entries."""
+        self._refresh_hooks.append(hook)
+
+    def result_key(self, pq) -> tuple:
+        """Cache key under which ``pq``'s *answer* may be memoized:
+        (plan structure, concrete terms, segment shape) — see
+        :func:`repro_torch.serving.plan.result_cache_key`.  The segment-shape
+        component means an answer computed against one committed segment
+        set is never served against another."""
+        pq = self._parse(pq)
+        ctx = self._segments[0].session if self._segments else self
+        return result_cache_key(ctx, pq) + (self.segment_shape,)
+
+    @property
+    def segment_shape(self) -> tuple:
+        """Shape component of segmented plan-cache keys (empty for plain
+        sessions, so single-index keys are unchanged)."""
+        return (len(self._segments),) if self._segments else ()
+
+    @property
+    def primary_index(self) -> NonPositionalIndex | None:
+        """The non-positional index behind this session (the first
+        segment's for segmented sessions) — vocabulary / stats access for
+        drivers that sample traffic."""
+        if self._segments:
+            return self._segments[0].session.index
+        return self.index
 
     @property
     def analyzer(self):
@@ -155,7 +305,8 @@ class Session:
         (None when the session has no such index).  Ranked queries are
         analyzed with this chain before planning, so query terms match the
         index terms exactly."""
-        return None if self.index is None else self.index.analyzer
+        ix = self.primary_index
+        return None if ix is None else ix.analyzer
 
     def _parse(self, q) -> ParsedQuery:
         """Parse ``q`` with the session's analyzer applied to ranked
@@ -177,14 +328,18 @@ class Session:
 
     # -- planning -------------------------------------------------------
     def plan(self, q, prefer_device: bool = True) -> Route:
-        """The (cached) routing decision for one query shape."""
+        """The (cached) routing decision for one query shape.  Segmented
+        sessions route against the first segment's context with the cache
+        key extended by :attr:`segment_shape`, so a commit that changes
+        the segment count re-plans while steady traffic never does."""
         pq = self._parse(q)
+        ctx = self._segments[0].session if self._segments else self
         if not prefer_device:  # off-path (diagnostics): don't pollute the cache
-            return route_query(self, pq, prefer_device=False)
-        key = plan_key(self, pq)
+            return route_query(ctx, pq, prefer_device=False)
+        key = plan_key(ctx, pq) + self.segment_shape
         rt = self._plan_cache.get(key)
         if rt is None:
-            rt = route_query(self, pq)
+            rt = route_query(ctx, pq)
             self._plan_cache[key] = rt
             self.plans_compiled += 1
         else:
@@ -194,32 +349,48 @@ class Session:
     def explain(self, q, fmt: str = "text", extract: int | None = None):
         """The costed physical plan for ``q`` — ``fmt="text"`` (operator
         tree, one node per line) or ``"json"`` (nested dict).  Does not
-        execute the query and does not touch the execution counters."""
+        execute the query and does not touch the execution counters.  On a
+        segmented session the plan shown is the per-segment plan (every
+        segment runs the same shape; answers merge on offsets)."""
         raw = q if isinstance(q, str) else None
-        cq = compile_query(self, self._parse(q), extract=extract)
+        ctx = self._segments[0].session if self._segments else self
+        cq = compile_query(ctx, self._parse(q), extract=extract)
         if fmt == "json":
-            return explain_json(cq, raw=raw)
+            out = explain_json(cq, raw=raw)
+            if self._segments:
+                out["segments"] = len(self._segments)
+            return out
         if fmt != "text":
             raise ValueError(f"unknown explain format {fmt!r}; use 'text' or 'json'")
-        return explain_text(cq, raw=raw)
+        text = explain_text(cq, raw=raw)
+        if self._segments:
+            text = (f"segments: {len(self._segments)} (per-segment plan "
+                    f"below; answers merge on doc/token offsets)\n" + text)
+        return text
 
     # -- metrics --------------------------------------------------------
     @property
     def jit_traces(self) -> int:
-        """Device steps built across the attached servers: each server
-        counts its step-cache misses per (kind, width, k, doclist) shape —
-        the quantity the plan/batch bucketing minimizes.  (PyTorch runs
-        eagerly, so there is no compile to count; the name is the one the
-        metrics surface has always used.)"""
-        return sum(int(getattr(s, "trace_count", 0))
-                   for s in (self.server, self.positional_server) if s is not None)
+        """Device steps built across the attached servers — own and
+        per-segment: each server counts its step-cache misses per (kind,
+        width, k, doclist) shape — the quantity the plan/batch bucketing
+        minimizes.  (PyTorch runs eagerly, so there is no compile to count;
+        the name is the one the metrics surface has always used.)"""
+        own = sum(int(getattr(s, "trace_count", 0))
+                  for s in (self.server, self.positional_server) if s is not None)
+        return own + sum(seg.session.jit_traces for seg in self._segments)
 
     def metrics(self) -> dict:
         compiled, hits = self.plans_compiled, self.plan_cache_hits
+        device_batches = self.device_batches
+        for seg in self._segments:
+            compiled += seg.session.plans_compiled
+            hits += seg.session.plan_cache_hits
+            device_batches += seg.session.device_batches
         total = compiled + hits
         out = {
             "queries_executed": self.queries_executed,
-            "device_batches": self.device_batches,
+            "device_batches": device_batches,
             "plans_compiled": compiled,
             "plan_cache_hits": hits,
             "plan_cache_hit_rate": round(hits / total, 4) if total else 0.0,
@@ -231,11 +402,16 @@ class Session:
             "lists_scored": self.rank_lists_scored,
             "lists_skipped": self.rank_lists_skipped,
         }
+        for seg in self._segments:
+            for key in rank:
+                rank[key] += getattr(seg.session, f"rank_{key}")
         if any(rank.values()):
             scanned = rank["postings_scored"] + rank["postings_skipped"]
             rank["skip_fraction"] = (
                 round(rank["postings_skipped"] / scanned, 4) if scanned else 0.0)
             out["ranked"] = rank
+        if self._segments:
+            out["segments"] = len(self._segments)
         return out
 
     # -- execution ------------------------------------------------------
@@ -245,10 +421,22 @@ class Session:
         the original order).  Device-routed queries are grouped by
         physical-plan shape so each shape runs as one padded device batch
         through one cached step; host-routed queries run through the
-        capability-selected operators."""
+        capability-selected operators.  Segmented sessions run the whole
+        batch on every segment and merge per query kind on the segment
+        offsets."""
         single = isinstance(queries, (str, ParsedQuery))
         batch = [queries] if single else list(queries)
         parsed = [self._parse(q) for q in batch]
+        # snapshot: refresh() replaces (never mutates) the segment list, so
+        # one execute answers against exactly one committed segment set
+        # even when another thread refreshes mid-query
+        segs = self._segments
+        if segs:
+            for pq in parsed:
+                self.plan(pq)  # warm/count the segment-shape route cache
+            self.queries_executed += len(batch)
+            out = self._execute_segmented(parsed, segs)
+            return out[0] if single else out
         routes = [self.plan(pq) for pq in parsed]
         self.queries_executed += len(batch)
         out: list[np.ndarray | None] = [None] * len(batch)
@@ -264,6 +452,8 @@ class Session:
             sub = [list(parsed[i].terms) for i in idxs]
             if kind == TOPK:
                 res = server.topk(sub, k=k or 10, width=width)
+            elif kind == RANK:
+                res = server.ranked(sub, k=k or 10, width=width)
             elif kind == DOCS:
                 res = server.doclist(sub, phrase=phrase, width=width)
             elif kind == PHRASE:
@@ -274,6 +464,92 @@ class Session:
             for i, r in zip(idxs, res):
                 out[i] = r
         return out[0] if single else out
+
+    # -- segment-aware merge (doc ids shift by doc_base, positions by
+    # token_base; a document lives in exactly one segment, so per-doc
+    # scores are complete within their segment and per-segment top-k
+    # followed by a global re-rank is exact) ----------------------------
+    def _execute_segmented(self, parsed: list[ParsedQuery],
+                           segs: list[_Segment]) -> list[np.ndarray]:
+        scored_idx = [i for i, pq in enumerate(parsed)
+                      if pq.kind == DOCS_TOPK]
+        rank_idx = [i for i, pq in enumerate(parsed) if pq.kind == RANK]
+        sim_idx = [i for i, pq in enumerate(parsed)
+                   if pq.kind in (SIMILAR, VERSIONS)]
+        plain_idx = [i for i, pq in enumerate(parsed)
+                     if pq.kind not in (DOCS_TOPK, RANK, SIMILAR, VERSIONS)]
+        per_seg: list[list[np.ndarray]] = [[] for _ in parsed]
+        scores: list[list[np.ndarray]] = [[] for _ in parsed]
+        for i in sim_idx:
+            # version mining is segment-local: the subject doc's segment
+            # answers with local ids, shifted back to global (compaction
+            # re-links clusters across former segment boundaries)
+            per_seg[i].append(self._similar_segmented(parsed[i], segs))
+        gstats = (self._global_rank_stats(
+            {t for i in rank_idx for t in parsed[i].terms}, segs)
+            if rank_idx else None)
+        for seg in segs:
+            child = seg.session
+            if plain_idx:
+                child_out = child.execute([parsed[i] for i in plain_idx])
+                for i, res in zip(plain_idx, child_out):
+                    res = np.asarray(res)
+                    base = (seg.token_base if parsed[i].kind == PHRASE
+                            else seg.doc_base)
+                    per_seg[i].append(res + base if len(res) else res)
+            for i in scored_idx:
+                pq = parsed[i]
+                docs, tf = child._doc_topk_scored(
+                    list(pq.terms), k=pq.k or 10, phrase=pq.phrase)
+                per_seg[i].append(docs + seg.doc_base if len(docs) else docs)
+                scores[i].append(tf)
+            for i in rank_idx:
+                pq = parsed[i]
+                # a doc lives in exactly one segment, so its full BM25 score
+                # is computable within that segment given the global stats;
+                # the union of per-segment top-k therefore covers the
+                # global top-k and the final rank_docs re-cut is exact
+                docs, sc = child._rank_scored(
+                    list(pq.terms), k=pq.k or 10, gstats=gstats)
+                per_seg[i].append(docs + seg.doc_base if len(docs) else docs)
+                scores[i].append(sc)
+        out: list[np.ndarray] = []
+        for i, pq in enumerate(parsed):
+            parts = per_seg[i]
+            merged = (np.concatenate(parts) if parts
+                      else np.zeros(0, dtype=np.int64)).astype(np.int64)
+            if pq.kind == TOPK:
+                merged = merged[: pq.k or 10]  # per-segment prefixes, re-cut
+            elif pq.kind == DOCS_TOPK:
+                tf = (np.concatenate(scores[i]) if scores[i]
+                      else np.zeros(0, dtype=np.int64))
+                merged = rank_docs(merged, tf, pq.k or 10)
+            elif pq.kind == RANK:
+                sc = (np.concatenate(scores[i]) if scores[i]
+                      else np.zeros(0, dtype=np.float64))
+                order = np.argsort(merged, kind="stable")  # rank_docs wants sorted ids
+                merged = rank_docs(merged[order], sc[order], pq.k or 10)
+            out.append(merged)
+        return out
+
+    def _similar_segmented(self, pq: ParsedQuery,
+                           segs: list[_Segment]) -> np.ndarray:
+        """Dispatch ``similar:``/``versions-of:`` to the segment owning the
+        subject doc id (documents live in exactly one segment)."""
+        total = sum(s.session.index.n_docs for s in segs
+                    if s.session.index is not None)
+        for seg in segs:
+            ix = seg.session.index
+            if ix is None:
+                continue
+            if seg.doc_base <= pq.doc < seg.doc_base + ix.n_docs:
+                local = ParsedQuery(pq.kind, (), doc=pq.doc - seg.doc_base)
+                res = seg.session._execute_host(local)
+                return res + seg.doc_base if len(res) else res
+        raise ValueError(
+            f"doc id {pq.doc} in {unparse(pq)!r} is out of range: the "
+            f"collection has {total} documents (valid ids 0..{total - 1}); "
+            f"{GRAMMAR}")
 
     def _doc_topk_scored(self, terms: list[str], k: int = 10,
                          phrase: bool = False) -> tuple[np.ndarray, np.ndarray]:
@@ -380,15 +656,19 @@ class Session:
         docs, _ = self._rank_scored(terms, k=k)
         return docs
 
-    def _rank_scored(self, terms: list[str],
-                     k: int = 10) -> tuple[np.ndarray, np.ndarray]:
+    def _rank_scored(self, terms: list[str], k: int = 10,
+                     gstats: dict | None = None) -> tuple[np.ndarray, np.ndarray]:
         """Top-``k`` docs by BM25 over the OR of ``terms`` with their
         scores, ties broken by lowest doc id.  Unknown terms contribute
         nothing.  With :attr:`rank_pruning` the term lists are visited in
         descending upper-bound order and traversal stops once the summed
         bounds of the remaining lists cannot displace the current k-th
         score (MaxScore) — every visited candidate is still scored against
-        *all* query terms, so pruning never changes the answer."""
+        *all* query terms, so pruning never changes the answer.
+
+        ``gstats`` (segmented serving) overrides the collection statistics
+        — global ``n_docs`` / ``avgdl`` and per-term global ``df`` — so
+        per-segment scores are directly comparable across segments."""
         if self.index is None:
             raise ValueError("rank queries require the nonpositional index")
         scoring = self.index.scoring
@@ -399,7 +679,8 @@ class Session:
                 f"rebuild (or re-save) the index to record doc lengths and "
                 f"term frequencies")
         empty = (np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.float64))
-        n_docs, avgdl = scoring.n_docs, scoring.avgdl
+        n_docs = int(gstats["n_docs"]) if gstats else scoring.n_docs
+        avgdl = float(gstats["avgdl"]) if gstats else scoring.avgdl
         dl = scoring.doc_lengths
         lists = []  # (docs, tfs, idf, upper_bound) per known term
         for t in dict.fromkeys(terms):  # dedup, keep order
@@ -409,7 +690,7 @@ class Session:
             docs_t, tfs_t = scoring.term_runs(tid)
             if len(docs_t) == 0:
                 continue
-            df = len(docs_t)
+            df = int(gstats["df"].get(t, len(docs_t))) if gstats else len(docs_t)
             lists.append((docs_t, tfs_t.astype(np.float64), bm25_idf(df, n_docs),
                           bm25_upper_bound(df, scoring.term_max_tf(tid), n_docs)))
         if not lists:
@@ -456,6 +737,24 @@ class Session:
                 theta = float(np.partition(cscores, len(cscores) - k)[len(cscores) - k])
         top = rank_docs(cands, cscores, k)
         return top, cscores[np.searchsorted(cands, top)]
+
+    def _global_rank_stats(self, terms, segs: list[_Segment]) -> dict:
+        """Collection-wide BM25 statistics across all segments — every
+        segment scores with the same ``n_docs`` / ``avgdl`` / per-term
+        ``df``, so per-segment top-k lists merge exactly."""
+        children = [seg.session.index for seg in segs]
+        n_docs = sum(ix.n_docs for ix in children)
+        total_terms = sum(ix.scoring.total_terms for ix in children
+                          if ix is not None and ix.scoring is not None)
+        df: dict[str, int] = {}
+        for t in terms:
+            df[t] = sum(
+                ix.scoring.df(tid) for ix in children
+                if ix is not None and ix.scoring is not None
+                and (tid := ix.vocab.get(t)) is not None)
+        return {"n_docs": n_docs,
+                "avgdl": total_terms / max(1, n_docs),
+                "df": df}
 
     # -- document listing (the docs: / docs-top<k>: workload) -----------
     def doc_runs(self) -> DocRunIndex:
@@ -512,6 +811,12 @@ class Session:
         pq = parse_query(q)
         if pq.kind not in (WORD, PHRASE):
             raise ValueError(f"extract serves word/phrase queries, not {pq.kind}")
+        segs = self._segments  # snapshot (see execute)
+        if segs:
+            out: list[np.ndarray] = []
+            for seg in segs:  # occurrences in global order
+                out.extend(seg.session.extract(pq, context=context))
+            return out
         if self.positional is None:
             raise ValueError("extract requires a PositionalIndex")
         pos = np.asarray(self.positional.query_phrase(list(pq.terms)))

@@ -59,7 +59,11 @@ def test_module_list_covers_the_slice():
                    "repro_torch.kernels.flash_decode.ref", "repro_torch.models.recsys",
                    *(f"repro_torch.kernels.{k}{m}" for k in (
                        "embedding_bag", "cin_interaction", "moe_gemm")
-                     for m in ("", ".ops", ".ref"))):
+                     for m in ("", ".ops", ".ref")),
+                   "repro_torch.core.artifact", "repro_torch.core.writer",
+                   "repro_torch.core.storage", "repro_torch.core.storage.blobstore",
+                   "repro_torch.core.storage.compaction",
+                   "repro_torch.core.storage.mapped", "repro_torch.data.synthetic"):
         assert needed in MODULES, needed
 
 

@@ -95,9 +95,10 @@ def test_explain_equals_reference(collection, built, store):
 
 
 def test_rank_routes_to_the_host_and_equals_reference(collection, built):
-    """This slice's server advertises no "rank" kind, so ``rank<k>:`` runs
-    on the host scorer, as it does in the reference for a server without
-    scoring arrays; the answers equal the reference's device-ranked ones."""
+    """The server holds the scoring arrays and lists "rank", so ``rank<k>:``
+    routes to the device ranked step, as in the reference; the answers equal
+    the reference's device-ranked ones and the host scorer's.  (The name is
+    kept from when this slice's server had no "rank" kind.)"""
     idx, pidx, ref_idx, ref_pidx = built["repair_skip"]
     port = Session.build(idx, positional=pidx, device="cpu")
     ref = RefSession.build(ref_idx, positional=ref_pidx)
@@ -105,17 +106,15 @@ def test_rank_routes_to_the_host_and_equals_reference(collection, built):
     words = sorted(idx.vocab.token_to_id)
     rng = np.random.default_rng(3)
     qs = sample_traffic("rank", 8, collection.docs, words, rng, n_terms=3, k=4)
-    assert "rank" not in port.server.kinds
+    assert "rank" in port.server.kinds and port.server.kinds == ref.server.kinds
     for q in qs:
-        assert port.plan(q).route == "host"
-        assert port.plan(q).strategy == ref_host.plan(q).strategy
-        assert port.explain(q) == ref_host.explain(q)
+        assert port.plan(q).route == "device" == ref.plan(q).route
+        assert port.plan(q).strategy == ref.plan(q).strategy
+        assert port.explain(q) == ref.explain(q)
         assert np.array_equal(port.execute(q), ref.execute(q)), q
         assert np.array_equal(port.execute(q), ref_host.execute(q)), q
-    m = port.metrics()
-    assert m["ranked"]["postings_scored"] > 0
-    assert m["ranked"] == {k: v for k, v in ref_host.metrics()["ranked"].items()} or \
-        m["ranked"]["lists_scored"] > 0
+    assert port.server.ranked_steps == port.device_batches == 2 * len(qs)
+    assert "ranked" not in port.metrics()  # the host scorer did no work
 
 
 def test_repeated_batch_zero_replans_zero_new_steps(collection, built):
@@ -159,8 +158,17 @@ def test_build_arguments(built):
     assert host.server is None and host.positional_server is None
     cpu = Session.build(idx, positional=pidx, device="cpu")
     assert cpu.server.probe == "torch" and cpu.server.device.type == "cpu"
-    assert all(not t.is_cuda and t.dtype in (torch.int32, torch.bool)
-               for t in cpu.server.arrays.values())
+    layout_keys = cpu.server._LAYOUT_ARRAYS[cpu.server.layout] + ("doc_starts",)
+    for srv in (cpu.server, cpu.positional_server):
+        assert all(not t.is_cuda for t in srv.arrays.values())
+        assert all(srv.arrays[k].dtype in (torch.int32, torch.bool)
+                   for k in layout_keys if k in srv.arrays)
+    # the ranked step's arrays carry the reference's dtypes (float32 among them)
+    assert {k: cpu.server.arrays[k].dtype for k in cpu.server.arrays if k.startswith("rank_")} \
+        == {"rank_run_docs": torch.int32, "rank_run_tfs": torch.float32,
+            "rank_run_valid": torch.bool, "rank_doc_norm": torch.float32,
+            "rank_idf": torch.float32}
+    assert not any(k.startswith("rank_") for k in cpu.positional_server.arrays)
     with pytest.raises(ValueError, match="probe='kernel'"):
         Session.build(idx, device="cpu", probe="kernel")
     if not torch.cuda.is_available():
@@ -169,15 +177,27 @@ def test_build_arguments(built):
 
 
 def test_later_slices_raise_not_implemented(built, tmp_path):
-    """Artifacts and segments are a later slice; ``similar:`` /
-    ``versions-of:`` came with version mining and, over an index built
-    without it, raise the reference's ``ValueError``."""
+    """``Session.open`` / ``refresh`` raise the reference's errors: an
+    ``ArtifactError`` for a path with nothing to open, a ``ValueError`` for
+    ``refresh`` on a session not opened from a writer.  ``similar:`` /
+    ``versions-of:`` over an index built without mining raise the
+    reference's ``ValueError``.  (The name is kept from when open / refresh
+    raised ``NotImplementedError``.)"""
+    from repro.core.artifact import ArtifactError as RefArtifactError
+    from repro_torch.core.artifact import ArtifactError
+
     idx, pidx, ref_idx, ref_pidx = built["repair_skip"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Session.open(tmp_path)
+    with pytest.raises(ArtifactError, match="nothing to open") as got:
+        Session.open(tmp_path, device="cpu")
+    with pytest.raises(RefArtifactError) as want:
+        RefSession.open(tmp_path, device=False)
+    assert str(got.value) == str(want.value)
     sess = Session(idx, positional=pidx)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="writer directory") as got:
         sess.refresh()
+    with pytest.raises(ValueError) as want:
+        RefSession(ref_idx, positional=ref_pidx).refresh()
+    assert str(got.value) == str(want.value)
     ref = RefSession(ref_idx, positional=ref_pidx)
     for q in ("similar:0", "versions-of:1"):
         with pytest.raises(ValueError, match="mine_similarity=True") as got:
