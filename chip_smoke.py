@@ -46,6 +46,18 @@ launch counts set to 0 just before it and read just after:
   over the first 300 documents in three commits, opened segment-aware and
   held against one-shot builds (host-only and on the card), compacted in the
   background while it serves, refreshed once;
+* frontier — ``PartitionedServer`` over the full non-positional index in 2
+  and 4 shards (arrays built for the card equal to a CPU build; every shard
+  of a window in one batched step, ``anchor_probe_sliced`` once per probed
+  term a window), the positional index of the first 1,000 documents in 2
+  shards (phrases), ``replicated_session`` (2 fused replicas of the full
+  indexes on the 432 queries, ``rank10:`` included; a replica failing
+  mid-batch; 2 replicas x 2 shards over the cut), ``run_open_loop`` over
+  the fused card session (burst, Poisson at half the burst's rate, a warm
+  pass answered from the cache, an overload pass with typed rejections),
+  a frontend over the lifecycle writer's segmented session through one
+  more commit and ``refresh`` (cache counters equal to the host-only
+  sequence's), and ``repro_torch.launch.serve.main`` in-process;
 * lm_serve — LM serving of qwen3-8b at full width (depth cut only by
   ``--lm-layers``), random bf16 weights drawn on the card: 4 prompts of 2,048
   tokens from ``lm_batches`` prefilled through ``make_lm_prefill_step`` (the
@@ -3186,7 +3198,9 @@ def lifecycle(built: dict, sessions: dict, batch: list[tuple[str, str]],
     ``Session.open`` (eager verify, then memory maps); (b) an ``IndexWriter``
     over the first ``WRITER_DOCS`` documents in ``WRITER_COMMITS`` commits
     (mining on ``device``), opened segment-aware, held against one-shot
-    builds, then compacted in the background while it serves."""
+    builds, then compacted in the background while it serves.  The writer's
+    directory and its queries stay for the frontier phase (``writer_dir``,
+    ``writer_queries``), which removes the directory."""
     import shutil
 
     from repro_torch.core.artifact import save_index
@@ -3252,6 +3266,7 @@ def lifecycle(built: dict, sessions: dict, batch: list[tuple[str, str]],
                                  "positional": sess.positional_server.device_bytes()}}
             del sess, got
         del want
+        shutil.rmtree(bundle)
 
         # (b) a writer over the first WRITER_DOCS documents
         docs = built["docs"][:WRITER_DOCS]
@@ -3349,8 +3364,424 @@ def lifecycle(built: dict, sessions: dict, batch: list[tuple[str, str]],
             "compaction_s": compact_s, "batches_served_during_compaction": served_during,
             "refresh_opened": opened, "hook_calls": len(fired),
             "segment_local_answers_changed_by_compaction": changed_local}
+    except BaseException:
+        shutil.rmtree(LIFECYCLE_DIR, ignore_errors=True)
+        raise
+    out["writer_dir"], out["writer_queries"] = wdir, wq
+    return out
+
+
+FRONTIER_SHARDS = (2, 4)  # shard counts of the full non-positional index
+FRONTIER_CUT_DOCS = 1000  # the positional cut: the Python Re-Pair build bounds it
+FRONTIER_REFRESH_DOCS = 50  # the refresh phase's one more commit
+FRONTIER_CONFIG = {"max_batch": 32, "max_delay": 0.002, "max_pending": 1024}
+FRONTIER_OVERLOAD_PENDING = 16
+FRONTIER_DRIVER = ["--articles", "8", "--versions", "10", "--queries", "64", "--mode",
+                   "mixed", "--frontend", "--replicas", "2", "--shards", "2"]
+
+
+def shard_probes(sess, queries: list[str], servers: dict) -> int:
+    """The probe launches a batch needs on partitioned servers (``servers``
+    by the index a route names): per device group of the session, its
+    windows x (width - 1), whatever the shard count (all shards of a window
+    probe in one launch a term)."""
+    from repro_torch.serving.plan import PHRASE, parse_query
+
+    groups: dict = {}
+    for q in queries:
+        pq = parse_query(q)
+        rt = sess.plan(pq)
+        if rt.route == "device":
+            groups.setdefault((rt.index, pq.kind, rt.width), []).append(list(pq.terms))
+    total = 0
+    for (index, kind, width), terms in groups.items():
+        server = servers[index]
+        c = server._c_offsets_np
+        qt, _, ok = server.encode(terms, sort_by_length=(kind != PHRASE), width=width)
+        first = qt[:, 0][ok] if ok.any() else qt[:1, 0]
+        rows = int((c[:, first + 1] - c[:, first]).max())
+        total += max(1, -(-rows // 64)) * (width - 1)
+    return total
+
+
+def _latency(report: dict) -> dict:
+    lat = report["latency"]
+    return {"achieved_qps": report["achieved_qps"], "offered_qps": report["offered_qps"],
+            **{k: lat.get(k) for k in ("p50_ms", "p95_ms", "p99_ms", "max_ms", "mean_ms",
+                                       "queue_depth_max")},
+            "rejected": report["rejected"], "reject_rate": report["reject_rate"],
+            "cache_hit_rate": report["cache_hit_rate"], "mean_batch": report["mean_batch"]}
+
+
+def frontier(built: dict, sessions: dict, batch: list[tuple[str, str]],
+             rank_queries: list[str], life: dict, args, device: str) -> dict:
+    """The serving frontier on ``device``: (1) ``PartitionedServer`` over the
+    full non-positional index at ``FRONTIER_SHARDS`` shards (arrays equal to
+    a CPU build), serving the batch's AND queries; (2) the positional index
+    of the first ``FRONTIER_CUT_DOCS`` documents in 2 shards, serving a
+    phrase batch; (3) ``replicated_session`` — 2 fused replicas of the full
+    indexes on the 432 queries, 2 replicas x 2 shards over the cut, a
+    replica failing mid-batch; (4) ``run_open_loop`` over the fused card
+    session: burst, Poisson at half the burst's rate, a warm pass, an
+    overload pass; (5) a frontend over the lifecycle writer's segmented
+    session through one more commit and ``refresh``, beside the same
+    sequence host-only; (6) ``repro_torch.launch.serve.main``.  Every
+    answer equal to a host-only session's; launch counts read around each."""
+    import asyncio
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.core.index import NonPositionalIndex, PositionalIndex
+    from repro_torch.core.writer import IndexWriter
+    from repro_torch.serving.frontend import (FrontendConfig, MicroBatchFrontend,
+                                              replicated_session, run_open_loop)
+    from repro_torch.serving.partitioned import PartitionedAnchoredIndex, PartitionedServer
+    from repro_torch.serving.session import Session
+
+    on_gpu = device != "cpu"
+    sync = torch.cuda.synchronize if on_gpu else (lambda: None)
+    probe = "kernel" if on_gpu else "torch"
+    t_phase = time.perf_counter()
+    out: dict = {"card_probe": probe}
+    total: dict = {}
+
+    def read() -> dict:
+        """The launches since the last reset, added to the phase's total."""
+        got = {k: n for k, n in launch_counts().items() if n}
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        return got
+
+    try:
+        queries = [q for _, q in batch] + rank_queries
+        host = Session(built["idx"], positional=built["pidx"])
+        want = host.execute(queries)
+
+        # (1) the full non-positional index in shards
+        and_at = [i for i, (k, _) in enumerate(batch) if k == "and"]
+        and_q = [queries[i] for i in and_at]
+        part: dict = {}
+        for n_shards in FRONTIER_SHARDS:
+            t0 = time.perf_counter()
+            srv = PartitionedServer.from_index(built["idx"], n_shards=n_shards,
+                                               device=device, probe=probe)
+            sync()
+            build_s = time.perf_counter() - t0
+            cpu = PartitionedAnchoredIndex.from_index(built["idx"], n_shards=n_shards,
+                                                      device="cpu")
+            on_card = srv.pidx.step_arrays()
+            require(set(on_card) == set(cpu.step_arrays()) and all(
+                on_card[k].dtype == v.dtype and torch.equal(on_card[k].cpu(), v)
+                for k, v in cpu.step_arrays().items()),
+                f"shards={n_shards}: the arrays built for the card differ from a CPU build")
+            sess = Session(built["idx"], server=srv)
+            routes = [sess.plan(q).route for q in and_q]
+            require(routes.count("device") == len(and_q),
+                    f"shards={n_shards}: {routes.count('host')} AND queries routed to the host")
+            reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            got = sess.execute(and_q)
+            sync()
+            first_s = time.perf_counter() - t0
+            launches = read()
+            windows = srv.windows_swept
+            bad = _differ(and_q, got, [want[i] for i in and_at])
+            require(not bad, f"shards={n_shards}: {len(bad)} AND answers differ from the "
+                    f"host session's, first {bad[:3]}")
+            expected = shard_probes(sess, and_q, {"nonpositional": srv})
+            if on_gpu:
+                require(launches == {"anchor_probe_sliced": expected},
+                        f"shards={n_shards}: launched {launches}, expected "
+                        f"{expected} anchor_probe_sliced")
+            sync()
+            t0 = time.perf_counter()
+            sess.execute(and_q)
+            sync()
+            warm_s = time.perf_counter() - t0
+            part[f"shards_{n_shards}"] = {
+                "build_s": build_s, "arrays_equal_cpu_build": True,
+                "max_nc": int(srv.pidx.arrays["anchors"].shape[1]),
+                "expand_len": srv.pidx.expand_len, "device_bytes": srv.pidx.device_bytes(),
+                "queries": len(and_q), "windows_swept": windows,
+                "launches": launches, "expected_probe_launches": expected,
+                "first_pass_s": first_s, "warm_pass_s": warm_s,
+                "queries_per_s": len(and_q) / warm_s}
+            del srv, sess, cpu, on_card
+        out["partitioned"] = part
+
+        # (2) the positional cut in 2 shards
+        docs = built["docs"][:FRONTIER_CUT_DOCS]
+        t0 = time.perf_counter()
+        idx_cut = NonPositionalIndex.build(docs, store="repair_skip", mine_similarity=True,
+                                           device=device)
+        t1 = time.perf_counter()
+        pidx_cut = PositionalIndex.build(docs, store="repair_skip")
+        cut_build_s = {"build_nonpositional_mined_s": t1 - t0,
+                       "build_positional_s": time.perf_counter() - t1}
+        cut_batch = make_batch(docs, idx_cut, np.random.default_rng(args.seed + 4),
+                               args.per_cell)
+        cut_q = [q for _, q in cut_batch]
+        host_cut = Session(idx_cut, positional=pidx_cut)
+        want_cut = host_cut.execute(cut_q)
+        phrase_at = [i for i, (k, _) in enumerate(cut_batch) if k == "phrase"]
+        phrase_q = [cut_q[i] for i in phrase_at]
+        t3 = time.perf_counter()
+        psrv = PartitionedServer.from_index(pidx_cut, n_shards=2, device=device, probe=probe)
+        sync()
+        shard_s = time.perf_counter() - t3
+        cut_at = int(psrv.pidx.doc_bounds[1])
+        require(cut_at in set(np.asarray(pidx_cut.doc_starts).tolist()),
+                f"the positional cut {cut_at} is not a document start")
+        sess = Session(idx_cut, positional=pidx_cut, positional_server=psrv)
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        got = sess.execute(phrase_q)
+        sync()
+        first_s = time.perf_counter() - t0
+        launches = read()
+        windows = psrv.windows_swept
+        bad = _differ(phrase_q, got, [want_cut[i] for i in phrase_at])
+        require(not bad, f"positional shards: {len(bad)} phrase answers differ, first {bad[:3]}")
+        expected = shard_probes(sess, phrase_q, {"positional": psrv})
+        if on_gpu:
+            require(launches == {"anchor_probe_sliced": expected},
+                    f"positional shards: launched {launches}, expected {expected}")
+        t0 = time.perf_counter()
+        sess.execute(phrase_q)
+        sync()
+        warm_s = time.perf_counter() - t0
+        out["positional_cut"] = {
+            "reduced": f"the first {FRONTIER_CUT_DOCS} of the {len(built['docs'])} documents: "
+                       f"the Python Re-Pair build of the positional shards bounds it",
+            "documents": len(docs), "tokens": int(pidx_cut.n_tokens),
+            **cut_build_s,
+            "shard_build_s": shard_s, "doc_bounds": [int(b) for b in psrv.pidx.doc_bounds],
+            "device_bytes": psrv.pidx.device_bytes(), "queries": len(phrase_q),
+            "windows_swept": windows, "launches": launches,
+            "expected_probe_launches": expected, "first_pass_s": first_s,
+            "warm_pass_s": warm_s, "queries_per_s": len(phrase_q) / warm_s}
+        del psrv, sess
+
+        # (3) replicas: fused over the full indexes, 2 x 2 shards over the cut
+        rep: dict = {}
+        t0 = time.perf_counter()
+        rs = replicated_session(built["idx"], positional=built["pidx"], n_replicas=2,
+                                n_shards=1, device=device, probe=probe)
+        sync()
+        build_s = time.perf_counter() - t0
+        layouts = {r.server.layout for s in (rs.server, rs.positional_server)
+                   for r in s._replicas}
+        require(layouts == {"fused"}, f"replicas' layouts {layouts}")
+        require("rank" in rs.server.kinds, f"replicated kinds {sorted(rs.server.kinds)}")
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        got = rs.execute(queries)
+        sync()
+        first_s = time.perf_counter() - t0
+        launches = read()
+        windows = sum(r.server.windows_swept for s in (rs.server, rs.positional_server)
+                      for r in s._replicas)
+        ranked_steps = sum(r.server.ranked_steps for r in rs.server._replicas)
+        bad = _differ(queries, got, want)
+        require(not bad, f"replicated (fused): {len(bad)} answers differ, first {bad[:3]}")
+        if on_gpu:
+            require(all(launches.get(k, 0) == windows for k in SERVE_KERNELS) and set(
+                launches) <= set(SERVE_KERNELS), f"replicated (fused): {windows} windows, "
+                f"launched {launches}")
+        require(ranked_steps > 0, "no rank10: batch reached a replica")
+        t0 = time.perf_counter()
+        rs.execute(queries)
+        sync()
+        warm_s = time.perf_counter() - t0
+        rep["fused_2x1"] = {"build_s": build_s, "queries": len(queries),
+                            "windows_swept": windows, "ranked_steps": ranked_steps,
+                            "launches": launches, "first_pass_s": first_s,
+                            "warm_pass_s": warm_s, "queries_per_s": len(queries) / warm_s,
+                            "replica_status": {"nonpositional": rs.server.replica_status(),
+                                               "positional": rs.positional_server.replica_status()}}
+        # a replica raises after doing its work for a group: the whole group
+        # fails over to the other one, every answer unchanged
+        victim_rep = rs.server._pick()
+        victim = victim_rep.server
+        real = victim.conjunctive
+        fired = []
+
+        def failing(qs, width=None):
+            real(qs, width=width)
+            fired.append(len(qs))
+            raise RuntimeError("replica failed mid-batch (injected by chip_smoke.py)")
+
+        victim.conjunctive = failing
+        failovers0 = rs.server.failovers
+        got = rs.execute(queries)
+        sync()
+        victim.conjunctive = real
+        bad = _differ(queries, got, want)
+        require(not bad, f"failover: {len(bad)} answers differ, first {bad[:3]}")
+        require(len(fired) == 1 and rs.server.failovers == failovers0 + 1
+                and not victim_rep.healthy, f"failover: fired {fired}, failovers "
+                f"{rs.server.failovers - failovers0}, healthy {victim_rep.healthy}")
+        rep["failover"] = {"failed_replica": victim_rep.name, "failed_group_queries": fired[0],
+                           "failovers": rs.server.failovers - failovers0,
+                           "answers_equal": True,
+                           "replica_status": rs.server.replica_status()}
+        del rs, victim, victim_rep, real
+        t0 = time.perf_counter()
+        rs = replicated_session(idx_cut, positional=pidx_cut, n_replicas=2, n_shards=2,
+                                device=device, probe=probe)
+        sync()
+        build_s = time.perf_counter() - t0
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = rs.execute(cut_q)
+        sync()
+        first_s = time.perf_counter() - t0
+        launches = read()
+        windows = sum(r.server.windows_swept for s in (rs.server, rs.positional_server)
+                      for r in s._replicas)
+        bad = _differ(cut_q, got, want_cut)
+        require(not bad, f"replicated 2 x 2 (cut): {len(bad)} answers differ, first {bad[:3]}")
+        expected = shard_probes(rs, cut_q, {"nonpositional": rs.server._replicas[0].server,
+                                            "positional": rs.positional_server._replicas[0].server})
+        if on_gpu:
+            require(launches == {"anchor_probe_sliced": expected},
+                    f"replicated 2 x 2 (cut): launched {launches}, expected {expected}")
+        t0 = time.perf_counter()
+        rs.execute(cut_q)
+        sync()
+        warm_s = time.perf_counter() - t0
+        rep["sharded_2x2_cut"] = {
+            "build_s": build_s, "queries": len(cut_q),
+            "device_routed": sum(rs.plan(q).route == "device" for q in cut_q),
+            "windows_swept": windows, "launches": launches,
+            "expected_probe_launches": expected, "first_pass_s": first_s,
+            "warm_pass_s": warm_s, "queries_per_s": len(cut_q) / warm_s,
+            "replica_status": {"nonpositional": rs.server.replica_status(),
+                               "positional": rs.positional_server.replica_status()}}
+        out["replicated"] = rep
+        del rs, idx_cut, pidx_cut, host_cut
+
+        # (4) the frontend over the fused card session
+        fused = sessions["fused"]
+        fe_out: dict = {"config": FRONTIER_CONFIG}
+
+        def checked(label: str, results: list, allow_rejected: bool = False) -> int:
+            rejected = sum(r is None for r in results)
+            require(allow_rejected or rejected == 0, f"frontend {label}: {rejected} rejected")
+            idx_ok = [i for i, r in enumerate(results) if r is not None]
+            bad = [queries[i] for i in idx_ok if not np.array_equal(results[i], want[i])]
+            require(not bad, f"frontend {label}: {len(bad)} answers differ, first {bad[:3]}")
+            return rejected
+
+        cfg = FrontendConfig(**FRONTIER_CONFIG)
+        fe = MicroBatchFrontend(fused, cfg)
+        reset_launch_counts()
+        results, report = run_open_loop(fused, queries, 0.0, frontend=fe, seed=args.seed)
+        sync()
+        launches = read()
+        checked("burst", results)
+        fe_out["burst"] = {**_latency(report), "launches": launches,
+                           "flushes": dict(fe.flushes), "batches": fe.batches,
+                           "coalesced": fe.coalesced}
+        if on_gpu:
+            require(all(launches.get(k, 0) > 0 for k in SERVE_KERNELS),
+                    f"frontend burst: launched {launches}")
+        asyncio.run(fe.close())
+        rate = report["achieved_qps"] / 2
+        fe = MicroBatchFrontend(fused, cfg)
+        results, report = run_open_loop(fused, queries, rate, frontend=fe, seed=args.seed + 1)
+        checked("poisson", results)
+        fe_out["poisson"] = {**_latency(report), "flushes": dict(fe.flushes),
+                             "batches": fe.batches}
+        served0 = fe.cache_served
+        results, report = run_open_loop(fused, queries, 0.0, frontend=fe, seed=args.seed + 2)
+        checked("warm", results)
+        from_cache = fe.cache_served - served0
+        require(from_cache == len(queries),
+                f"frontend warm pass: {from_cache} of {len(queries)} answers from the cache")
+        fe_out["warm"] = {**_latency(report), "from_cache": from_cache,
+                          "session_metrics_frontend": fused.metrics()["frontend"]}
+        asyncio.run(fe.close())
+        fe = MicroBatchFrontend(fused, FrontendConfig(
+            **{**FRONTIER_CONFIG, "max_pending": FRONTIER_OVERLOAD_PENDING}))
+        results, report = run_open_loop(fused, queries, 0.0, frontend=fe, seed=args.seed + 3)
+        rejected = checked("overload", results, allow_rejected=True)
+        require(rejected > 0 and rejected == report["rejected"] == fe.rejected,
+                f"frontend overload: {rejected} None results, report {report['rejected']}, "
+                f"frontend {fe.rejected}")
+        fe_out["overload"] = {**_latency(report), "max_pending": FRONTIER_OVERLOAD_PENDING,
+                              "typed_rejections": fe.rejected}
+        asyncio.run(fe.close())
+        fused.frontend = None
+        out["frontend"] = fe_out
+
+        # (5) refresh through the frontend, beside the same sequence host-only
+        wdir, wq = life["writer_dir"], life["writer_queries"]
+        card = Session.open(wdir, device=device, probe=probe)
+        host_seg = Session.open(wdir, device=device, attach=False)
+        fes = {"card": MicroBatchFrontend(card, cfg), "host": MicroBatchFrontend(host_seg, cfg)}
+        before = {k: run_open_loop(fe.session, wq, 0.0, frontend=fe)[0] for k, fe in fes.items()}
+        require(not _differ(wq, before["card"], before["host"]),
+                "refresh: the card frontend differs from the host-only one before the commit")
+        writer = IndexWriter.open(wdir, device=device)
+        new_docs = built["docs"][WRITER_DOCS:WRITER_DOCS + FRONTIER_REFRESH_DOCS]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        writer.add_documents(new_docs)
+        writer.commit()
+        sync()
+        commit_s = time.perf_counter() - t0
+        commit_launches = read()
+        t0 = time.perf_counter()
+        opened = {k: asyncio.run(fe.refresh()) for k, fe in fes.items()}
+        refresh_s = time.perf_counter() - t0
+        caches = {k: fe.cache.metrics() for k, fe in fes.items()}
+        counts = {k: (c["invalidated"], c["migrated"]) for k, c in caches.items()}
+        require(opened["card"] == opened["host"] == 1 and counts["card"] == counts["host"],
+                f"refresh: opened {opened}, (invalidated, migrated) {counts}")
+        after = {k: run_open_loop(fe.session, wq, 0.0, frontend=fe)[0] for k, fe in fes.items()}
+        cold = Session.open(wdir, device=device, attach=False).execute(wq)
+        bad = _differ(wq, after["card"], after["host"]) + _differ(wq, after["card"], cold)
+        require(not bad, f"refresh: {len(bad)} answers after the refresh differ, first {bad[:3]}")
+        for fe in fes.values():
+            asyncio.run(fe.close())
+        out["refresh"] = {"writer_documents": WRITER_DOCS, "committed": len(new_docs),
+                          "commit_s": commit_s, "commit_launches": commit_launches,
+                          "refresh_s": refresh_s, "opened": opened["card"],
+                          "queries": len(wq), "cache": caches["card"],
+                          "host_cache": caches["host"], "answers_equal": True}
+        del card, host_seg, fes, writer
+
+        # (6) the serving driver, in-process
+        from repro_torch.launch.serve import main as serve_main
+
+        text = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            serve_main([*FRONTIER_DRIVER, "--device", device])
+        sync()
+        driver_s = time.perf_counter() - t0
+        lines = text.getvalue().splitlines()
+        agree = {}
+        for label in ("host/planned", "host/frontend"):
+            ln = [x for x in lines if x.startswith(f"{label} agreement")]
+            require(len(ln) == 1, f"driver: no '{label} agreement' line in {lines[-5:]}")
+            agreed, asked = ln[0].split(": ")[1].split()[0].split("/")
+            require(agreed == asked, f"driver: {ln[0]}")
+            agree[label] = ln[0]
+        out["driver"] = {"argv": [*FRONTIER_DRIVER, "--device", device], "seconds": driver_s, "agreement": agree,
+                         "launches": read(),
+                         "lines": [x for x in lines if x.startswith(
+                             ("planner", "frontend", "replicated"))]}
     finally:
         shutil.rmtree(LIFECYCLE_DIR, ignore_errors=True)
+    out["launches"] = total  # summed over the sub-paths, each read around itself
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -3518,8 +3949,14 @@ def main() -> int:
     t2 = time.perf_counter()
     emit("lifecycle", card=card, ranked_phase_s=t1 - t0, lifecycle_phase_s=t2 - t1,
          writer_reduction=f"{WRITER_DOCS} of the {len(built['docs'])} documents: the Python "
-                          f"Re-Pair build bounds it", **life)
-    del sessions
+                          f"Re-Pair build bounds it",
+         **{k: v for k, v in life.items() if k not in ("writer_dir", "writer_queries")})
+
+    # the serving frontier: shards, replicas, the micro-batch frontend, a
+    # refresh through it, and the serving driver
+    front = frontier(built, sessions, batch, rank_queries, life, args, "cuda")
+    emit("frontier", card=card, **front)
+    del sessions, life
     torch.cuda.empty_cache()
 
     # the LM serving path (qwen3-8b at full width) with both attention kernels,
@@ -3618,6 +4055,7 @@ def main() -> int:
                         "launches_on": f"serve ({layout})",
                         "launches_by_layout": {lay: result[f"launches_{lay}"][name]
                                                for lay in ("fused", "dense")},
+                        "launches_frontier": front["launches"].get(name, 0),
                         "max_abs_err": max_err(name),
                         **{k: r[k] for k in timing_keys}, "at": where})
     mh = {r["at"]: r for r in measured if r["kernel"] == "minhash_rows"}

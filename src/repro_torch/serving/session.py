@@ -117,6 +117,7 @@ class Session:
         self._open_kw: dict = {}
         self._storage_kw: dict = {}
         self._refresh_hooks: list = []
+        self.frontend = None  # attached MicroBatchFrontend (metrics surface)
         self.data_version = 0
         self.plans_compiled = 0
         self.plan_cache_hits = 0
@@ -256,8 +257,8 @@ class Session:
         self._segments = fresh
         if old_names != [s.name for s in fresh]:
             # the visible data changed: bump the version and tell listeners
-            # what happened — the appended child sessions when the change was
-            # append-only, None for a rewrite
+            # (the frontend result cache) what happened — the appended child
+            # sessions when the change was append-only, None for a rewrite
             self.data_version += 1
             added = ([s.session for s in fresh[len(old_names):]]
                      if append_only else None)
@@ -269,9 +270,9 @@ class Session:
         """Register ``hook(old_shape, new_shape, added_sessions | None)`` to
         run whenever :meth:`refresh` changes the visible segment set —
         ``added_sessions`` lists the child sessions of appended segments, or
-        is ``None`` when the set was rewritten (compaction).  A result cache
-        in front of the session uses this to invalidate exactly the
-        affected entries."""
+        is ``None`` when the set was rewritten (compaction).  The serving
+        frontend uses this to invalidate exactly the affected result-cache
+        entries."""
         self._refresh_hooks.append(hook)
 
     def result_key(self, pq) -> tuple:
@@ -412,6 +413,8 @@ class Session:
             out["ranked"] = rank
         if self._segments:
             out["segments"] = len(self._segments)
+        if self.frontend is not None:
+            out["frontend"] = self.frontend.metrics()
         return out
 
     # -- execution ------------------------------------------------------

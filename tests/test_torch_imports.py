@@ -63,8 +63,27 @@ def test_module_list_covers_the_slice():
                    "repro_torch.core.artifact", "repro_torch.core.writer",
                    "repro_torch.core.storage", "repro_torch.core.storage.blobstore",
                    "repro_torch.core.storage.compaction",
-                   "repro_torch.core.storage.mapped", "repro_torch.data.synthetic"):
+                   "repro_torch.core.storage.mapped", "repro_torch.data.synthetic",
+                   "repro_torch.serving.frontend", "repro_torch.serving.partitioned",
+                   "repro_torch.launch", "repro_torch.launch.serve"):
         assert needed in MODULES, needed
+
+
+def test_serving_frontier_imports_build_no_kernel():
+    """The frontend, the partitioned server and the serving driver import
+    without ``jax`` or ``repro`` and build no kernel at import."""
+    code = (
+        "import sys\n"
+        "import repro_torch.serving.frontend, repro_torch.serving.partitioned\n"
+        "import repro_torch.launch.serve\n"
+        "from repro_torch.kernels import cuda_build\n"
+        "assert cuda_build._lib is None and not cuda_build.build_info\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
 
 
 def test_every_module_imports_without_jax_or_repro():
