@@ -80,7 +80,26 @@ launch counts set to 0 just before it and read just after:
   served as lm_serve is (``moe_gemm`` three times a layer besides the two
   attention kernels); the plain path is teacher-forced on the kernel run's
   tokens and expert choices, and the choices its own router would have made
-  otherwise are counted, as are the tokens dropped at capacity.
+  otherwise are counted, as are the tokens dropped at capacity;
+* train — training on the card: row 7's log-sum-exp (``return_lse``) on
+  both instances and the attention gradients (``FlashAttention``, the
+  reference's custom VJP, over the kernel's forward against the same over
+  the plain forward), ``moe_gemm``'s two backward products,
+  ``embedding_bag``'s table gradient (bit for bit against the same ordered
+  scatter on the CPU) and ``cin_layer``'s dx0 / dxk / dw, at edge shapes and
+  at the paths'; then ``make_lm_train_step`` on qwen3-8b and
+  moonshot-v1-16b-a3b at full width, 2 layers, bf16, 2 x 4,096 tokens in 2
+  micro-batches, 3 AdamW steps, ``make_recsys_train_step`` on xDeepFM at full
+  size on 65,536 rows (3 steps) and FM, SASRec, two-tower (one step each),
+  ``make_gnn_train_step`` on the GIN (3 steps): each model's kernel path
+  (rows 7, 9, 10, 11 launched in every step where it has them) against its
+  plain path from the same weights (no launch), the losses falling, and
+  before the steps the first step's gradients leaf by leaf against the
+  plain path's, with planted faults (a base-2 lse, a dropped weight or
+  table gradient) that the same check must catch; then
+  ``repro_torch.launch.train.main`` on xDeepFM with checkpoints, run again
+  to resume, and a bf16 qwen3-8b train state saved and restored bit for
+  bit, its manifest as the reference's Checkpointer writes it.
 
 Every answer is compared with the host-only session's, and each kernel is held
 against its plain PyTorch version on the card at edge shapes and at the inputs
@@ -2722,6 +2741,9 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         for route in getattr(fn, "launches_by_route", {}):
             fn.launches_by_route[route] = 0
+        for extra in ("launches_lse", "launches_backward"):
+            if hasattr(fn, extra):
+                setattr(fn, extra, 0)
 
 
 def build_indexes(args, device: str) -> dict:
@@ -3785,6 +3807,761 @@ def frontier(built: dict, sessions: dict, batch: list[tuple[str, str]],
     return out
 
 
+# ----------------------------------------------------------------------
+# train phase: training on the card
+# ----------------------------------------------------------------------
+#: the LMs train at full width cut to TRAIN_LM_LAYERS layers, on train_4k's
+#: 4,096 tokens a row, TRAIN_LM_BATCH rows in TRAIN_LM_MICRO micro-batches
+#: (the registry's global batch of 256 is a pod's); the recsys models on the
+#: registry's train_batch (65,536 rows), but two-tower on TRAIN_TT_ROWS rows
+#: of TRAIN_TT_VOCAB-row tables (its in-batch softmax is B x B, and AdamW
+#: state for its two 10 M-row tables would not fit the card); the GIN on the
+#: training driver's graph (``launch.train.build_training``) with
+#: TRAIN_GIN_SEEDS seed nodes.  Every step of a model trains on one fixed
+#: batch, so that a falling loss checks the gradients' direction, not the data.
+TRAIN_LM_LAYERS = 2
+TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_MICRO = 2, 4096, 2
+TRAIN_STEPS = {"qwen3-8b": 3, "moonshot-v1-16b-a3b": 3, "xdeepfm": 3, "fm": 1, "sasrec": 1,
+               "two-tower-retrieval": 1, "gin-tu": 3}
+TRAIN_TT_ROWS, TRAIN_TT_VOCAB = 16384, 1_000_000
+TRAIN_RECSYS_ROWS = None  # None: the registry's train_batch
+TRAIN_GIN_SEEDS = 512
+#: the phase's optimiser: AdamW (the reference's other defaults) at lr 1e-5,
+#: no warm-up: about the rate of the reference's schedule over its first
+#: steps (3e-4 warmed up over 100 steps: 3e-6, 6e-6, 9e-6).  Adam's first
+#: steps move every parameter by about lr in the sign of its gradient; at
+#: 1e-5 that is a small first-order step, so the loss of the fixed batch
+#: must fall (in bf16 only weights below ~0.003 move at all: their rounding
+#: step is under 2e-5)
+TRAIN_OPT = {"kind": "adamw", "lr": 1e-5, "warmup_steps": 0}
+#: kernel path against plain path, per step: an LM's mean NLL moves by at
+#: most twice the largest change of a logit (log-softmax is 2-Lipschitz in
+#: the max norm), so 2 x LM_LOGIT_TOL; a float32 recsys loss (BCE, BPR or
+#: in-batch softmax, at most 2-Lipschitz in the logits) within 2 x
+#: RECSYS_LOGIT_REL of max(1, |loss|)
+TRAIN_LM_LOSS_TOL = 2 * LM_LOGIT_TOL
+TRAIN_RECSYS_LOSS_REL = 2 * RECSYS_LOGIT_REL
+#: kernel path against plain path on the first step's gradients (at the
+#: initial weights, accumulated as the step accumulates them): each leaf's
+#: ||g_kernel - g_plain|| / ||g_plain|| at most this, by the model's dtype.
+#: The loss limits above bound a whole step but see no wrong backward at lr
+#: 1e-5.  These sit between the gaps of sound runs and those of the faults
+#: that ``_planted`` plants (a wrong lse, a zeroed weight gradient), which
+#: every run also measures and must find above the limit.  Readings on an
+#: H100 at 700 W: sound bf16 LMs 0.0032 (qwen3-8b) and 0.0075 (moonshot's
+#: router: a few top-k ties flip), float32 recsys 1.9e-6 (xDeepFM's CIN
+#: sums in another order) or 0; every planted fault 0.987-1.0
+TRAIN_GRAD_GAP = {"bfloat16": 0.05, "float32": 1e-4}
+#: the attention backward, kernel forward against plain forward (the same
+#: backward behind both): float32 gradients within ATTN_GRAD_F32_REL of the
+#: tensor's largest |value| plus 1e-6 (out and lse differ within their
+#: limits, ~1e-6 relative, and enter every p and delta); bf16 gradients within one bf16
+#: step of the value (2^-7 |want| + 1e-5) plus 2^-9 of the tensor's largest
+#: |value| (a p or dS one float32 ulp apart may round to the neighbouring
+#: bf16 value before its product: one term of a sum moves by a bf16 step)
+ATTN_GRAD_F32_REL = 1e-4
+ATTN_GRAD_BF16 = (2.0 ** -7, 1e-5, 2.0 ** -9)
+#: lse and gradient edge shapes (B, T, H, K, hd), T = S; each in bf16 (the
+#: wgmma instance at hd 64 / 128, fma below) and float32 (fma)
+TRAIN_ATTN_SHAPES = ((1, 1, 2, 2, 64), (2, 7, 8, 2, 128), (1, 100, 4, 4, 64),
+                     (2, 300, 8, 2, 128), (1, 129, 4, 1, 16), (1, 257, 4, 4, 32))
+#: cin_layer backward edge shapes (B, m, Hk, H, D) and the path's widths at
+#: a cut row count (the plain autograd it is held against keeps every
+#: chunk's outer product: 20 GB a layer at 65,536 rows)
+CIN_GRAD_SHAPES = ((1, 1, 1, 1, 1), (3, 4, 6, 7, 1), (33, 5, 8, 41, 10))
+CIN_GRAD_PATH_ROWS = 4096
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+
+
+def lse_limit(q, k, lse, causal: bool):
+    """Elementwise bound on |kernel lse - plain lse| (B, T, H): a score's
+    float32 dot product over hd exact products (any order) is within
+    2 gamma_hd of its |terms|' sum, and lse moves by at most the largest
+    score change; l's sum over S keys adds 2 gamma_S relatively (log: that
+    much absolutely); exp2 / log2 / the base-2 conversion add a few ulp,
+    covered by 2^-20 (1 + |lse|)."""
+    hd, s = q.shape[3], k.shape[1]
+    g = q.shape[2] // k.shape[2]
+    qa = q.float().abs() / math.sqrt(hd)
+    ka = k.float().abs().repeat_interleave(g, dim=2)
+    mag = torch.einsum("bthd,bshd->bhts", qa, ka)
+    if causal:
+        t = q.shape[1]
+        mag = mag.masked_fill(torch.arange(s, device=q.device)[None, :]
+                              > torch.arange(t, device=q.device)[:, None], 0.0)
+    mag = mag.amax(dim=-1).transpose(1, 2)  # (B, T, H)
+    return 2 * gamma(hd) * mag + 2 * gamma(s) + 2.0 ** -20 * (1 + lse.abs())
+
+
+def _grad_limit(want: torch.Tensor) -> torch.Tensor:
+    w = want.float()
+    if want.dtype == torch.float32:  # plus a floor for gradients that are 0 (T = 1)
+        return torch.full_like(w, ATTN_GRAD_F32_REL * float(w.abs().max()) + 1e-6)
+    rel, floor, slack = ATTN_GRAD_BF16
+    return rel * w.abs() + floor + slack * float(w.abs().max())
+
+
+def attention_train_rows(rows: list, shape: dict, q, k, v, causal: bool, grads: bool) -> None:
+    """``flash_attention_tpu(..., return_lse=True)`` against its plain
+    version: out within ``ATTENTION_TOL``, lse within :func:`lse_limit`, and
+    under causal row 0's lse (one live key) against that key's score; with
+    ``grads``, ``models.flash.FlashAttention`` (the reference's VJP) over the
+    kernel's forward against the same over the plain forward on
+    one output gradient: dq / dk / dv within :func:`_grad_limit`."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention_route,
+                                                         flash_attention_torch,
+                                                         flash_attention_tpu,
+                                                         flash_attention_tpu_fwd)
+    from repro_torch.models.flash import FlashAttention
+
+    route = flash_attention_route(q, k, v)
+    out, lse = flash_attention_tpu(q, k, v, causal, return_lse=True)
+    p_out, p_lse = flash_attention_torch(q, k, v, causal, return_lse=True)
+    _attention_row(rows, "flash_attention_tpu", {**shape, "causal": causal, "lse": True}, out,
+                   p_out, route)
+    limit = lse_limit(q, k, p_lse, causal)
+    diff = (lse - p_lse).abs()
+    used = float((diff / limit).max())
+    row = rows[-1]
+    row.update(lse_max_abs_err=float(diff.max()), lse_limit_used=used)
+    row["within_tolerance"] = row["within_tolerance"] and used <= 1.0 and bool(
+        torch.isfinite(lse).all())
+    if causal:  # row 0 sees key 0 alone: its lse is that scaled score
+        g = q.shape[2] // k.shape[2]
+        score = (q[:, 0].float() * k[:, 0].float().repeat_interleave(g, dim=1)).sum(-1) \
+            / math.sqrt(q.shape[3])
+        one = float(((lse[:, 0] - score).abs() / limit[:, 0]).max())
+        row["one_key_limit_used"] = one
+        row["within_tolerance"] = row["within_tolerance"] and one <= 1.0
+    if not grads:
+        return
+    blk = min(1024, q.shape[1])
+    gen = torch.Generator(device=q.device).manual_seed(q.shape[1])
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    got, want = [], []
+    for fwd, sink in ((flash_attention_tpu_fwd, got), (None, want)):
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        FlashAttention.apply(*xs, causal, blk, fwd).backward(dout)
+        sink.extend(x.grad for x in xs)
+        del xs
+    used = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        used[name] = float(((a.float() - b.float()).abs() / _grad_limit(b)).max())
+    row.update(grad_limit_used=used)
+    row["within_tolerance"] = row["within_tolerance"] and max(used.values()) <= 1.0
+
+
+def train_attention_pieces(dev, seed: int) -> list[dict]:
+    """Row 7's log-sum-exp and the attention gradients at edge shapes (both
+    instances, T not a multiple of a tile, T = 1, GQA groups 1 and 4,
+    causal and not) and at the two LM paths' layer shapes (qwen3-8b 32 / 8
+    heads, moonshot 16 / 16, hd 128, T = 4,096, bf16: wgmma)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows: list = []
+    for b, t, h, kh, hd in TRAIN_ATTN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(s, generator=g, device=dev).to(dtype)
+                       for s in ((b, t, h, hd), (b, t, kh, hd), (b, t, kh, hd)))
+            for causal in (True, False):
+                attention_train_rows(rows, {"B": b, "T": t, "H": h, "K": kh, "hd": hd}, q, k, v,
+                                     causal, grads=causal)
+    for name, h, kh in (("qwen3-8b", 32, 8), ("moonshot-v1-16b-a3b", 16, 16)):
+        q, k, v = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+                   for s in ((1, TRAIN_LM_SEQ, h, 128), (1, TRAIN_LM_SEQ, kh, 128),
+                             (1, TRAIN_LM_SEQ, kh, 128)))
+        attention_train_rows(rows, {"at": f"train/{name} layer", "B": 1, "T": TRAIN_LM_SEQ,
+                                    "H": h, "K": kh, "hd": 128}, q, k, v, True, grads=True)
+        del q, k, v
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+    return rows
+
+
+def lse_timing(dev, reps: int) -> dict:
+    """The qwen3-8b prefill layer's attention (4 x 2,048 tokens, 32 / 8
+    heads, hd 128, bf16: wgmma) with the log-sum-exp off and on, in turns."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_tpu
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+               for s in ((LM_BATCH, LM_PROMPT, 32, 128), (LM_BATCH, LM_PROMPT, 8, 128),
+                         (LM_BATCH, LM_PROMPT, 8, 128)))
+    off = lambda: flash_attention_tpu(q, k, v, True)  # noqa: E731
+    on = lambda: flash_attention_tpu(q, k, v, True, return_lse=True)  # noqa: E731
+    times = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        times[which].append(time_ms(off if which == "off" else on, reps))
+    return {"shape": {"B": LM_BATCH, "T": LM_PROMPT, "H": 32, "K": 8, "hd": 128},
+            "ms_lse_off": times["off"], "ms_lse_on": times["on"]}
+
+
+def train_model_pieces(dev, seed: int, reps: int) -> tuple[list, dict]:
+    """The gradient pieces of rows 9, 10, 11 on the card against their plain
+    versions: ``moe_gemm``'s two backward products (edge shapes, ragged and
+    small C, and moonshot's: E 64, C 480, D 2,048, F 1,408, bf16) within 2
+    gamma_n, those at the path timed; ``embedding_bag``'s table gradient
+    (xDeepFM's two lookups at 65,536 rows, and an edge case with repeated
+    ids and ids outside the table) bit for bit against the same ordered
+    scatter on the CPU; ``cin_layer``'s dx0 / dxk / dw (``CinLayer``, kernel
+    forward) against autograd through the plain layer, within 2 gamma_n
+    of the same on |inputs|."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipelines import recsys_batches
+    from repro_torch.kernels.cin_interaction.ops import CinLayer, cin_layer_backward, cin_layer_torch
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_backward
+    from repro_torch.models.recsys import field_offsets
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    rows: list = []
+    timed: dict = {}
+    # moe_gemm: dbuf = dout @ w^T, dw = buf^T @ dout
+    moe = get_config(MOE_CONFIG)
+    e, f, d = moe.moe.n_experts, moe.moe.d_ff_expert, moe.d_model
+    cap = math.ceil(TRAIN_LM_SEQ * moe.moe.top_k / e * 1.25)
+    for (e_, c_, d_, f_), at in (((3, 33, 24, 40), None), ((2, 5, 64, 72), None),
+                                 ((e, cap, d, f), "w_gate"), ((e, cap, f, d), "w_down")):
+        buf, w = randn(e_, c_, d_).to(torch.bfloat16), randn(e_, d_, f_).to(torch.bfloat16)
+        dout = randn(e_, c_, f_).to(torch.bfloat16)
+        for which, args in (("dbuf", (dout, w.transpose(1, 2).contiguous())),
+                            ("dw", (buf.transpose(1, 2).contiguous(), dout))):
+            name = f"train/moonshot backward {which}, {at}" if at else f"backward {which}"
+            r = model_kernel_at_path("moe_gemm", args, name, reps, timed=bool(at))
+            rows.append(r)
+            if at:
+                timed[name] = r
+        del buf, w, dout
+    # embedding_bag: the table gradient, card against CPU, bit for bit
+    cfg = get_config(RECSYS_CONFIG)
+    fields = torch.from_numpy(next(recsys_batches(cfg, 65536, seed=seed))["fields"]).to(dev)
+    ids = (fields + torch.from_numpy(field_offsets(cfg)[:-1]).to(dev)).to(torch.int32)
+    v = int(field_offsets(cfg)[-1])
+    edge = torch.randint(0, 9, (40, 3), generator=g, device=dev, dtype=torch.int32)
+    edge[3, 1] = 12
+    for at, idx, n_rows, bag, width in (("edge (repeated ids, one outside)", edge, 10, 3, 4),
+                                        ("train/xdeepfm x0 lookup", ids.reshape(-1), v, 1, 10),
+                                        ("train/xdeepfm linear", ids, v, 39, 1)):
+        n_bags = idx.numel() // bag
+        dout = randn(n_bags, width)
+        got = embedding_bag_backward(idx, dout, n_rows, bag)
+        want = embedding_bag_backward(idx.cpu(), dout.cpu(), n_rows, bag)
+        same = bool(torch.equal(got.cpu(), want))
+        rows.append({"kernel": "embedding_bag", "backward": True, "at": at,
+                     "shape": {"n_bags": n_bags, "bag": bag, "V": n_rows, "D": width},
+                     "max_abs_err": float((got.cpu() - want).abs().max()),
+                     "within_tolerance": same})
+        if at.startswith("train/"):
+            ms = time_ms(lambda: embedding_bag_backward(idx, dout, n_rows, bag), 5)
+            timed[at] = {"backward_ms": ms}
+        del got, want, dout
+    # cin_layer: CinLayer (kernel forward, chunked backward) against autograd
+    # through the plain layer
+    m, k_ = cfg.n_fields, cfg.embed_dim
+    shapes = list(CIN_GRAD_SHAPES) + [(CIN_GRAD_PATH_ROWS, m, m, cfg.cin_layers[0], k_),
+                                      (CIN_GRAD_PATH_ROWS, m, cfg.cin_layers[0],
+                                       cfg.cin_layers[1], k_)]
+    for bb, mm, hk, hh, dd in shapes:
+        x0, xk, w = randn(bb, mm, dd), randn(bb, hk, dd), randn(mm * hk, hh)
+        dout = randn(bb, hh, dd)
+        xs = [t.clone().requires_grad_(True) for t in (x0, xk, w)]
+        CinLayer.apply(*xs).backward(dout)
+        ys = [t.clone().requires_grad_(True) for t in (x0, xk, w)]
+        cin_layer_torch(*ys).backward(dout)
+        mag = cin_layer_backward(x0.abs(), xk.abs(), w.abs(), dout.abs())
+        ns = (hh + hk + 2, hh + mm + 2, bb * dd + 2)
+        used = {name: float(((a.grad - b.grad).abs() / (2 * gamma(n) * lim).clamp(min=1e-38))
+                            .max()) for name, a, b, lim, n in zip(("dx0", "dxk", "dw"), xs, ys,
+                                                                  mag, ns)}
+        rows.append({"kernel": "cin_layer", "backward": True,
+                     "shape": {"B": bb, "m": mm, "Hk": hk, "H": hh, "D": dd},
+                     "max_abs_err": max(float((a.grad - b.grad).abs().max())
+                                        for a, b in zip(xs, ys)),
+                     "limit_used": max(used.values()), "limit_used_by_grad": used,
+                     "within_tolerance": max(used.values()) <= 1.0})
+        del xs, ys, mag, x0, xk, w, dout
+    return rows, timed
+
+
+def _clone_params(model) -> dict:
+    from repro_torch.train.optimizer import param_tree
+
+    return {k: p.detach().clone() for k, p in param_tree(model).items()}
+
+
+@torch.no_grad()
+def _load_params(model, values: dict) -> None:
+    from repro_torch.train.optimizer import param_tree
+
+    for k, p in param_tree(model).items():
+        p.copy_(values[k])
+
+
+TRAIN_KERNELS = ("flash_attention_tpu", "embedding_bag", "cin_layer", "moe_gemm")
+
+
+def _train_launches() -> dict:
+    from repro_torch.kernels.flash_attention.ops import flash_attention_tpu
+    from repro_torch.kernels.moe_gemm.ops import moe_gemm
+
+    counts = {k: v for k, v in launch_counts().items() if k in TRAIN_KERNELS}
+    counts.update(flash_attention_tpu_lse=flash_attention_tpu.launches_lse,
+                  moe_gemm_backward=moe_gemm.launches_backward)
+    return counts
+
+
+def train_steps(state, step_fn, batch, n: int, dev) -> tuple:
+    """``n`` steps of ``step_fn`` on ``batch``, each with the launch counts
+    set to 0 just before it and read just after: losses, wall ms (the host
+    waits for the step's loss), the CUDA-event span of the step on the
+    device, launches and routes by step."""
+    on_gpu = dev.type == "cuda"
+    out = {"loss": [], "wall_ms": [], "device_span_ms": [], "launches": [], "routes": []}
+    for _ in range(n):
+        reset_launch_counts()
+        routes0 = route_counts()
+        if on_gpu:
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        if on_gpu:
+            b.record()
+        loss = float(metrics["loss"])  # waits for the step
+        if on_gpu:
+            torch.cuda.synchronize()
+        out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["device_span_ms"].append(a.elapsed_time(b) if on_gpu else None)
+        out["loss"].append(loss)
+        out["launches"].append(_train_launches())
+        diff = route_diff(route_counts(), routes0)
+        out["routes"].append({k: {r: n for r, n in diff[k].items() if n}
+                              for k in ("flash_attention_tpu", "moe_gemm", "embedding_bag")})
+    return state, out
+
+
+def train_one_model(name: str, params, step_fns: tuple, batch: dict, n: int, dev,
+                    plain_ctx=None) -> dict:
+    """``n`` kernel-path steps of ``params`` on ``batch``, then ``n``
+    plain-path steps from the same weights (cloned before the first step: a
+    step updates in place) and a fresh optimiser state; both paths' losses
+    and launches, peak memory."""
+    from repro_torch.models import steps
+    from repro_torch.train.optimizer import OptConfig
+
+    opt = OptConfig(**TRAIN_OPT)
+    kernel_step, plain_step = step_fns
+    init = _clone_params(params)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    state, kernel = train_steps(steps.init_state(params, opt), kernel_step, batch, n, dev)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    del state
+    _load_params(params, init)
+    del init
+    plain = None
+    if plain_step is not None:
+        with plain_ctx() if plain_ctx else contextlib.nullcontext():
+            state, plain = train_steps(steps.init_state(params, opt), plain_step, batch, n, dev)
+        del state
+    return {"model": name, "steps": n, "kernel_path": kernel, "plain_path": plain,
+            "peak_memory_bytes": peak,
+            "n_params": sum(p.numel() for p in params.parameters())}
+
+
+#: what the train phase found wrong, gathered so that one run reports all
+TRAIN_FAILURES: list = []
+
+
+def _train_check(cond: bool, what: str) -> None:
+    if not cond:
+        TRAIN_FAILURES.append(what)
+
+
+def _check_train(r: dict, kernels: tuple, tol) -> None:
+    """Losses finite and falling on the kernel path (for more than one
+    step), each listed kernel launched on every kernel-path step and no
+    kernel of the four on a plain-path step, and the two paths' losses
+    within ``tol(loss)``."""
+    k, p = r["kernel_path"], r["plain_path"]
+    name = r["model"]
+    _train_check(all(math.isfinite(x) for x in k["loss"]), f"train {name}: a loss is not finite")
+    if r["steps"] > 1:
+        _train_check(k["loss"][-1] < k["loss"][0], f"train {name}: loss {k['loss']} did not fall")
+    for step in k["launches"]:
+        for kern in kernels:
+            _train_check(step[kern] > 0, f"train {name}: {kern} was not launched in a step: {step}")
+    if p is not None:
+        for step in p["launches"]:
+            _train_check(all(step[kern] == 0 for kern in TRAIN_KERNELS),
+                    f"train {name}: the plain path launched a kernel: {step}")
+        diffs = [abs(a - b) for a, b in zip(k["loss"], p["loss"])]
+        r["loss_diff"] = diffs
+        r["loss_limit"] = [tol(x) for x in p["loss"]]
+        _train_check(all(d <= tol(x) for d, x in zip(diffs, p["loss"])),
+                f"train {name}: kernel and plain losses differ by {diffs}")
+
+
+@contextlib.contextmanager
+def _planted(fault: str):
+    """For the time of the block, the kernel path's backward carries
+    ``fault``: ``lse_base2`` (the attention residual in base 2, as the
+    kernel keeps its running state, without the ln 2 factor),
+    ``moe_dw_zero`` / ``cin_dw_zero`` (the weight gradient of ``MoeGemm`` /
+    ``CinLayer`` dropped), ``table_grad_zero`` (``EmbeddingBag``'s table
+    gradient dropped)."""
+    from unittest import mock
+
+    from repro_torch.kernels.cin_interaction.ops import CinLayer
+    from repro_torch.kernels.embedding_bag.ops import EmbeddingBag
+    from repro_torch.kernels.flash_attention.ops import flash_attention_tpu_fwd
+    from repro_torch.kernels.moe_gemm.ops import MoeGemm
+    from repro_torch.models import transformer
+
+    def zeroed(fn, i):
+        def backward(ctx, *douts):
+            grads = list(fn(ctx, *douts))
+            grads[i] = None if grads[i] is None else torch.zeros_like(grads[i])
+            return tuple(grads)
+        return staticmethod(backward)
+
+    def base2(q, k, v, causal, block_kv):
+        out, lse = flash_attention_tpu_fwd(q, k, v, causal, block_kv)
+        return out, lse / math.log(2.0)
+
+    patch = {"lse_base2": lambda: mock.patch.object(transformer, "flash_attention_tpu_fwd",
+                                                    base2),
+             "moe_dw_zero": lambda: mock.patch.object(MoeGemm, "backward",
+                                                      zeroed(MoeGemm.backward, 1)),
+             "cin_dw_zero": lambda: mock.patch.object(CinLayer, "backward",
+                                                      zeroed(CinLayer.backward, 2)),
+             "table_grad_zero": lambda: mock.patch.object(EmbeddingBag, "backward",
+                                                          zeroed(EmbeddingBag.backward, 1))}
+    with patch[fault]():
+        yield
+
+
+def train_grad_check(name: str, grads, plain_grads, faults: tuple, limit: float) -> dict:
+    """The first step's gradients ``{leaf: tensor}``, ``grads()`` on the
+    kernel path against ``plain_grads()``: each leaf's relative L2 gap
+    within ``limit``; then ``grads()`` under each planted fault of
+    ``faults`` (see :func:`_planted`), whose largest gap must exceed the
+    limit, so that the check is seen to catch a wrong backward in this run.
+    Launches here are comparisons: the steps count theirs anew."""
+    want = plain_grads()
+
+    def gaps(got: dict) -> dict:
+        out = {}
+        for k, g in got.items():
+            num = float(torch.linalg.vector_norm(g.float() - want[k].float()))
+            den = float(torch.linalg.vector_norm(want[k].float()))
+            out[k] = num / den if den > 0 else (0.0 if num == 0 else math.inf)
+        return out
+
+    sound = gaps(grads())
+    worst = max(sound, key=sound.get)
+    r = {"limit": limit, "max_gap": sound[worst], "leaf": worst, "gaps": sound,
+         "planted": {}}
+    _train_check(sound[worst] <= limit,
+                 f"train {name}: gradient of {worst} off the plain path's by {sound[worst]}")
+    for fault in faults:
+        with _planted(fault):
+            g = gaps(grads())
+        w = max(g, key=g.get)
+        r["planted"][fault] = {"max_gap": g[w], "leaf": w}
+        _train_check(g[w] > limit,
+                     f"train {name}: planted {fault} left every gradient within "
+                     f"{limit} (largest {g[w]} at {w})")
+    return r
+
+
+def _free(dev) -> None:
+    import gc
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def train_lm(name: str, args, dev, checkpoint: bool = False) -> dict:
+    """``name`` at full width, ``TRAIN_LM_LAYERS`` layers, bf16: the
+    kernel path (attention through ``FlashAttention`` over the kernel's
+    forward, MoE products
+    through ``MoeGemm``) against the plain path (``attention="torch"``);
+    every attention launch must write the log-sum-exp and take ``wgmma``,
+    every ``moe_gemm`` launch too.  With ``checkpoint``, then
+    :func:`train_checkpoint` on the model."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipelines import lm_batches
+    from repro_torch.models import steps, transformer
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = dataclasses.replace(get_config(name), n_layers=TRAIN_LM_LAYERS)
+    opt = OptConfig(**TRAIN_OPT)
+    t0 = time.perf_counter()
+    params = steps.init_model_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             next(lm_batches(cfg, TRAIN_LM_BATCH, TRAIN_LM_SEQ, seed=args.seed)).items()}
+    fns = (steps.make_lm_train_step(cfg, opt, n_micro=TRAIN_LM_MICRO),
+           steps.make_lm_train_step(cfg, opt, n_micro=TRAIN_LM_MICRO, attention="torch"))
+
+    def grads_of(attention):
+        def loss(p, bt):
+            return transformer.loss_fn(cfg, p, bt["tokens"], bt["targets"], attention=attention)
+        return lambda: steps._accum_grads(loss, params, batch, TRAIN_LM_MICRO)[2]
+
+    grad_check = train_grad_check(name, grads_of(None), grads_of("torch"), (
+        "lse_base2",) + (("moe_dw_zero",) if cfg.moe else ()), TRAIN_GRAD_GAP[cfg.dtype])
+    _free(dev)
+    r = train_one_model(name, params, fns, batch, TRAIN_STEPS[name], dev)
+    r["grad_check"] = grad_check
+    r.update(layers=cfg.n_layers, tokens_per_step=TRAIN_LM_BATCH * TRAIN_LM_SEQ,
+             n_micro=TRAIN_LM_MICRO, dtype=cfg.dtype, seconds=time.perf_counter() - t0)
+    kernels = ("flash_attention_tpu", "flash_attention_tpu_lse") + (
+        ("moe_gemm", "moe_gemm_backward") if cfg.moe else ())
+    _check_train(r, kernels, lambda loss: TRAIN_LM_LOSS_TOL)
+    for step in r["kernel_path"]["launches"]:
+        _train_check(step["flash_attention_tpu_lse"] == step["flash_attention_tpu"]
+                == TRAIN_LM_LAYERS * TRAIN_LM_MICRO,
+                f"train {name}: attention launches {step}, expected one with lse a layer a "
+                f"micro-batch")
+    if dev.type == "cuda":
+        for routes in r["kernel_path"]["routes"]:
+            _train_check(set(routes["flash_attention_tpu"]) == {"wgmma"}
+                    and set(routes["moe_gemm"]) <= {"wgmma"},
+                    f"train {name}: a launch off the tensor-core routes: {routes}")
+    if checkpoint:
+        r["checkpoint"] = train_checkpoint(params, cfg, fns[0], batch, dev)
+    del params
+    return r
+
+
+def train_recsys(name: str, args, dev) -> dict:
+    """``name`` (float32) on one ``recsys_batches`` batch of the registry's
+    train_batch rows (two-tower cut, see ``TRAIN_TT_ROWS``): the kernel path
+    against the plain path (this module's ``recsys_kernels(plain=True)``:
+    the lookups and the CIN run their plain versions under the same
+    autograd Functions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipelines import recsys_batches
+    from repro_torch.models import steps
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = get_config(name)
+    rows = TRAIN_RECSYS_ROWS or cfg.shapes["train_batch"].dims["batch"]
+    if name == "two-tower-retrieval":
+        cfg = dataclasses.replace(cfg, n_users=TRAIN_TT_VOCAB, n_items=TRAIN_TT_VOCAB)
+        rows = TRAIN_TT_ROWS
+    opt = OptConfig(**TRAIN_OPT)
+    t0 = time.perf_counter()
+    params = steps.init_model_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(recsys_batches(cfg, rows, seed=args.seed)).items()}
+    step = steps.make_recsys_train_step(cfg, opt)
+
+    def grads():
+        return steps._grads(lambda p, bt: steps._recsys_loss(cfg, p, bt), params, batch)[2]
+
+    def plain_grads():
+        with recsys_kernels(plain=True):
+            return grads()
+
+    grad_check = train_grad_check(name, grads, plain_grads, ("table_grad_zero",) + (
+        ("cin_dw_zero",) if cfg.interaction == "cin" else ()), TRAIN_GRAD_GAP["float32"])
+    _free(dev)
+    r = train_one_model(name, params, (step, step), batch, TRAIN_STEPS[name], dev,
+                        plain_ctx=lambda: recsys_kernels(plain=True))
+    r["grad_check"] = grad_check
+    r.update(rows=rows, seconds=time.perf_counter() - t0)
+    if name == "two-tower-retrieval":
+        r["cut"] = f"tables of {TRAIN_TT_VOCAB} rows (10,000,000 in the registry)"
+    kernels = ("embedding_bag", "cin_layer") if cfg.interaction == "cin" else ("embedding_bag",)
+    _check_train(r, kernels, lambda loss: TRAIN_RECSYS_LOSS_REL * max(1.0, abs(loss)))
+    del params
+    return r
+
+
+def train_gin(args, dev) -> dict:
+    """The GIN on the training driver's graph (2,000 nodes, degree 8, 32
+    features, 5 classes) with ``TRAIN_GIN_SEEDS`` seeds of fanout (10, 5):
+    no kernel of the table; the losses must fall and no kernel launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import graphs
+    from repro_torch.models import gnn, steps
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = get_config("gin-tu")
+    t0 = time.perf_counter()
+    g = graphs.synthetic_graph(2000, 8, 32, 5, args.seed)
+    params = gnn.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), 32, 5, dev)
+    batch = next(graphs.graph_batches(g, TRAIN_GIN_SEEDS, (10, 5), args.seed))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    opt = OptConfig(**TRAIN_OPT)
+    r = train_one_model("gin-tu", params, (steps.make_gnn_train_step(cfg, opt), None),
+                        batch, TRAIN_STEPS["gin-tu"], dev)
+    r.update(nodes=int(batch["node_feat"].shape[0]), edges=int(batch["edge_src"].shape[0]),
+             seconds=time.perf_counter() - t0)
+    _check_train(r, (), None)
+    _train_check(all(all(v == 0 for v in step.values()) for step in r["kernel_path"]["launches"]),
+            "train gin-tu: a kernel launched (the GIN has none)")
+    return r
+
+
+def train_driver(dev) -> dict:
+    """``repro_torch.launch.train.main`` in-process: xDeepFM at full size,
+    4 steps with a checkpoint every 2, then the same command again, which
+    resumes from step 4."""
+    import shutil
+
+    from repro_torch.launch import train as launch_train
+
+    d = TRAIN_CKPT_DIR / "driver"
+    shutil.rmtree(d, ignore_errors=True)
+    argv = ["--arch", RECSYS_CONFIG, "--steps", "4", "--ckpt-every", "2", "--ckpt-dir", str(d),
+            "--batch", "4096", "--device", dev.type]
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    first = launch_train.main(argv)
+    launches = _train_launches()
+    second = launch_train.main(argv)
+    steps_on_disk = sorted(int(p.name.split("_")[1]) for p in d.glob("step_*"))
+    _train_check([r["step"] for r in first] == [0, 1, 2, 3] and [r["step"] for r in second]
+            == [4, 5, 6, 7], "launch.train did not resume from step 4")
+    _train_check(steps_on_disk == [4, 6, 8], f"launch.train kept steps {steps_on_disk}")
+    _train_check(launches["embedding_bag"] > 0 and launches["cin_layer"] > 0,
+            f"launch.train launched {launches}")
+    shutil.rmtree(d, ignore_errors=True)
+    return {"argv": argv, "losses": [r["loss"] for r in first + second],
+            "steps_on_disk": steps_on_disk, "launches_first_run": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def train_checkpoint(params, cfg, step_fn, batch: dict, dev) -> dict:
+    """The bf16 qwen3-8b state (``TRAIN_LM_LAYERS`` layers, one train step
+    of ``step_fn`` on ``batch`` from a fresh AdamW state, so that m and v
+    hold values) saved with the port's Checkpointer, restored into the same
+    tensors zeroed:
+    every leaf equal bit for bit; its manifest opened again and held, from
+    the manifest alone, against what the reference's Checkpointer writes
+    for this state (:func:`expected_lm_manifest`: keys in its order,
+    shapes, dtypes)."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer, flatten
+    from repro_torch.models import steps
+    from repro_torch.train.optimizer import OptConfig
+
+    opt = OptConfig(**TRAIN_OPT)
+    state, _ = step_fn(steps.init_state(params, opt), batch)
+    d = TRAIN_CKPT_DIR / "lm"
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    Checkpointer(str(d), async_save=False).save(1, state)
+    t1 = time.perf_counter()
+    want = {k: v.detach().clone() for k, v in flatten(state).items()}
+    with torch.no_grad():
+        for v in flatten(state).values():
+            v.zero_()
+    t2 = time.perf_counter()
+    restored, step = Checkpointer(str(d)).restore(state)
+    torch.cuda.synchronize() if dev.type == "cuda" else None
+    t3 = time.perf_counter()
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t  # noqa: E731
+    differ = [k for k, v in flatten(restored).items() if not torch.equal(bits(v), bits(want[k]))]
+    manifest = json.loads((d / "step_0000000001" / "manifest.json").read_text())
+    leaves = {k: (r["shape"], r["dtype"]) for k, r in manifest["leaves"].items()}
+    expected = expected_lm_manifest(cfg, cfg.n_layers)
+    size = sum(p.stat().st_size for p in (d / "step_0000000001").iterdir())
+    shutil.rmtree(d, ignore_errors=True)
+    _train_check(step == 1 and not differ, f"checkpoint: {len(differ)} leaves differ after restore, "
+                                      f"first {differ[:3]}")
+    _train_check(list(leaves) == list(expected) and leaves == expected,
+            "checkpoint: the manifest differs from the reference's layout")
+    return {"leaves": len(leaves), "bytes": size, "save_s": t1 - t0, "restore_s": t3 - t2,
+            "bit_equal": True, "manifest_as_reference": True}
+
+
+def _qwen_leaves(cfg, n_layers: int) -> dict:
+    """The reference's qwen3-8b parameter leaves and shapes
+    (``repro.models.transformer.init_params``: qk-norm on, embeddings
+    untied), written out here from its layout (no JAX on the card)."""
+    d, hd, h, kh, f, v = (cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+                          cfg.vocab_size)
+    layers = {"attn_norm": (d,), "ffn_norm": (d,), "k_norm": (hd,), "q_norm": (hd,),
+              "w_down": (f, d), "w_gate": (d, f), "w_up": (d, f), "wk": (d, kh * hd),
+              "wo": (h * hd, d), "wq": (d, h * hd), "wv": (d, kh * hd)}
+    out = {"embed": [v, d], "final_norm": [d], "lm_head": [d, v]}
+    out.update({f"layers/{k}": [n_layers, *s] for k, s in layers.items()})
+    return out
+
+
+def expected_lm_manifest(cfg, n_layers: int) -> dict:
+    """path -> (shape, dtype) of an AdamW train state of the bf16 qwen3-8b,
+    in the reference's leaf order (jax sorts dict keys at every level:
+    ``opt/m/...``, ``opt/step``, ``opt/v/...``, ``params/...``, ``step``)."""
+    leaves = _qwen_leaves(cfg, n_layers)
+    names = sorted(leaves)  # embed < final_norm < layers/... < lm_head
+    out = {f"opt/m/{k}": (leaves[k], "float32") for k in names}
+    out["opt/step"] = ([], "int32")
+    out.update({f"opt/v/{k}": (leaves[k], "float32") for k in names})
+    out.update({f"params/{k}": (leaves[k], "bfloat16") for k in names})
+    out["step"] = ([], "int32")
+    return out
+
+
+def train_phase(args, dev) -> dict:
+    """The train phase: the kernel pieces against their plain versions,
+    then the training steps of every family, the driver and the
+    checkpointer (see the module docstring)."""
+    t0 = time.perf_counter()
+    attn = train_attention_pieces(dev, args.seed)
+    lse_ms = lse_timing(dev, args.reps) if dev.type == "cuda" else None
+    pieces, timed = train_model_pieces(dev, args.seed, args.reps)
+    bad = [r for r in attn + pieces if not r["within_tolerance"]]
+    emit("train_pieces", rows=len(attn) + len(pieces), outside_limits=bad,
+         attention=[r for r in attn if r["dtype"] == "bfloat16" or "at" in r["shape"]],
+         model_kernels=pieces, lse_timing=lse_ms, seconds=time.perf_counter() - t0)
+    require(not bad, f"{len(bad)} train pieces outside their limits, first {bad[:2]}")
+    _free(dev)
+    t1 = time.perf_counter()
+    models = []
+    for name in (LM_CONFIG, MOE_CONFIG):
+        models.append(train_lm(name, args, dev, checkpoint=name == LM_CONFIG))
+        _free(dev)
+    for name in (RECSYS_CONFIG, *RECSYS_OTHERS):
+        models.append(train_recsys(name, args, dev))
+        _free(dev)
+    models.append(train_gin(args, dev))
+    _free(dev)
+    t2 = time.perf_counter()
+    driver = train_driver(dev)
+    _free(dev)
+    by_kernel = lambda key: {k: max((r[key] for r in attn + pieces  # noqa: E731
+                                     if r["kernel"] == k and key in r), default=None)
+                             for k in TRAIN_KERNELS}
+    return {"pieces": {"rows": len(attn) + len(pieces), "max_abs_err": by_kernel("max_abs_err"),
+                       "limit_used": by_kernel("limit_used"),
+                       "lse_limit_used": max(r.get("lse_limit_used", 0.0) for r in attn),
+                       "one_key_limit_used": max(r.get("one_key_limit_used", 0.0) for r in attn),
+                       "grad_limit_used": {g: max(r["grad_limit_used"][g] for r in attn
+                                                  if "grad_limit_used" in r)
+                                           for g in ("dq", "dk", "dv")},
+                       "attention_at_path": [r for r in attn if "at" in r["shape"]],
+                       "timed": timed, "lse_timing": lse_ms},
+            "models": models, "checkpoint": models[0].pop("checkpoint"), "driver": driver,
+            "tolerance": {"lm_loss_abs": TRAIN_LM_LOSS_TOL,
+                          "recsys_loss_rel": TRAIN_RECSYS_LOSS_REL,
+                          "grad_gap": TRAIN_GRAD_GAP,
+                          "attention_grad": {"float32_of_max": ATTN_GRAD_F32_REL,
+                                             "bfloat16": ATTN_GRAD_BF16},
+                          "lse": "2 gamma_hd max_s |q||k| scale + 2 gamma_S + 2^-20 (1 + |lse|)",
+                          "moe_gemm_backward": "2 gamma(inner + 1) x plain(|a|, |b|)",
+                          "cin_layer_backward": "2 gamma_n x the same on |inputs|",
+                          "embedding_bag_backward": 0},
+            "pieces_s": t1 - t0, "models_s": t2 - t1, "phase_s": time.perf_counter() - t0,
+            "failures": list(TRAIN_FAILURES)}
+
+
 def build_sessions(built: dict, device: str, probe: str | None) -> tuple[dict, dict]:
     from repro_torch.serving.session import Session
 
@@ -3829,6 +4606,9 @@ def main() -> int:
     ap.add_argument("--lm-layers", type=int, default=None,
                     help="cut the lm_serve phase's model to this many layers "
                          "(default: full depth)")
+    ap.add_argument("--only-train", action="store_true",
+                    help="run the device, build and train phases alone (a quick check "
+                         "of the training path; prints no kernels line and no result)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3856,6 +4636,13 @@ def main() -> int:
     emit("build", seconds=info["seconds"], nvcc=info.get("nvcc"), library=info["library"],
          reused=info["reused"], sources=info["sources"],
          ptxas=ptxas_by_kernel(info["log"]))
+
+    if args.only_train:
+        train = train_phase(args, torch.device("cuda"))
+        emit("train", card=card, **train)
+        require(not train["failures"], f"train: {train['failures']}")
+        emit("done", seconds=round(time.perf_counter() - t_start, 1))
+        return 0
 
     built = build_indexes(args, "cuda")  # the mining path
     emit("mining", card=card, **mining_check(built, "cuda"))
@@ -4030,6 +4817,14 @@ def main() -> int:
          at_path=model_path)
     require(not bad, f"{len(bad)} model-side kernel outputs outside their tolerance, "
             f"first {bad[:2]}")
+    torch.cuda.empty_cache()
+
+    # training on the card: the kernels' gradient pieces against their plain
+    # versions, then the LM, MoE, recsys and GIN train steps (kernel path
+    # against plain path), the training driver and the checkpointer
+    train = train_phase(args, dev)
+    emit("train", card=card, **train)
+    require(not train["failures"], f"train: {train['failures']}")
 
     # one entry per kernel: the serving kernels at the positional phrase2
     # shape (the serve path's most frequent) — the window kernels on the fused
@@ -4106,6 +4901,26 @@ def main() -> int:
         elif name in ROUTED_KERNELS:
             kernels[-1].update(kernel_route=r["route"], launches_by_route={
                 phase: by[name] for phase, by in moe["launches_by_route"].items()})
+    # the train phase's launches beside the serving ones: per model, the
+    # launches of its kernel-path steps (row 7's with the log-sum-exp, row
+    # 11's backward products), and row 11's backward products timed
+    for k in kernels:
+        if k["name"] in TRAIN_KERNELS:
+            by_model = {r["model"]: sum(step[k["name"]] for step in r["kernel_path"]["launches"])
+                        for r in train["models"]}
+            k["launches_train"] = {m: n for m, n in by_model.items() if n}
+    row7, = [k for k in kernels if k["name"] == "flash_attention_tpu"]
+    row7["launches_train_lse"] = {r["model"]: sum(s["flash_attention_tpu_lse"] for s in
+                                                  r["kernel_path"]["launches"])
+                                  for r in train["models"] if r["model"] in (LM_CONFIG,
+                                                                            MOE_CONFIG)}
+    row7["lse_timing"] = train["pieces"]["lse_timing"]
+    row11, = [k for k in kernels if k["name"] == "moe_gemm"]
+    row11["launches_train_backward"] = sum(s["moe_gemm_backward"] for r in train["models"]
+                                           for s in r["kernel_path"]["launches"])
+    row11["backward_at_path"] = {at: {key: r[key] for key in timing_keys + ("route",)}
+                                 for at, r in train["pieces"]["timed"].items()
+                                 if at.startswith("train/moonshot")}
     require(len(kernels) == len(KERNEL_META), f"the kernels line lists {len(kernels)} "
             f"kernels, expected {len(KERNEL_META)}")
     emit("done", seconds=round(time.perf_counter() - t_start, 1))

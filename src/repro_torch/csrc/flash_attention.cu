@@ -11,7 +11,12 @@
 //   scale * q[b, t, h] . k[b, s, h / G] (scale = 1/sqrt(hd));
 //   online softmax in f32 with m starting at kNegInf, masked scores set to
 //   it and their p to 0; out = acc / max(l, 1e-30), written in q's dtype
-//   (f32 or bf16), contiguous (B, T, H, hd).
+//   (f32 or bf16), contiguous (B, T, H, hd); where the caller passes an lse
+//   buffer (training: the backward's residual), also the natural
+//   log-sum-exp of each row's scaled scores, lse = m + log(max(l, 1e-30)),
+//   float32, contiguous (B, T, H) (the reference's (B, T, K, G)).  The
+//   wgmma instance keeps m and l in base 2 (scores times scale * log2(e)),
+//   so it writes (m2 + log2(max(l, 1e-30))) * ln 2.
 //
 // The Pallas kernel walks (batch*kv_head, q block, kv block) in grid order
 // with (m, l, acc) in VMEM across the kv axis, after its op has transposed
@@ -86,6 +91,7 @@ struct FaArgs {
   const void* k;
   const void* v;
   void* out;
+  float* lse;  // (B, T, H) or null
   int t, s, h, g, causal;
   float scale;
   long long qsb, qst, qsh;  // element strides of q over batch, time, head
@@ -237,7 +243,9 @@ __global__ void __launch_bounds__(kFaThreads, 2) flash_attention_kernel(FaArgs a
     const int t = q0 + ty * kRowsPerThread + i;
     if (t >= a.t) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    Elem* row = og + ((static_cast<long long>(b) * a.t + t) * a.h + h) * HD;
+    const long long bth = (static_cast<long long>(b) * a.t + t) * a.h + h;
+    if (a.lse != nullptr && tx == 0) a.lse[bth] = m[i] + logf(denom);
+    Elem* row = og + bth * HD;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) row[tx + kLanes * c] = from_f32<Elem>(acc[i][c] / denom);
   }
@@ -274,6 +282,7 @@ struct TcSmem {
 
 struct TcArgs {
   void* out;
+  float* lse;  // (B, T, H) or null
   int t, s, h, g, causal;
   float scale_log2;  // scale * log2(e), applied to the f32 scores
 };
@@ -462,7 +471,12 @@ flash_attention_wgmma_kernel(__grid_constant__ const CUtensorMap tm_q,
       const int t = t0 + 8 * r;
       if (t >= a.t) continue;
       const float denom = fmaxf(l[r], 1e-30f);
-      __nv_bfloat16* row = og + ((static_cast<long long>(b) * a.t + t) * a.h + h) * HD;
+      const long long bth = (static_cast<long long>(b) * a.t + t) * a.h + h;
+      // m and l in base 2: the natural log-sum-exp is (m + log2 l) ln 2
+      if (a.lse != nullptr && lane % 4 == 0) {
+        a.lse[bth] = (m[r] + log2f(denom)) * 0.6931471805599453f;
+      }
+      __nv_bfloat16* row = og + bth * HD;
 #pragma unroll
       for (int i = 2 * r; i < HD / 2; i += 4) {  // the pairs of row t0 + 8 r
         const int col = 8 * (i / 4) + 2 * (lane % 4);
@@ -519,7 +533,7 @@ constexpr int kRouteFma = 0;
 constexpr int kRouteWgmma = 1;
 
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int b, int t, int s, int h, int kh, int hd, int dtype,
+                                      float* lse, int b, int t, int s, int h, int kh, int hd, int dtype,
                                       int causal, float scale, long long qsb, long long qst,
                                       long long qsh, long long ksb, long long kss, long long ksh,
                                       long long vsb, long long vss, long long vsh, int route,
@@ -535,14 +549,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
         || !tma_ready(k, ksb, kss, ksh) || !tma_ready(v, vsb, vss, vsh)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const TcArgs a{out, t, s, h, h / kh, causal, scale * 1.4426950408889634f};
+    const TcArgs a{out, lse, t, s, h, h / kh, causal, scale * 1.4426950408889634f};
     return hd == 128 ? launch_wgmma<128>(q, k, v, a, b, kh, qsb, qst, qsh, ksb, kss, ksh, vsb,
                                          vss, vsh, stream)
                      : launch_wgmma<64>(q, k, v, a, b, kh, qsb, qst, qsh, ksb, kss, ksh, vsb,
                                         vss, vsh, stream);
   }
   if (route != kRouteFma) return static_cast<int>(cudaErrorInvalidValue);
-  const FaArgs a{q, k, v, out, t, s, h, h / kh, causal, scale,
+  const FaArgs a{q, k, v, out, lse, t, s, h, h / kh, causal, scale,
                  qsb, qst, qsh, ksb, kss, ksh, vsb, vss, vsh};
   switch (hd) {
     case 16: return bf16 ? launch<__nv_bfloat16, 16>(a, b, stream)

@@ -2,7 +2,7 @@
 CUDA card, for the ``repro_torch`` found first on ``sys.path``::
 
     python3 src/repro_torch/kernels/ab_timing.py [--src OTHER/src] [--reps N]
-                                                 [--only index|model]
+                                                 [--only index|model|attention]
                                                  [--windows FILE.npz]
 
 ``--src`` puts another checkout's ``src`` first, so two checkouts of the
@@ -30,6 +30,10 @@ card: run them in turns in one call (A B B A).  Inputs are random, seeded.
   for the lookups; float32 within 1e-5 absolute / bf16 within 2^-7 of the
   value + 1e-5 for the attention, 2 gamma_(m Hk + 2) of the sum of |terms|
   for the CIN).
+* attention: ``flash_attention_tpu`` at the two LM prefill layers
+  (qwen3-8b and moonshot-v1-16b-a3b, 4 x 2,048 tokens, hd 128, bf16: the
+  ``wgmma`` instance), called as serving calls it (no log-sum-exp), beside
+  its plain version within the bf16 limit.
 
 Prints one JSON line: the card's name and power limit, the checkout's
 ``src``, the timing's own floor (two events back to back, an almost empty
@@ -274,13 +278,31 @@ def model_side(torch, out: dict, reps_arg: int, seed: int) -> None:
     out["xdeepfm serve_p99 step (512 rows), s"] = statistics.median(secs)
 
 
+def attention(torch, out: dict, reps: int, seed: int) -> None:
+    from repro_torch.kernels.flash_attention.ops import flash_attention_torch, flash_attention_tpu
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for name, h, kh in (("qwen3-8b", 32, 8), ("moonshot-v1-16b-a3b", 16, 16)):
+        q, k, v = (torch.randn(s, generator=g, device=dev).bfloat16()
+                   for s in ((4, 2048, h, 128), (4, 2048, kh, 128), (4, 2048, kh, 128)))
+        got = flash_attention_tpu(q, k, v, True).float()
+        want = flash_attention_torch(q, k, v, True).float()
+        ok = bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-5).all())
+        out[f"flash_attention_tpu/{name} prefill layer, B 4, T 2048"] = {
+            "ms": device_ms(torch, lambda: flash_attention_tpu(q, k, v, True), reps),
+            "within": ok}
+        del q, k, v, got, want
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("index", "model"), default=None,
-                    help="time one side only (default: both)")
+    ap.add_argument("--only", choices=("index", "model", "attention"), default=None,
+                    help="time one side only, or the prefill attention alone (default: "
+                         "both sides)")
     ap.add_argument("--windows", default=None,
                     help="recorded fused windows (chip_smoke.py --save-windows) to time "
                          "one serve step on (index side)")
@@ -301,12 +323,14 @@ def main() -> int:
     out["timing floor"] = {"events_ms": device_ms(torch, lambda: None, args.reps),
                            "empty_kernel_ms": device_ms(torch, lambda: torch.cuda._sleep(0),
                                                         args.reps)}
-    if args.only != "model":
+    if args.only == "attention":
+        attention(torch, out, args.reps, args.seed)
+    if args.only in (None, "index"):
         index_side(torch, out, args.reps, args.seed)
         if args.windows:
             fused_steps(torch, out, args.reps, args.windows)
             signature_calls(torch, out, args.reps, args.windows)
-    if args.only != "index":
+    if args.only in (None, "model"):
         model_side(torch, out, args.reps, args.seed)
     print(json.dumps(out), flush=True)
     return 0

@@ -9,6 +9,11 @@ reference's two einsums (outer product, then the contraction with w), in
 batch chunks whose outer product stays under :data:`PLAIN_CHUNK_BYTES` (at
 xDeepFM's widths the whole product of a 262,144-row batch is 81.8 GB).  As
 the reference's op, both cast every input to float32 first; neither pads.
+
+Training goes through :class:`CinLayer`: its forward is the kernel (or the
+layer the caller passes), its backward :func:`cin_layer_backward`, plain
+PyTorch in the same batch chunks as the plain forward (at 65,536 rows of
+xDeepFM the whole outer product would be 20 GB).
 """
 
 from __future__ import annotations
@@ -87,3 +92,47 @@ def cin_layer(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tens
 
 #: kernel launches made by the wrapper (never raised by the plain version)
 cin_layer.launches = 0
+
+
+def cin_layer_backward(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor,
+                       dout: torch.Tensor):
+    """``(dx0, dxk, dw)`` float32 of :func:`cin_layer` for the output
+    gradient ``dout`` (B, H, D): with ``z[b, i*Hk + j, d] = x0[b, i, d] *
+    xk[b, j, d]`` and ``dz = w @ dout``, ``dw = sum_{b, d} z dout``, ``dx0 =
+    sum_j dz xk`` and ``dxk = sum_i dz x0``; z and dz one batch chunk of
+    :func:`plain_chunk_rows` rows at a time, dw summed over the chunks in
+    order."""
+    _check_shapes(x0, xk, w)
+    x0, xk, w, dout = x0.float(), xk.float(), w.float(), dout.float()
+    b, m, d = x0.shape
+    hk = xk.shape[1]
+    dx0, dxk = torch.empty_like(x0), torch.empty_like(xk)
+    dw = torch.zeros_like(w)
+    step = plain_chunk_rows(m, hk, d)
+    for s in range(0, b, step):
+        a, bk, g = x0[s:s + step], xk[s:s + step], dout[s:s + step]
+        z = torch.einsum("bmd,bhd->bmhd", a, bk).reshape(len(a), m * hk, d)
+        dw = dw + torch.einsum("bid,bhd->ih", z, g)
+        del z
+        dz = torch.einsum("ih,bhd->bid", w, g).reshape(len(a), m, hk, d)
+        dx0[s:s + step] = torch.einsum("bmhd,bhd->bmd", dz, bk)
+        dxk[s:s + step] = torch.einsum("bmhd,bmd->bhd", dz, a)
+    return dx0, dxk, dw
+
+
+class CinLayer(torch.autograd.Function):
+    """``CinLayer.apply(x0, xk, w, layer)``: ``layer(x0, xk, w)`` (default
+    :func:`cin_layer`: the kernel on CUDA) as the forward, (B, H, D)
+    float32; :func:`cin_layer_backward` as the backward, each gradient in
+    its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x0, xk, w, layer=None):
+        ctx.save_for_backward(x0, xk, w)
+        return (layer or cin_layer)(x0, xk, w)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x0, xk, w = ctx.saved_tensors
+        dx0, dxk, dw = cin_layer_backward(x0, xk, w, dout)
+        return dx0.to(x0.dtype), dxk.to(xk.dtype), dw.to(w.dtype), None

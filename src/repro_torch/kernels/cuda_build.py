@@ -56,9 +56,9 @@ SIGNATURES = {
                             _I, _P, _L, _P),
     # (shingles, lens, a, b, out, D, L, P, route, stream)
     "minhash_rows_launch": (_P, _P, _P, _P, _P, _L, _L, _I, _I, _P),
-    # (q, k, v, out, B, T, S, H, K, hd, dtype, causal, scale,
+    # (q, k, v, out, lse or null, B, T, S, H, K, hd, dtype, causal, scale,
     #  q strides b/t/h, k strides b/s/k, v strides b/s/k, route, stream)
-    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+    "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P),
     # (q, k, v, positions, part, out, B, S, H, K, hd, q dtype, kv dtype, scale,
     #  chunk, n_splits, route, q strides b/h, k strides b/s/k, v strides b/s/k,
@@ -225,9 +225,12 @@ def require_cuda(name: str, t) -> None:
 
 
 def require_no_grad(name: str, *tensors) -> None:
-    """The kernels have no backward (it comes with the training slice): a
-    call that autograd would have to differentiate is refused."""
+    """A wrapper has no backward of its own: a direct call that autograd
+    would have to differentiate is refused (the training path calls the
+    ``torch.autograd.Function`` of its kernel, whose forward runs without
+    grad)."""
     import torch
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{name} has no backward yet; call it under torch.no_grad()")
+        raise NotImplementedError(f"{name} has no backward; call it under torch.no_grad() "
+                                  f"or train through its autograd Function")

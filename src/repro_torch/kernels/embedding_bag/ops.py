@@ -12,12 +12,19 @@ outside ``[0, V)`` is never read: its bag comes out NaN, as the reference's
 ``jnp.take`` fills such rows with NaN (callers that want an error check
 their indices first, as ``models.recsys`` does).  Unlike the reference's
 op, the table is not padded to 128 columns.
+
+Training goes through :class:`EmbeddingBag`: its forward is the kernel (or
+whatever lookup the caller passes), its backward
+:func:`embedding_bag_backward`, the table gradient summed by
+``models.segment.ordered_segment_sum`` (a fixed order of float32 adds, the
+same bits on the CPU and the card: no float atomics).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...models.segment import ordered_segment_sum
 from .. import cuda_build
 
 
@@ -111,3 +118,35 @@ def embedding_bag(indices: torch.Tensor, table: torch.Tensor, bag_size: int = 1)
 #: raised by the plain version)
 embedding_bag.launches = 0
 embedding_bag.launches_by_route = dict.fromkeys(ROUTE_CODES, 0)
+
+
+def embedding_bag_backward(indices: torch.Tensor, dout: torch.Tensor, n_rows: int,
+                           bag_size: int = 1) -> torch.Tensor:
+    """The table gradient (n_rows, D) float32 of ``embedding_bag(indices,
+    table, bag_size)`` for the output gradient ``dout`` (n_bags, D): row r
+    sums ``dout[j // bag]`` over the flat positions j with ``indices[j] ==
+    r``, by :func:`~repro_torch.models.segment.ordered_segment_sum`; ids
+    outside ``[0, n_rows)`` add nothing."""
+    idx = indices.reshape(-1)
+    bag = indices.shape[1] if indices.dim() == 2 else bag_size
+    per_index = dout.float()[torch.arange(idx.numel(), device=dout.device) // bag]
+    return ordered_segment_sum(per_index, idx, n_rows)
+
+
+class EmbeddingBag(torch.autograd.Function):
+    """``EmbeddingBag.apply(indices, table, bag_size, lookup)``: ``lookup(indices,
+    table, bag_size)`` (default :func:`embedding_bag`: the kernel on CUDA)
+    as the forward, float32 (n_bags, D); the table gradient by
+    :func:`embedding_bag_backward`, in the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, indices, table, bag_size: int = 1, lookup=None):
+        ctx.save_for_backward(indices)
+        ctx.n_rows, ctx.bag, ctx.dtype = table.shape[0], bag_size, table.dtype
+        return (lookup or embedding_bag)(indices, table, bag_size)
+
+    @staticmethod
+    def backward(ctx, dout):
+        indices, = ctx.saved_tensors
+        grad = embedding_bag_backward(indices, dout, ctx.n_rows, ctx.bag)
+        return None, grad.to(ctx.dtype), None, None

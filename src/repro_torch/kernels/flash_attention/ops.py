@@ -16,6 +16,13 @@ their probabilities 0; the output is ``acc / max(l, 1e-30)`` in q's dtype.
 in plain PyTorch (scores scaled after the sum, ``exp2``, P split into bf16
 terms); tests and ``chip_smoke.py`` hold it against the reference, the
 model never calls it.
+
+With ``return_lse`` both (the kernel's two instances and the plain version)
+also return each row's natural log-sum-exp of its scaled scores, float32
+(B, T, H): the residual of the backward.  :func:`flash_attention_tpu_fwd`
+is that launch as the forward of ``models.flash.FlashAttention``, whose
+backward is the reference's custom VJP in plain PyTorch (the reference has
+no backward kernel).
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import math
 
 import torch
 
-from ...models.flash import NEG_INF, flash_attention
+from ...models.flash import NEG_INF, flash_attention_fwd
 from .. import cuda_build
 
 #: head dims the kernel is built for (one template instance each)
@@ -52,13 +59,14 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True) -> torch.Tensor:
+                          causal: bool = True, return_lse: bool = False):
     """Plain PyTorch version of :func:`flash_attention_tpu`: one block of all
     S keys, so the whole (B, T, K, G, S) score tensor in float32 at once (a
     softmax over every key, which is what the kernel's online recurrence
     computes)."""
     _check_shapes(q, k, v)
-    return flash_attention(q, k, v, causal, block_kv=k.shape[1])
+    out, lse = flash_attention_fwd(q, k, v, causal, block_kv=k.shape[1])
+    return (out, lse.reshape(q.shape[:3])) if return_lse else out
 
 
 def _tma_ready(t: torch.Tensor) -> bool:
@@ -118,9 +126,10 @@ def flash_attention_split_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 
 
 def flash_attention_tpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, return_lse: bool = False):
     """q (B, T, H, hd); k, v (B, S, K, hd), GQA with H a multiple of K.
-    Returns (B, T, H, hd) in q's dtype.
+    Returns (B, T, H, hd) in q's dtype, and with ``return_lse`` also the
+    rows' log-sum-exp (B, T, H) float32.
 
     The kernel takes float32 or bfloat16 (q, k and v of one dtype), head dims
     :data:`HEAD_DIMS`, and any strides whose last one is 1 (the model layout
@@ -129,7 +138,7 @@ def flash_attention_tpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     need one is refused.
     """
     if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v, causal)
+        return flash_attention_torch(q, k, v, causal, return_lse)
     dtype = cuda_build.require_float("q", q, 4)
     for name, t in (("k", k), ("v", v)):
         if cuda_build.require_float(name, t, 4) != dtype:
@@ -144,23 +153,36 @@ def flash_attention_tpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cuda_build.require_cuda("q", q)
     cuda_build.require_no_grad("flash_attention_tpu", q, k, v)
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, t, h), dtype=torch.float32, device=q.device) if return_lse else None
     if b == 0 or t == 0 or h == 0:
-        return out
+        return (out, lse) if return_lse else out
     route = flash_attention_route(q, k, v)
     lib = cuda_build.load()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, s, h, kh, hd, dtype, int(causal), 1.0 / math.sqrt(hd),
+            None if lse is None else lse.data_ptr(), b, t, s, h, kh, hd, dtype, int(causal), 1.0 / math.sqrt(hd),
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2), ROUTE_CODES[route], cuda_build.stream_ptr())
     cuda_build.check(code, f"flash_attention_tpu ({route})")
     flash_attention_tpu.launches += 1
     flash_attention_tpu.launches_by_route[route] += 1
-    return out
+    if return_lse:
+        flash_attention_tpu.launches_lse += 1
+    return (out, lse) if return_lse else out
 
 
 #: kernel launches made by the wrapper (never raised by the plain version),
-#: in all and by instance
+#: in all, by instance, and those that also wrote the log-sum-exp
 flash_attention_tpu.launches = 0
 flash_attention_tpu.launches_by_route = dict.fromkeys(ROUTE_CODES, 0)
+flash_attention_tpu.launches_lse = 0
+
+
+def flash_attention_tpu_fwd(q, k, v, causal: bool = True, block_kv: int | None = None):
+    """``(out, lse)`` from the kernel, launched with ``return_lse``: the
+    forward that ``models.flash.FlashAttention`` takes to train through the
+    kernel (``FlashAttention.apply(q, k, v, causal, block_kv,
+    flash_attention_tpu_fwd)``).  ``block_kv`` is the plain recurrence's KV
+    block; the kernel has its own tiles and ignores it."""
+    return flash_attention_tpu(q, k, v, causal, return_lse=True)

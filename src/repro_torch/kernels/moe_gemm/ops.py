@@ -12,6 +12,12 @@ operands widened to float32, one batched product.  All sum exact products
 of the widened operands in float32 (the tensor cores with truncating
 adds); they differ only in the order and rounding of the sums.  None pads
 C, D or F (the reference's op pads them to its TPU tiles).
+
+Training goes through :class:`MoeGemm`, whose forward and both backward
+products are grouped products of the same kind, each one call of the gemm
+it is given (default :func:`moe_gemm`: three launches of the kernel): ``out
+= buf @ w``, ``dbuf = dout @ w^T`` (E, C, F) x (E, F, D) and ``dw = buf^T @
+dout`` (E, D, C) x (E, C, F), on contiguous transposed copies.
 """
 
 from __future__ import annotations
@@ -114,3 +120,36 @@ def moe_gemm(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 #: in all and by route
 moe_gemm.launches = 0
 moe_gemm.launches_by_route = dict.fromkeys(ROUTE_CODES, 0)
+
+#: launches made by :class:`MoeGemm`'s backward (also counted in ``launches``)
+moe_gemm.launches_backward = 0
+
+
+class MoeGemm(torch.autograd.Function):
+    """``MoeGemm.apply(buf, w, gemm)``: ``gemm(buf, w)`` (default
+    :func:`moe_gemm`) cast to buf's dtype, which is what the MoE layer uses
+    (the reference's einsum gives its operands' dtype).  So the output
+    gradient arrives in that dtype, and the backward's two products take
+    operands of the forward's dtypes: bf16 x bf16 for a bf16 model, the
+    route the forward takes, with no rounding the plain path's float32
+    products would not also make (a bf16 gradient widens to float32
+    exactly).  Each gradient comes back in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, buf, w, gemm=None):
+        ctx.save_for_backward(buf, w)
+        ctx.gemm = gemm or moe_gemm
+        return ctx.gemm(buf, w).to(buf.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        buf, w = ctx.saved_tensors
+        n0 = moe_gemm.launches
+        dout = dout.contiguous()
+        dbuf = dw = None
+        if ctx.needs_input_grad[0]:
+            dbuf = ctx.gemm(dout, w.transpose(1, 2).contiguous()).to(buf.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = ctx.gemm(buf.transpose(1, 2).contiguous(), dout).to(w.dtype)
+        moe_gemm.launches_backward += moe_gemm.launches - n0
+        return dbuf, dw, None

@@ -19,6 +19,16 @@ where the two frameworks differ: a product of float32 and bfloat16 operands
 is float32 (:func:`_mm`), and SASRec's ``scores / np.sqrt(hd)`` is float32
 (the numpy scalar is strongly typed in JAX).
 
+Training (``sasrec_train_logits``, ``tt_train_loss`` and the logits of
+FM / xDeepFM under autograd, driven by ``steps.make_recsys_train_step``):
+with autograd on and a table that wants a gradient, each lookup goes
+through ``kernels.embedding_bag.ops.EmbeddingBag`` and each CIN layer
+through ``kernels.cin_interaction.ops.CinLayer`` — the kernel as the
+forward (whatever this module's ``embedding_bag`` / ``cin_layer`` name at
+the call) and a plain PyTorch backward; the table gradients are ordered
+sums (``models.segment``), the same bits on the CPU and the card.  The
+serving steps run these functions under ``torch.no_grad()``.
+
 Field ids are checked against their field's vocabulary: the reference's
 ``jnp.take`` on the concatenated table would read a row of the next field
 without a word.  Out of range raises ``IndexError`` at once for CPU ids and
@@ -38,8 +48,8 @@ from torch import nn
 
 from ..configs.base import RecsysConfig
 from ..core.device import resolve_device
-from ..kernels.cin_interaction.ops import cin_layer
-from ..kernels.embedding_bag.ops import embedding_bag
+from ..kernels.cin_interaction.ops import CinLayer, cin_layer
+from ..kernels.embedding_bag.ops import EmbeddingBag, embedding_bag
 from .layers import rms_norm
 
 N_USER_FIELDS = 16
@@ -67,10 +77,26 @@ def _rows(cfg: RecsysConfig, fields: torch.Tensor) -> torch.Tensor:
     return (fields + offs[:-1]).to(torch.int32)
 
 
+def _bag(ids: torch.Tensor, table: torch.Tensor, bag: int) -> torch.Tensor:
+    """``embedding_bag(ids, table, bag)``, through its autograd Function when
+    the table wants a gradient."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return EmbeddingBag.apply(ids, table, bag, embedding_bag)
+    return embedding_bag(ids, table, bag)
+
+
+def _cin(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``cin_layer(x0, xk, w)``, through its autograd Function when an
+    input wants a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x0, xk, w)):
+        return CinLayer.apply(x0, xk, w, cin_layer)
+    return cin_layer(x0, xk, w)
+
+
 def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` (ids of any shape) through ``embedding_bag`` with bags
     of 1, in the table's dtype (a float32 sum of one row is the row)."""
-    out = embedding_bag(ids.reshape(-1), table, 1)
+    out = _bag(ids.reshape(-1), table, 1)
     return out.to(table.dtype).reshape(*ids.shape, table.shape[1])
 
 
@@ -284,14 +310,13 @@ def recsys_params_from_reference(cfg: RecsysConfig, params: dict, device="cuda")
 # ----------------------------------------------------------------------
 # FM (Rendle 2010)
 # ----------------------------------------------------------------------
-@torch.no_grad()
 def fm_logits(cfg: RecsysConfig, params, fields: torch.Tensor) -> torch.Tensor:
     rows = _rows(cfg, fields)
     m = cfg.n_fields
     v = _lookup(params.table, rows)  # (B, F, K)
-    lin = embedding_bag(rows, params.linear[:, None], m)[:, 0].to(params.linear.dtype)
+    lin = _bag(rows, params.linear[:, None], m)[:, 0].to(params.linear.dtype)
     # O(nk) sum-square trick: 0.5 * ((sum v)^2 - sum v^2)
-    s = embedding_bag(rows, params.table, m).to(params.table.dtype)
+    s = _bag(rows, params.table, m).to(params.table.dtype)
     s2 = (v * v).sum(dim=1)
     pair = 0.5 * (s * s - s2).sum(dim=-1)
     return params.bias + lin + pair
@@ -300,17 +325,15 @@ def fm_logits(cfg: RecsysConfig, params, fields: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------
 # xDeepFM (CIN + deep MLP)
 # ----------------------------------------------------------------------
-@torch.no_grad()
 def xdeepfm_logits(cfg: RecsysConfig, params, fields: torch.Tensor) -> torch.Tensor:
     rows = _rows(cfg, fields)
     x0 = _lookup(params.table, rows)  # (B, m, K)
-    lin = embedding_bag(rows, params.linear[:, None], cfg.n_fields)[:, 0].to(
-        params.linear.dtype)
+    lin = _bag(rows, params.linear[:, None], cfg.n_fields)[:, 0].to(params.linear.dtype)
     # CIN: x^{l+1}_{h,:} = sum_{i,j} W^l_{h,ij} (x0_i * xl_j), one kernel a layer
     xl = x0
     pooled = []
     for w in params.cin:
-        xl = cin_layer(x0, xl, w).to(x0.dtype)  # (B, H, K)
+        xl = _cin(x0, xl, w).to(x0.dtype)  # (B, H, K)
         pooled.append(xl.sum(dim=-1))  # (B, H)
     cin_term = _mm(torch.cat(pooled, dim=-1), params.cin_out)[:, 0]
     deep = _mlp(x0.reshape(x0.shape[0], -1), params.mlp_w, params.mlp_b)[:, 0]
@@ -320,7 +343,6 @@ def xdeepfm_logits(cfg: RecsysConfig, params, fields: torch.Tensor) -> torch.Ten
 # ----------------------------------------------------------------------
 # SASRec (self-attentive sequential recommendation)
 # ----------------------------------------------------------------------
-@torch.no_grad()
 def sasrec_encode(cfg: RecsysConfig, params, hist: torch.Tensor) -> torch.Tensor:
     """hist (B, T) item ids (0 = pad) -> (B, T, d) causal sequence states."""
     b, t = hist.shape
@@ -344,7 +366,16 @@ def sasrec_encode(cfg: RecsysConfig, params, hist: torch.Tensor) -> torch.Tensor
     return rms_norm(h, params.final_norm) * mask
 
 
-@torch.no_grad()
+def sasrec_train_logits(cfg: RecsysConfig, params, hist: torch.Tensor, labels: torch.Tensor,
+                        negatives: torch.Tensor):
+    """BPR-style: ``(pos, neg)`` (B, T) scores of the next-item positives and
+    of sampled negatives."""
+    h = sasrec_encode(cfg, params, hist)  # (B, T, d)
+    pos_e = _lookup(params.item_emb, labels)
+    neg_e = _lookup(params.item_emb, negatives)
+    return torch.sum(h * pos_e, dim=-1), torch.sum(h * neg_e, dim=-1)
+
+
 def sasrec_serve_scores(cfg: RecsysConfig, params, hist: torch.Tensor,
                         target: torch.Tensor) -> torch.Tensor:
     h = sasrec_encode(cfg, params, hist)[:, -1]  # (B, d)
@@ -352,7 +383,6 @@ def sasrec_serve_scores(cfg: RecsysConfig, params, hist: torch.Tensor,
     return torch.sum(h * te, dim=-1)
 
 
-@torch.no_grad()
 def sasrec_retrieval(cfg: RecsysConfig, params, hist: torch.Tensor,
                      candidates: torch.Tensor) -> torch.Tensor:
     """Score each user against the candidate items: one batched product."""
@@ -368,20 +398,28 @@ def _normalize(u: torch.Tensor) -> torch.Tensor:
     return u / torch.clamp(torch.linalg.vector_norm(u, dim=-1, keepdim=True), min=1e-6)
 
 
-@torch.no_grad()
 def tt_user_tower(cfg: RecsysConfig, params, user_feats: torch.Tensor) -> torch.Tensor:
     """user_feats (B, N_USER_FIELDS) hashed ids -> (B, out_dim) normalised."""
     e = _lookup(params.user_table, user_feats % params.user_table.shape[0])
     return _normalize(_mlp(e.reshape(e.shape[0], -1), params.user_mlp_w, params.user_mlp_b))
 
 
-@torch.no_grad()
 def tt_item_tower(cfg: RecsysConfig, params, item_ids: torch.Tensor) -> torch.Tensor:
     e = _lookup(params.item_table, item_ids % params.item_table.shape[0])
     return _normalize(_mlp(e, params.item_mlp_w, params.item_mlp_b))
 
 
-@torch.no_grad()
+def tt_train_loss(cfg: RecsysConfig, params, user_feats, item_ids, labels):
+    """In-batch sampled softmax (every other item of the batch a negative):
+    ``(loss, {"nll": loss})``."""
+    u = tt_user_tower(cfg, params, user_feats)  # (B, d)
+    v = tt_item_tower(cfg, params, item_ids)  # (B, d)
+    logits = _mm(u, v.T) * 20.0  # temperature
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -torch.mean(torch.diagonal(logp))
+    return loss, {"nll": loss}
+
+
 def tt_retrieval(cfg: RecsysConfig, params, user_feats, candidates) -> torch.Tensor:
     u = tt_user_tower(cfg, params, user_feats)  # (B, d)
     v = tt_item_tower(cfg, params, candidates)  # (N, d)

@@ -21,8 +21,15 @@ decode, and ``kernels.moe_gemm`` for the expert products of MoE layers),
 ``layers.decode_attention``, ``moe_gemm_torch``), ``None`` the kernels for
 CUDA tensors and the plain path for CPU tensors.  ``"kernel"`` on the CPU
 raises.  The MoE layers' mesh sharding hints (``moe_dp_axes``) have no
-counterpart on one card and are refused.  The training loss comes with a
-later slice.
+counterpart on one card and are refused.
+
+``loss_fn`` — the training loss, through the same layer code with autograd
+on: attention through ``models.flash.FlashAttention`` (the reference's
+custom VJP) over the kernel's forward, which also writes the log-sum-exp,
+or, on the plain path, over the plain forward; the MoE expert products
+through ``MoeGemm`` (forward and both backward products on the kernel) or
+through ``moe_gemm_torch`` under autograd.  The reference's ``remat`` policy
+has no counterpart here: activations are kept.
 """
 
 from __future__ import annotations
@@ -35,10 +42,10 @@ from torch import nn
 
 from ..configs.base import LMConfig
 from ..core.device import resolve_device
-from ..kernels.flash_attention.ops import flash_attention_tpu
+from ..kernels.flash_attention.ops import flash_attention_tpu, flash_attention_tpu_fwd
 from ..kernels.flash_decode.ops import flash_decode
-from ..kernels.moe_gemm.ops import moe_gemm, moe_gemm_torch
-from .flash import flash_attention
+from ..kernels.moe_gemm.ops import MoeGemm, moe_gemm, moe_gemm_torch
+from .flash import FlashAttention, flash_attention
 from .layers import MoEDims, apply_rope, decode_attention, moe_block, rms_norm, swiglu
 
 ATTENTION = ("kernel", "torch")
@@ -192,9 +199,11 @@ def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, att: str, with_aux: bool = Tr
         return x + swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
     b, t, d = x.shape
     dims = MoEDims(cfg.moe.n_experts, cfg.moe.top_k)
+    gemm = moe_gemm if att == "kernel" else moe_gemm_torch
+    if att == "kernel" and torch.is_grad_enabled():
+        gemm = MoeGemm.apply  # the kernel forward and backward
     y, aux = moe_block(xn.reshape(b * t, d), lp["router"], lp["w_gate"], lp["w_up"],
-                       lp["w_down"], dims, n_groups=cfg.moe_groups,
-                       gemm=moe_gemm if att == "kernel" else moe_gemm_torch,
+                       lp["w_down"], dims, n_groups=cfg.moe_groups, gemm=gemm,
                        with_aux=with_aux)
     y = y.reshape(b, t, d)
     if cfg.moe.n_shared_experts:
@@ -213,9 +222,25 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
     """tokens (B, T) -> (logits (B, T, V), aux) [+ cache (L, 2, B, T, K, hd)
     bf16].  ``logits_mode="last"`` computes the LM head only for the final
     position (prefill).  ``aux`` is the MoE load-balancing loss summed over
-    the layers (0 for a dense model).
-    Runs without gradients: the kernels have no backward before the training
-    slice."""
+    the layers (0 for a dense model).  Runs without gradients (serving);
+    :func:`loss_fn` runs the same layers with them."""
+    return _forward(cfg, params, tokens, return_cache, logits_mode, attention)
+
+
+def _attention(q, k, v, att: str, t: int):
+    """Causal attention of a layer: with autograd on, through the
+    ``autograd.Function`` of the kernel or of the plain path."""
+    if torch.is_grad_enabled():
+        fwd = flash_attention_tpu_fwd if att == "kernel" else None
+        return FlashAttention.apply(q, k, v, True, min(1024, t), fwd)
+    if att == "kernel":
+        return flash_attention_tpu(q, k, v, causal=True)
+    return flash_attention(q, k, v, True, min(1024, t))
+
+
+def _forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
+             return_cache: bool = False, logits_mode: str = "all",
+             attention: str | None = None):
     att = resolve_attention(attention, tokens.device)
     b, t = tokens.shape
     dev = tokens.device
@@ -229,10 +254,7 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         lp = params.layer(i)
         q, k, v = _qkv(cfg, lp, x, positions)
-        if att == "kernel":
-            o = flash_attention_tpu(q, k, v, causal=True)
-        else:
-            o = flash_attention(q, k, v, True, min(1024, t))
+        o = _attention(q, k, v, att, t)
         x = x + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ lp["wo"]
         x, layer_aux = _ffn(cfg, lp, x, att)
         aux = aux + layer_aux
@@ -245,6 +267,21 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
     if return_cache:
         return logits, aux, cache
     return logits, aux
+
+
+def loss_fn(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
+            targets: torch.Tensor, attention: str | None = None):
+    """Next-token loss with autograd: ``(loss, {"nll", "aux"})``, the logits
+    widened to float32, then log-softmax, the mean NLL of ``targets`` and,
+    for MoE, ``router_aux_weight * aux``."""
+    logits, aux = _forward(cfg, params, tokens, attention=attention)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    del logits
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    loss = nll.mean()
+    if cfg.moe:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    return loss, {"nll": nll.mean(), "aux": aux}
 
 
 # ----------------------------------------------------------------------

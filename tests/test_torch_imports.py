@@ -65,8 +65,31 @@ def test_module_list_covers_the_slice():
                    "repro_torch.core.storage.compaction",
                    "repro_torch.core.storage.mapped", "repro_torch.data.synthetic",
                    "repro_torch.serving.frontend", "repro_torch.serving.partitioned",
-                   "repro_torch.launch", "repro_torch.launch.serve"):
+                   "repro_torch.launch", "repro_torch.launch.serve",
+                   "repro_torch.train", "repro_torch.train.optimizer",
+                   "repro_torch.train.loop", "repro_torch.checkpoint",
+                   "repro_torch.checkpoint.checkpointer", "repro_torch.models.gnn",
+                   "repro_torch.models.segment", "repro_torch.data.graphs",
+                   "repro_torch.launch.train"):
         assert needed in MODULES, needed
+
+
+def test_training_imports_build_no_kernel():
+    """The optimisers, the loop, the checkpointer, the GIN and the training
+    driver import without ``jax`` or ``repro`` and build no kernel."""
+    code = (
+        "import sys\n"
+        "import repro_torch.train.optimizer, repro_torch.train.loop\n"
+        "import repro_torch.checkpoint.checkpointer, repro_torch.models.gnn\n"
+        "import repro_torch.launch.train\n"
+        "from repro_torch.kernels import cuda_build\n"
+        "assert cuda_build._lib is None and not cuda_build.build_info\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
 
 
 def test_serving_frontier_imports_build_no_kernel():

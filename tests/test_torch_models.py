@@ -333,9 +333,11 @@ def test_init_params_layout_and_determinism():
     assert 0.8 < float(moe.layers["w_gate"].detach().std()) * np.sqrt(moe_cfg.d_model) < 1.2
     assert 0.8 < float(moe.layers["w_down"].detach().std()) * np.sqrt(
         moe_cfg.moe.d_ff_expert) < 1.2
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        steps.init_model_params(configs.get_config("gin-tu").reduced(), torch.Generator(),
-                                "cpu")
+    # the GNN (its slice has come): the reference's parameter names
+    gin = steps.init_model_params(configs.get_config("gin-tu").reduced(), torch.Generator(),
+                                  "cpu")
+    assert {n.split(".")[-1] for n, _ in gin.named_parameters()} == {
+        "w1", "b1", "w2", "b2", "eps", "out_w", "out_b"}
 
 
 def test_params_from_reference_refuses_other_keys():

@@ -181,15 +181,19 @@ def test_refusals():
     bad = {**ref, "item_table": ref["user_table"][:3]}
     with pytest.raises(ValueError, match="shape"):
         recsys.recsys_params_from_reference(cfg, bad, "cpu")
-    with pytest.raises(NotImplementedError, match="GNN"):
-        steps.init_model_params(configs.get_config("gin-tu").reduced(), torch.Generator(), "cpu")
+    # the GNN is no longer refused (models.gnn); a card is still asked for
+    gin = configs.get_config("gin-tu").reduced()
+    assert steps.init_model_params(gin, torch.Generator(), "cpu").out_w.shape[0] == gin.d_hidden
+    with pytest.raises(RuntimeError):
+        steps.init_model_params(gin, torch.Generator(), "cuda")  # no card here
     with pytest.raises(RuntimeError):
         steps.init_model_params(cfg, torch.Generator(), "cuda")  # no card here
 
 
 def test_serving_builds_no_graph():
     """Parameters require gradients; serving builds no autograd graph (the
-    kernels have no backward before the training slice)."""
+    serve steps run under ``torch.no_grad()``; training goes through the
+    kernels' autograd Functions instead)."""
     cfg = configs.get_config("xdeepfm").reduced()
     params = steps.init_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert all(p.requires_grad for p in params.parameters())
