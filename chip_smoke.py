@@ -58,6 +58,20 @@ launch counts set to 0 just before it and read just after:
   a frontend over the lifecycle writer's segmented session through one
   more commit and ``refresh`` (cache counters equal to the host-only
   sequence's), and ``repro_torch.launch.serve.main`` in-process;
+* mesh — the mesh tier over NCCL with a world of one (``RANK=0``,
+  ``WORLD_SIZE=1``, a free port on 127.0.0.1, ``make_local_mesh(1, 1)`` on
+  ``"cuda"``): ``PartitionedServer(mesh=..., shard_axis="data",
+  probe="kernel")`` in 4 shards over the full non-positional index (the
+  batch's AND queries) and over the frontier's positional cut (its phrase
+  queries), every answer equal to the ``mesh=None`` server's and the host
+  session's; ``make_sharded_train_step`` on qwen3-8b and moonshot-v1-16b-a3b
+  as the train phase runs them (full width, 2 layers, 2 x 4,096 tokens in 2
+  micro-batches, AdamW at lr 1e-5), its gradients, metrics and updated
+  state bit-equal to ``make_lm_train_step``'s kernel path (a world of one
+  makes every collective the identity); ``psum_int8`` / ``psum_topk`` on two
+  of its gradients, bit-equal to their formula; a full-size xDeepFM train
+  state resharded, saved, restored and placed back, bit for bit.
+  ``--only-mesh`` runs it alone;
 * lm_serve — LM serving of qwen3-8b at full width (depth cut only by
   ``--lm-layers``), random bf16 weights drawn on the card: 4 prompts of 2,048
   tokens from ``lm_batches`` prefilled through ``make_lm_prefill_step`` (the
@@ -121,7 +135,10 @@ row stride and alignment (the x0 lookups must take ``vec8``, the linear
 terms ``scalar``); ``minhash_rows`` one launch (``one_pass``) or a clearing
 kernel and a chunked one (``chunked``) from the tile's width.  float32
 matrix products run without TF32.  Each phase prints one
-JSON line; any failure ends the run with a non-zero exit code.  The last line
+JSON line; any failure ends the run with a non-zero exit code, and a crash in
+native code prints every thread's Python stack to stderr (``faulthandler``).
+The ``done`` line gives the wall time, the peak host memory and the Python
+threads still alive at the end.  The last line
 is ``{"ok": true, "device": {...}}``, after the card's name and power limit; the
 line before those lists every kernel with its launches on its path, its error
 against the plain version, its time, the plain version's time, the card's
@@ -136,6 +153,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import faulthandler
 import json
 import math
 import statistics
@@ -259,6 +277,18 @@ NEW_BACKENDS = ("rice", "rice_runs", "simple9", "pfordelta", "opt_pfd", "elias_f
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def emit_done(t_start: float) -> None:
+    """The run's wall time, the process's peak host memory, and the Python
+    threads besides the main one that are still alive as it is about to exit."""
+    import resource
+    import threading
+
+    emit("done", seconds=round(time.perf_counter() - t_start, 1),
+         max_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+         live_threads=[t.name for t in threading.enumerate()
+                       if t is not threading.main_thread()])
 
 
 class SmokeFailure(Exception):
@@ -3585,6 +3615,9 @@ def frontier(built: dict, sessions: dict, batch: list[tuple[str, str]],
             "windows_swept": windows, "launches": launches,
             "expected_probe_launches": expected, "first_pass_s": first_s,
             "warm_pass_s": warm_s, "queries_per_s": len(phrase_q) / warm_s}
+        # the cut and its phrase batch, for the mesh phase (main pops it)
+        out["_mesh_cut"] = {"idx": idx_cut, "pidx": pidx_cut, "phrase": phrase_q,
+                            "want": [want_cut[i] for i in phrase_at]}
         del psrv, sess
 
         # (3) replicas: fused over the full indexes, 2 x 2 shards over the cut
@@ -4562,6 +4595,340 @@ def train_phase(args, dev) -> dict:
             "failures": list(TRAIN_FAILURES)}
 
 
+# ----------------------------------------------------------------------
+# the mesh tier: NCCL with a world of one on the card
+# ----------------------------------------------------------------------
+MESH_SHARDS = 4  # the partitioned server's shards, all on the one rank's data axis
+MESH_LMS = (LM_CONFIG, MOE_CONFIG)  # at the train phase's depth, tokens and rate
+MESH_PSUM_LEAVES = ("layers/wq", "final_norm")  # a large leaf and a 1-D leaf
+MESH_TOPK_FRAC = 0.01
+MESH_STATE = RECSYS_CONFIG  # the reshard / restore state: restores in seconds
+MESH_CKPT_DIR = ROOT / "build" / "mesh_ckpt"
+
+
+@contextlib.contextmanager
+def world_of_one(dev):
+    """``RANK=0``, ``WORLD_SIZE=1``, a free ``MASTER_PORT`` on 127.0.0.1, and
+    a (1, 1) ``("data", "model")`` mesh (``make_local_mesh``) on ``dev``'s
+    type: NCCL on the card (gloo when a CPU rehearsal asks for ``"cpu"``),
+    taken down after."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    mesh = make_local_mesh(1, 1, device_type=dev.type)
+    want = "nccl" if dev.type == "cuda" else "gloo"
+    require(dist.get_backend() == want, f"the world's backend is {dist.get_backend()}")
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_cut(built: dict, args, device: str) -> dict:
+    """The frontier phase's positional cut, built here when that phase did
+    not run (``--only-mesh``): its first ``FRONTIER_CUT_DOCS`` documents and
+    the phrase queries of a batch over them."""
+    from repro_torch.core.index import NonPositionalIndex, PositionalIndex
+    from repro_torch.serving.session import Session
+
+    docs = built["docs"][:FRONTIER_CUT_DOCS]
+    idx_cut = NonPositionalIndex.build(docs, store="repair_skip", mine_similarity=True,
+                                       device=device)
+    pidx_cut = PositionalIndex.build(docs, store="repair_skip")
+    cut_batch = make_batch(docs, idx_cut, np.random.default_rng(args.seed + 4), args.per_cell)
+    phrase = [q for k, q in cut_batch if k == "phrase"]
+    return {"idx": idx_cut, "pidx": pidx_cut, "phrase": phrase,
+            "want": Session(idx_cut, positional=pidx_cut).execute(phrase)}
+
+
+def _whole_on(pidx, dev):
+    from repro_torch.serving.partitioned import PartitionedAnchoredIndex
+
+    return PartitionedAnchoredIndex(arrays={k: v.to(dev) for k, v in pidx.arrays.items()},
+                                    doc_bounds=pidx.doc_bounds, n_shards=pidx.n_shards,
+                                    expand_len=pidx.expand_len)
+
+
+def mesh_partitioned(mesh, built: dict, cut: dict, and_q: list, and_want: list, dev) -> dict:
+    """``PartitionedServer(mesh=...)`` with ``shard_axis="data"`` and
+    ``probe="kernel"`` at ``MESH_SHARDS`` shards: the full non-positional
+    index on the batch's AND queries, the positional cut on its phrase
+    queries; every answer equal to the ``mesh=None`` server's and the host
+    session's, ``anchor_probe_sliced`` launched once per probed term per
+    window (launch counts read around the mesh servers' passes alone)."""
+    from repro_torch.serving.partitioned import PartitionedAnchoredIndex, PartitionedServer
+    from repro_torch.serving.session import Session
+
+    on_gpu = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_gpu else (lambda: None)
+    probe = "kernel" if on_gpu else "torch"
+    out, launches = {}, {}
+    for name, index, kwargs, queries, want in (
+            ("and", built["idx"], {}, and_q, and_want),
+            ("phrase", cut["idx"], {"positional": cut["pidx"]}, cut["phrase"], cut["want"])):
+        host_index = index if name == "and" else cut["pidx"]
+        t0 = time.perf_counter()
+        whole = PartitionedAnchoredIndex.from_index(host_index, n_shards=MESH_SHARDS,
+                                                    device="cpu")
+        build_s = time.perf_counter() - t0
+        servers = {m: PartitionedServer(whole if m == "mesh" else _whole_on(whole, dev),
+                                        host_index, mesh=mesh if m == "mesh" else None,
+                                        probe=probe) for m in ("mesh", "one")}
+        role = "server" if name == "and" else "positional_server"
+        sessions = {m: Session(index, **kwargs, **{role: s}) for m, s in servers.items()}
+        answers = {}
+        for m, sess in sessions.items():
+            reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            answers[m] = sess.execute(queries)
+            sync()
+            out[f"{name}_{m}_s"] = time.perf_counter() - t0
+            if m == "mesh":
+                launches[name] = {k: n for k, n in launch_counts().items() if n}
+        for m in ("mesh", "one"):
+            bad = _differ(queries, answers[m], want)
+            require(not bad, f"mesh {name} ({m}): {len(bad)} answers differ from the host "
+                    f"session's, first {bad[:3]}")
+        bad = _differ(queries, answers["mesh"], answers["one"])
+        require(not bad, f"mesh {name}: {len(bad)} answers differ from mesh=None's")
+        srv = servers["mesh"]
+        expected = shard_probes(sessions["mesh"], queries,
+                                {"nonpositional" if name == "and" else "positional": srv})
+        require(launches[name] == ({"anchor_probe_sliced": expected} if on_gpu else {}),
+                f"mesh {name}: launched {launches[name]}, expected {expected} "
+                f"anchor_probe_sliced")
+        require(srv.pidx.device_bytes() == servers["one"].pidx.device_bytes(),
+                f"mesh {name}: a world of one holds {srv.pidx.device_bytes()} bytes, one "
+                f"device {servers['one'].pidx.device_bytes()}")
+        out[name] = {"queries": len(queries), "shards": MESH_SHARDS,
+                     "local_shards": srv.pidx.n_shards, "layout_build_s": build_s,
+                     "windows_swept": srv.windows_swept, "launches": launches[name],
+                     "expected_probe_launches": expected,
+                     "device_bytes": srv.pidx.device_bytes(), "answers_equal": True}
+        del servers, sessions, whole, srv
+    out["launches"] = {"anchor_probe_sliced": sum(x.get("anchor_probe_sliced", 0)
+                                                  for x in launches.values())}
+    return out
+
+
+def _equal_trees(a: dict, b: dict) -> list:
+    """Paths whose leaves differ in any bit (``b`` may hold DTensors)."""
+    from torch.distributed.tensor import DTensor
+
+    bad = []
+    for k, v in a.items():
+        w = b[k].full_tensor() if isinstance(b[k], DTensor) else b[k]
+        v = v.detach()
+        if v.dtype != w.dtype or v.shape != w.shape or not torch.equal(v, w):
+            bad.append(k)
+    return bad
+
+
+def mesh_train_lm(name: str, mesh, args, dev) -> tuple[dict, dict]:
+    """``make_sharded_train_step`` for ``name`` at full width with the train
+    phase's depth, tokens, micro-batches and rate, against
+    ``make_lm_train_step``'s kernel path from the same weights: gradients,
+    loss, metrics and the updated state bit-equal (a world of one makes
+    every collective the identity).  Launch counts are read around the
+    sharded step alone.  Returns the result and two of the sharded step's
+    gradients (``MESH_PSUM_LEAVES``)."""
+    from repro_torch.checkpoint.checkpointer import flatten, reshard
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipelines import lm_batches
+    from repro_torch.models import steps
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.specs import input_specs_sharding_for
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = dataclasses.replace(get_config(name), n_layers=TRAIN_LM_LAYERS)
+    opt = OptConfig(**TRAIN_OPT)
+    t0 = time.perf_counter()
+    params = steps.init_model_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             next(lm_batches(cfg, TRAIN_LM_BATCH, TRAIN_LM_SEQ, seed=args.seed)).items()}
+    specs = spmd.state_specs_for(cfg, spmd.meta_state(cfg, opt), mesh)
+    bspecs = input_specs_sharding_for(cfg, "train_4k", mesh, False)
+    sharded = reshard(steps.init_state(params, opt), mesh, specs)
+    sstep = spmd.make_sharded_train_step(cfg, opt, mesh, specs, bspecs, n_micro=TRAIN_LM_MICRO)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    _free(dev)
+    setup_s = time.perf_counter() - t0
+    # the gradients of the first step, both ways
+    want_g = steps._accum_grads(steps.loss_for(cfg), params, batch, TRAIN_LM_MICRO)[2]
+    got_g, _ = sstep.grads(sharded, batch)
+    grad_bad = [k for k in want_g if not torch.equal(want_g[k].float(), got_g[k])]
+    keep = {k: got_g[k] for k in MESH_PSUM_LEAVES}
+    del want_g, got_g
+    _free(dev)
+    # one step each: the unsharded kernel path, then the sharded step (counted)
+    state = steps.init_state(params, opt)
+    sync()
+    t1 = time.perf_counter()
+    state, m1 = steps.make_lm_train_step(cfg, opt, n_micro=TRAIN_LM_MICRO)(state, batch)
+    sync()
+    unsharded_ms = (time.perf_counter() - t1) * 1e3
+    reset_launch_counts()
+    sync()
+    t1 = time.perf_counter()
+    sharded, m2 = sstep(sharded, batch)
+    sync()
+    sharded_ms = (time.perf_counter() - t1) * 1e3
+    launches = _train_launches()
+    metric_bad = [k for k in m1 if not torch.equal(m1[k].float(), m2[k].float())]
+    state_bad = _equal_trees(flatten(state), flatten(sharded))
+    del state, sharded, params, sstep
+    _free(dev)
+    require(not grad_bad, f"mesh {name}: sharded gradients differ from the unsharded "
+            f"kernel path's in {grad_bad[:4]}")
+    require(not metric_bad, f"mesh {name}: metrics {metric_bad} differ")
+    require(not state_bad, f"mesh {name}: updated state differs in {state_bad[:4]}")
+    per_step = TRAIN_LM_LAYERS * TRAIN_LM_MICRO if dev.type == "cuda" else 0
+    require(launches["flash_attention_tpu"] == launches["flash_attention_tpu_lse"] == per_step,
+            f"mesh {name}: attention launches {launches}, expected {per_step} with lse")
+    if cfg.moe and dev.type == "cuda":
+        require(launches["moe_gemm"] > 0 and launches["moe_gemm_backward"] > 0,
+                f"mesh {name}: moe_gemm launches {launches}")
+    return {"model": name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "tokens_per_step": TRAIN_LM_BATCH * TRAIN_LM_SEQ, "n_micro": TRAIN_LM_MICRO,
+            "loss": float(m2["loss"]), "grad_norm": float(m2["grad_norm"]),
+            "bit_equal": {"gradients": True, "metrics": True, "state": True},
+            "leaves": len(flatten(specs)), "launches": launches,
+            "sharded_step_wall_ms": sharded_ms, "unsharded_step_wall_ms": unsharded_ms,
+            "setup_s": setup_s, "seconds": time.perf_counter() - t0}, keep
+
+
+def mesh_compression(mesh, grads: dict, reps: int) -> dict:
+    """``psum_int8`` and ``psum_topk`` over the data axis on the sharded
+    step's float32 gradients: bit-equal to the port's formula on the same
+    tensor (in a world of one the MAX and SUM all-reduces are the
+    identity), timed with CUDA events."""
+    from repro_torch.train import grad_compression as gc
+
+    out = {}
+    for leaf, g in grads.items():
+        got = gc.psum_int8(g, (mesh, "data"))
+        q, scale = gc._quantize_int8(g)
+        want = gc._dequantize_int8(q, scale, g.shape, g.dtype)
+        require(torch.equal(got, want), f"psum_int8 on {leaf} differs from its formula")
+        total, resid = gc.psum_topk(g, (mesh, "data"), MESH_TOPK_FRAC)
+        kept, idx, want_resid = gc.topk_sparsify(g, MESH_TOPK_FRAC)
+        dense = torch.zeros(g.numel(), dtype=g.dtype, device=g.device)
+        dense[idx] = kept
+        require(torch.equal(total, dense.reshape(g.shape)) and torch.equal(resid, want_resid),
+                f"psum_topk on {leaf} differs from its formula")
+        out[leaf] = {"shape": list(g.shape), "int8_ms": time_ms(
+            lambda g=g: gc.psum_int8(g, (mesh, "data")), reps),
+            "topk_ms": time_ms(lambda g=g: gc.psum_topk(g, (mesh, "data"), MESH_TOPK_FRAC),
+                               max(MIN_REPS, reps // 4)),
+            "int8_max_abs_err": float((got - g).abs().max()), "bit_equal": True}
+    return out
+
+
+def mesh_checkpoint(mesh, args, dev) -> dict:
+    """A train state of ``MESH_STATE`` at full size (AdamW, its moments
+    drawn at random) placed on the mesh, saved (async: the gathers run on
+    the calling thread), restored unsharded and resharded, restored with
+    ``sharding_tree=``, and restored into a sharded state: every leaf
+    bit-equal to the saved one."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer, flatten, reshard
+    from repro_torch.configs import get_config
+    from repro_torch.models import steps
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.compat import NamedSharding, flatten_specs
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg, opt = get_config(MESH_STATE), OptConfig(**TRAIN_OPT)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    state = steps.init_state(steps.init_model_params(cfg, gen, dev), opt)
+    with torch.no_grad():
+        for k, t in flatten(state["opt"]).items():
+            if t.is_floating_point():
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    specs = spmd.state_specs_for(cfg, state, mesh)
+    sharded = reshard(state, mesh, specs)
+    saved = flatten(state)
+    require(not _equal_trees(saved, flatten(sharded)), "reshard changed a leaf")
+    fresh = lambda: steps.init_state(  # noqa: E731
+        steps.init_model_params(cfg, None, "meta").to_empty(device=dev), opt)
+    shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+    try:
+        ck = Checkpointer(str(MESH_CKPT_DIR), async_save=True)
+        t0 = time.perf_counter()
+        ck.save(1, sharded)
+        ck.wait()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, step = ck.restore(fresh())
+        again = reshard(restored, mesh, specs)
+        reshard_s = time.perf_counter() - t0
+        named = {k: NamedSharding(mesh, v) for k, v in flatten_specs(specs).items()}
+        t0 = time.perf_counter()
+        via_tree, _ = ck.restore(fresh(), sharding_tree=named)
+        tree_s = time.perf_counter() - t0
+        into_sharded, _ = ck.restore(reshard(fresh(), mesh, specs))
+        bad = {name: _equal_trees(saved, flatten(s)) for name, s in
+               (("reshard", again), ("sharding_tree", via_tree), ("into_sharded", into_sharded))}
+    finally:
+        shutil.rmtree(MESH_CKPT_DIR, ignore_errors=True)
+    require(step == 1 and not any(bad.values()), f"mesh checkpoint: leaves differ {bad}")
+    return {"model": MESH_STATE, "leaves": len(saved),
+            "bytes": sum(t.numel() * t.element_size() for t in saved.values()),
+            "save_async_s": save_s, "restore_reshard_s": reshard_s,
+            "restore_sharding_tree_s": tree_s, "bit_equal": True}
+
+
+def mesh_phase(args, dev, built: dict, cut: dict | None) -> dict:
+    """The mesh tier on the card over NCCL with a world of one (see the
+    module docstring): the partitioned server, the sharded LM / MoE train
+    steps, the compressed all-reduce, reshard and restore."""
+    t0 = time.perf_counter()
+    if cut is None:
+        cut = mesh_cut(built, args, dev.type)
+    from repro_torch.serving.session import Session
+
+    and_q = [q for k, q in make_batch(built["docs"], built["idx"],
+                                      np.random.default_rng(args.seed), args.per_cell)
+             if k == "and"]
+    and_want = Session(built["idx"], positional=built["pidx"]).execute(and_q)
+    t1 = time.perf_counter()
+    with world_of_one(dev) as mesh:
+        backend = torch.distributed.get_backend()
+        part = mesh_partitioned(mesh, built, cut, and_q, and_want, dev)
+        t2 = time.perf_counter()
+        lms, psum_grads = [], None
+        for name in MESH_LMS:
+            r, keep = mesh_train_lm(name, mesh, args, dev)
+            lms.append(r)
+            psum_grads = psum_grads or keep
+        t3 = time.perf_counter()
+        compression = mesh_compression(mesh, psum_grads, args.reps)
+        del psum_grads
+        _free(dev)
+        ckpt = mesh_checkpoint(mesh, args, dev)
+        mesh_desc = {"shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names),
+                     "device_type": mesh.device_type}
+    _free(dev)
+    launches = {"anchor_probe_sliced": part["launches"]["anchor_probe_sliced"],
+                "flash_attention_tpu": sum(r["launches"]["flash_attention_tpu"] for r in lms),
+                "moe_gemm": sum(r["launches"]["moe_gemm"] for r in lms)}
+    return {"backend": backend, "world_size": 1, "mesh": mesh_desc,
+            "partitioned": part, "train": lms, "compression": compression,
+            "checkpoint": ckpt, "launches": launches,
+            "queries_s": t1 - t0, "partitioned_s": t2 - t1, "train_s": t3 - t2,
+            "phase_s": time.perf_counter() - t1}
+
+
 def build_sessions(built: dict, device: str, probe: str | None) -> tuple[dict, dict]:
     from repro_torch.serving.session import Session
 
@@ -4609,6 +4976,10 @@ def main() -> int:
     ap.add_argument("--only-train", action="store_true",
                     help="run the device, build and train phases alone (a quick check "
                          "of the training path; prints no kernels line and no result)")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="run the device and build phases, the collection and its "
+                         "indexes, and the mesh phase alone (a quick check of the mesh "
+                         "tier; prints no kernels line and no result)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4641,7 +5012,13 @@ def main() -> int:
         train = train_phase(args, torch.device("cuda"))
         emit("train", card=card, **train)
         require(not train["failures"], f"train: {train['failures']}")
-        emit("done", seconds=round(time.perf_counter() - t_start, 1))
+        emit_done(t_start)
+        return 0
+    if args.only_mesh:
+        built = build_indexes(args, "cuda")
+        mesh = mesh_phase(args, torch.device("cuda"), built, None)
+        emit("mesh", card=card, **mesh)
+        emit_done(t_start)
         return 0
 
     built = build_indexes(args, "cuda")  # the mining path
@@ -4742,9 +5119,17 @@ def main() -> int:
     # the serving frontier: shards, replicas, the micro-batch frontend, a
     # refresh through it, and the serving driver
     front = frontier(built, sessions, batch, rank_queries, life, args, "cuda")
+    cut = front.pop("_mesh_cut")
     emit("frontier", card=card, **front)
     del sessions, life
     torch.cuda.empty_cache()
+
+    # the mesh tier over NCCL with a world of one: the partitioned server on
+    # the frontier's collection, the sharded LM / MoE train steps, the
+    # compressed all-reduce, reshard and restore
+    mesh = mesh_phase(args, dev, built, cut)
+    del cut
+    emit("mesh", card=card, **mesh)
 
     # the LM serving path (qwen3-8b at full width) with both attention kernels,
     # then the kernels at edge shapes and at the inputs the path handed them
@@ -4921,9 +5306,13 @@ def main() -> int:
     row11["backward_at_path"] = {at: {key: r[key] for key in timing_keys + ("route",)}
                                  for at, r in train["pieces"]["timed"].items()
                                  if at.startswith("train/moonshot")}
+    # the mesh phase's launches beside the others (rows 1, 7 and 11)
+    for k in kernels:
+        if k["name"] in mesh["launches"]:
+            k["launches_mesh"] = mesh["launches"][k["name"]]
     require(len(kernels) == len(KERNEL_META), f"the kernels line lists {len(kernels)} "
             f"kernels, expected {len(KERNEL_META)}")
-    emit("done", seconds=round(time.perf_counter() - t_start, 1))
+    emit_done(t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -4933,6 +5322,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # a crash in native code (the kernel library, NCCL, CUPTI) prints every
+    # thread's Python stack to stderr before the process dies
+    faulthandler.enable(all_threads=True)
     try:
         code = main()
     except SmokeFailure as e:

@@ -29,9 +29,17 @@ fault of the reference, ROADMAP Queue C).
 ``restore`` writes the checkpoint's values into the tensors of
 ``state_like`` (a model's parameters included) in place, on their devices
 and in their dtypes, and returns the state; a NumPy or Python leaf of
-``state_like`` comes back as a new NumPy array.  ``sharding_tree`` and
-:func:`reshard` place a state on a mesh, which has no counterpart on one
-card: both refuse.
+``state_like`` comes back as a new NumPy array.
+
+On a mesh (``repro_torch.sharding``): :func:`reshard` places a state as
+DTensors, each leaf with its spec's placements, every rank slicing its own
+shard of the whole leaf it holds (the elastic path: restore unsharded, then
+reshard onto the new mesh).  ``restore(..., sharding_tree=)`` does the same
+after the restore, and a DTensor leaf of ``state_like`` takes its own shard
+of the file.  ``save`` of a sharded state writes the same format: every
+rank joins the gather of each leaf on the calling thread (so the async
+writer never runs a collective), rank 0 alone writes, and a barrier
+follows the write (for an async save, in the next ``wait()``).
 """
 
 from __future__ import annotations
@@ -45,8 +53,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from ..sharding.compat import (NamedSharding, flatten_specs, local_shard, place,
+                               require_device_mesh)
 from ..train.optimizer import param_tree, sort_paths
 
 BF16_DESCR = "<V2"
@@ -125,6 +137,14 @@ def _put(like, arr: np.ndarray, dtype: str):
     t = torch.from_numpy(arr)
     if dtype == "bfloat16":
         t = t.view(torch.bfloat16)
+    if isinstance(like, DTensor):
+        if tuple(like.shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint leaf of shape {tuple(t.shape)} for a tensor of "
+                             f"shape {tuple(like.shape)}")
+        with torch.no_grad():
+            like.to_local().copy_(local_shard(t.to(like.dtype), like.device_mesh,
+                                              like.placements))
+        return like
     if isinstance(like, torch.Tensor):
         if tuple(like.shape) != tuple(t.shape):
             raise ValueError(f"checkpoint leaf of shape {tuple(t.shape)} for a tensor of "
@@ -147,10 +167,8 @@ def _rebuild(tree, arrays: dict, prefix: str = ""):
     return _put(tree, *arrays[prefix[:-1]])
 
 
-def _refuse_mesh(what: str, value) -> None:
-    if value is not None:
-        raise NotImplementedError(f"{what}={value!r} places the state on a mesh of the "
-                                  f"reference; the port restores onto one card")
+def _sharded(flat: dict) -> bool:
+    return any(isinstance(v, DTensor) for v in flat.values())
 
 
 @dataclass
@@ -163,21 +181,36 @@ class Checkpointer:
         os.makedirs(self.directory, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self._barrier_pending = False
 
     # ------------------------------------------------------------------
     def save(self, step: int, state) -> None:
-        host = [(k, *to_host(v)) for k, v in flatten(state).items()]
+        flat = flatten(state)
+        distributed = _sharded(flat) and dist.is_initialized()
+        writer = not distributed or dist.get_rank() == 0  # rank 0 alone writes
+        host = []
+        for k, v in flat.items():
+            if isinstance(v, DTensor):  # every rank joins each gather, on this thread
+                v = v.full_tensor()
+            if writer:
+                host.append((k, *to_host(v)))
         self.wait()  # one in-flight save at a time
-        if self.async_save:
+        if writer and self.async_save:
             self._thread = threading.Thread(target=self._write, args=(step, host), daemon=True)
             self._thread.start()
-        else:
+        elif writer:
             self._write(step, host)
+        self._barrier_pending = distributed
+        if not self.async_save:
+            self.wait()
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier_pending:
+            self._barrier_pending = False
+            dist.barrier()  # the files are on disk before any rank goes on
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -227,8 +260,9 @@ class Checkpointer:
     def restore(self, state_like, step: int | None = None, sharding_tree=None):
         """``(state, step)``: every leaf of ``state_like`` from the checkpoint
         at ``step`` (default the newest), all checksums verified before any
-        tensor is written; a corrupt file or a missing leaf raises."""
-        _refuse_mesh("sharding_tree", sharding_tree)
+        tensor is written; a corrupt file or a missing leaf raises.  With
+        ``sharding_tree`` (a tree of :class:`NamedSharding` in the state's
+        layout) the restored state is then placed on the mesh (:func:`place`)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -247,22 +281,29 @@ class Checkpointer:
         missing = [k for k in flatten(state_like) if k not in arrays]
         if missing:
             raise KeyError(f"checkpoint missing leaf {missing[0]}")
-        return _rebuild(state_like, arrays), step
+        state = _rebuild(state_like, arrays)
+        if sharding_tree is not None:
+            state = place(state, sharding_tree)
+        return state, step
 
     def restore_latest_valid(self, state_like, sharding_tree=None):
         """Walk the checkpoints newest first until one verifies (a
         half-written or bit-rotted snapshot is skipped)."""
-        _refuse_mesh("sharding_tree", sharding_tree)
         last_err: Exception | None = None
         for step in reversed(self.all_steps()):
             try:
-                return self.restore(state_like, step)
+                return self.restore(state_like, step, sharding_tree)
             except Exception as e:  # noqa: BLE001
                 last_err = e
         raise FileNotFoundError(f"no valid checkpoint ({last_err})")
 
 
 def reshard(state, mesh, spec_tree):
-    """The reference's elastic re-placement onto a new mesh: refused."""
-    _refuse_mesh("mesh", mesh)
-    return state
+    """Re-place a state onto ``mesh`` by ``spec_tree`` (specs in the
+    state's layout, :mod:`repro_torch.sharding.specs`) — the elastic path:
+    restore unsharded, then reshard to the new topology.  A DTensor leaf is
+    gathered first; every rank slices its own shard, and the state passed
+    in is left as it is."""
+    require_device_mesh(mesh, "reshard")
+    shardings = {k: NamedSharding(mesh, v) for k, v in flatten_specs(spec_tree).items()}
+    return place(state, shardings)

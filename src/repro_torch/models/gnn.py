@@ -137,8 +137,10 @@ def pad_graph_batch(batch: dict, multiple: int, shard_axes=None) -> dict:
     point at a padded node (mask False, never read).  ``shard_axes`` is a
     mesh hint of the reference, refused."""
     if shard_axes is not None:
-        raise NotImplementedError(f"shard_axes={shard_axes!r} is a mesh sharding hint of "
-                                  f"the reference; the port trains on one card")
+        raise NotImplementedError(
+            f"shard_axes={shard_axes!r} is a mesh sharding constraint of the reference on "
+            f"activations, which the port does not shard; to train on a mesh, use "
+            f"repro_torch.sharding.spmd.make_sharded_train_step")
     n = batch["node_feat"].shape[0]
     e = batch["edge_src"].shape[0]
     npad = (-n) % multiple

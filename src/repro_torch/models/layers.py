@@ -197,10 +197,11 @@ def moe_dispatch(experts: torch.Tensor, dims: MoEDims, n_groups: int = 1) -> dic
 
 def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
               w_up: torch.Tensor, w_down: torch.Tensor, dims: MoEDims, n_groups: int = 1,
-              gemm=None, with_aux: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
+              gemm=None, with_aux: bool = True,
+              count_sum=None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Top-k MoE with grouped sort-based capacity dispatch, as the
-    reference's ``moe_block`` (``dp_axes`` / ``ep_axis`` are mesh sharding
-    hints with no counterpart on one card).
+    reference's ``moe_block`` (its ``dp_axes`` / ``ep_axis`` are sharding
+    constraints on activations, which the port does not shard).
 
     x: (N, D) tokens; router_w (D, E); w_gate, w_up (E, D, F); w_down
     (E, F, D).  ``gemm(buf, w)`` computes the three expert products over the
@@ -210,7 +211,9 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     order (no float atomics).  No step waits for the device: every index
     is a tensor, and a dropped choice writes to a scratch slot.  Returns
     (out (N, D) in ``x.dtype``, the Switch-style aux loss, or None without
-    ``with_aux``)."""
+    ``with_aux``).  ``count_sum``, given where x is one rank's slice of the
+    batch, sums the (E + 1,) float32 choice and token counts over the ranks
+    (in place) so that the aux loss's load fractions are the whole batch's."""
     gemm = gemm or moe_gemm
     n, d = x.shape
     e, k, g = dims.n_experts, dims.top_k, n_groups
@@ -220,7 +223,11 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     if with_aux:  # Switch-style load balancing
         me = probs.mean(dim=0)
         chosen = experts.reshape(-1, 1) == torch.arange(e, device=x.device)
-        ce = chosen.sum(dim=0).float() / (n * k)
+        if count_sum is None:
+            ce = chosen.sum(dim=0).float() / (n * k)
+        else:
+            counts = count_sum(torch.cat([chosen.sum(dim=0).float(), me.new_full((1,), n)]))
+            ce = counts[:e] / (counts[e] * k)
         aux = e * torch.sum(me * ce)
 
     plan = moe_dispatch(experts, dims, g)

@@ -123,16 +123,37 @@ def _accum_grads(loss_fn, params, batch: dict, n_micro: int):
 # ----------------------------------------------------------------------
 # LM
 # ----------------------------------------------------------------------
+_MESH_HINT = ("is a sharding constraint of the reference on activations, which the port "
+              "does not shard; to train on a mesh, use "
+              "repro_torch.sharding.spmd.make_sharded_train_step")
+
+
+def loss_for(cfg, attention: str | None = None, count_sum=None):
+    """``loss(params, batch) -> (loss, aux)``: the train loss of ``cfg``'s
+    family, as the train steps take it (``attention`` and, for a rank's
+    slice of an MoE batch, ``count_sum`` (``layers.moe_block``) for the
+    LMs)."""
+    if isinstance(cfg, LMConfig):
+        def loss(params, batch):
+            return transformer.loss_fn(cfg, params, batch["tokens"], batch["targets"],
+                                       attention=attention, count_sum=count_sum)
+    elif isinstance(cfg, GNNConfig):
+        def loss(params, batch):
+            return gnn.loss_fn(cfg, params, batch)
+    elif isinstance(cfg, RecsysConfig):
+        def loss(params, batch):
+            return _recsys_loss(cfg, params, batch)
+    else:
+        raise TypeError(type(cfg))
+    return loss
+
+
 def make_lm_train_step(cfg: LMConfig, opt_cfg: OptConfig, n_micro: int = 1,
                        act_spec=None, attention: str | None = None):
     """``act_spec`` is a mesh sharding hint of the reference, refused here."""
     if act_spec is not None:
-        raise NotImplementedError(f"act_spec={act_spec!r} is a mesh sharding hint of the "
-                                  f"reference; the port trains on one card")
-
-    def loss(params, batch):
-        return transformer.loss_fn(cfg, params, batch["tokens"], batch["targets"],
-                                   attention=attention)
+        raise NotImplementedError(f"act_spec={act_spec!r} {_MESH_HINT}")
+    loss = loss_for(cfg, attention)
 
     def train_step(state, batch):
         batch = _on_device(batch, state["step"].device)
@@ -171,11 +192,8 @@ def make_gnn_train_step(cfg: GNNConfig, opt_cfg: OptConfig,
     """``pad_multiple`` pads a node-level batch as the reference does
     (``gnn.pad_graph_batch``); ``shard_axes`` is a mesh hint, refused."""
     if shard_axes is not None:
-        raise NotImplementedError(f"shard_axes={shard_axes!r} is a mesh sharding hint of "
-                                  f"the reference; the port trains on one card")
-
-    def loss(params, batch):
-        return gnn.loss_fn(cfg, params, batch)
+        raise NotImplementedError(f"shard_axes={shard_axes!r} {_MESH_HINT}")
+    loss = loss_for(cfg)
 
     def train_step(state, batch):
         batch = _on_device(batch, state["step"].device)
@@ -214,8 +232,7 @@ def _recsys_loss(cfg: RecsysConfig, params, batch: dict):
 
 
 def make_recsys_train_step(cfg: RecsysConfig, opt_cfg: OptConfig):
-    def loss(params, batch):
-        return _recsys_loss(cfg, params, batch)
+    loss = loss_for(cfg)
 
     def train_step(state, batch):
         batch = _on_device(batch, state["step"].device)
@@ -286,9 +303,13 @@ def make_recsys_serve_step(cfg: RecsysConfig, retrieval: bool = False,
 # ----------------------------------------------------------------------
 # init dispatch
 # ----------------------------------------------------------------------
-def init_model_params(cfg, generator: torch.Generator, device="cuda",
+def init_model_params(cfg, generator: torch.Generator | None, device="cuda",
                       shape_name: str | None = None):
-    """Random weights of ``cfg`` drawn with ``generator`` on ``device``."""
+    """Random weights of ``cfg`` drawn with ``generator`` on ``device``.  On
+    ``device="meta"`` the model's shapes and dtypes alone: nothing is drawn
+    (``generator`` may be ``None``) and nothing allocated."""
+    if torch.device(device).type == "meta":
+        return _model_skeleton(cfg, shape_name)
     if isinstance(cfg, LMConfig):
         return transformer.init_params(cfg, generator, device)
     if isinstance(cfg, GNNConfig):
@@ -301,4 +322,16 @@ def init_model_params(cfg, generator: torch.Generator, device="cuda",
         if cfg.interaction not in init:
             raise ValueError(cfg.interaction)
         return init[cfg.interaction](cfg, generator, device)
+    raise TypeError(type(cfg))
+
+
+def _model_skeleton(cfg, shape_name: str | None):
+    meta = torch.device("meta")
+    if isinstance(cfg, LMConfig):
+        return transformer.Transformer(cfg, meta)
+    if isinstance(cfg, GNNConfig):
+        dims = cfg.shapes[shape_name or "full_graph_sm"].dims
+        return gnn.GIN(cfg, dims["d_feat"], dims.get("n_classes", 2), meta)
+    if isinstance(cfg, RecsysConfig):
+        return recsys._model_class(cfg)(cfg, meta)
     raise TypeError(type(cfg))

@@ -20,8 +20,9 @@ decode, and ``kernels.moe_gemm`` for the expert products of MoE layers),
 ``"torch"`` the plain path (``models.flash.flash_attention``,
 ``layers.decode_attention``, ``moe_gemm_torch``), ``None`` the kernels for
 CUDA tensors and the plain path for CPU tensors.  ``"kernel"`` on the CPU
-raises.  The MoE layers' mesh sharding hints (``moe_dp_axes``) have no
-counterpart on one card and are refused.
+raises.  The MoE layers' mesh sharding hints (``moe_dp_axes``) constrain
+activations, which the port does not shard, and are refused (a mesh trains
+through ``sharding.spmd.make_sharded_train_step``).
 
 ``loss_fn`` — the training loss, through the same layer code with autograd
 on: attention through ``models.flash.FlashAttention`` (the reference's
@@ -89,7 +90,9 @@ class Transformer(nn.Module):
         if cfg.moe_dp_axes is not None:
             raise NotImplementedError(
                 f"{cfg.name}: moe_dp_axes={cfg.moe_dp_axes!r} asks for the reference's mesh "
-                f"sharding of the MoE layers, which has no counterpart on one card")
+                f"sharding constraints on the MoE layers' activations, which the port does "
+                f"not shard; to train on a mesh, use "
+                f"repro_torch.sharding.spmd.make_sharded_train_step")
         self.cfg = cfg
         dt = _dtype(cfg)
         empty = lambda *shape: nn.Parameter(  # noqa: E731
@@ -191,9 +194,10 @@ def _qkv(cfg: LMConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor):
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
-def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, att: str, with_aux: bool = True):
+def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, att: str, with_aux: bool = True,
+         count_sum=None):
     """The feed-forward half of a layer: ``(x + ffn(x), MoE aux loss)`` (the
-    loss None without ``with_aux``)."""
+    loss None without ``with_aux``; ``count_sum`` as ``moe_block``'s)."""
     xn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
     if not cfg.moe:
         return x + swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
@@ -204,7 +208,7 @@ def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, att: str, with_aux: bool = Tr
         gemm = MoeGemm.apply  # the kernel forward and backward
     y, aux = moe_block(xn.reshape(b * t, d), lp["router"], lp["w_gate"], lp["w_up"],
                        lp["w_down"], dims, n_groups=cfg.moe_groups, gemm=gemm,
-                       with_aux=with_aux)
+                       with_aux=with_aux, count_sum=count_sum)
     y = y.reshape(b, t, d)
     if cfg.moe.n_shared_experts:
         y = y + swiglu(xn, lp["ws_gate"], lp["ws_up"], lp["ws_down"])
@@ -240,7 +244,7 @@ def _attention(q, k, v, att: str, t: int):
 
 def _forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
              return_cache: bool = False, logits_mode: str = "all",
-             attention: str | None = None):
+             attention: str | None = None, count_sum=None):
     att = resolve_attention(attention, tokens.device)
     b, t = tokens.shape
     dev = tokens.device
@@ -256,7 +260,7 @@ def _forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
         q, k, v = _qkv(cfg, lp, x, positions)
         o = _attention(q, k, v, att, t)
         x = x + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ lp["wo"]
-        x, layer_aux = _ffn(cfg, lp, x, att)
+        x, layer_aux = _ffn(cfg, lp, x, att, count_sum=count_sum)
         aux = aux + layer_aux
         if cache is not None:
             cache[i, 0].copy_(k)
@@ -270,11 +274,12 @@ def _forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
 
 
 def loss_fn(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
-            targets: torch.Tensor, attention: str | None = None):
+            targets: torch.Tensor, attention: str | None = None, count_sum=None):
     """Next-token loss with autograd: ``(loss, {"nll", "aux"})``, the logits
     widened to float32, then log-softmax, the mean NLL of ``targets`` and,
-    for MoE, ``router_aux_weight * aux``."""
-    logits, aux = _forward(cfg, params, tokens, attention=attention)
+    for MoE, ``router_aux_weight * aux`` (``count_sum``: see
+    ``layers.moe_block``)."""
+    logits, aux = _forward(cfg, params, tokens, attention=attention, count_sum=count_sum)
     logp = torch.log_softmax(logits.float(), dim=-1)
     del logits
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]

@@ -1,4 +1,5 @@
-"""Document-partitioned anchored index on one device.
+"""Document-partitioned anchored index, on one device or across the ranks
+of a mesh.
 
 Each shard owns the postings of one *document range* (or, for positional
 phrase serving, one *position range* cut at document boundaries), re-based
@@ -8,9 +9,8 @@ and bool, padded exactly as the reference pads them — and results come back
 as (shards, batch, cand) with global ids: the broadcast-query /
 local-search / merge-results topology of a sharded search tier.
 
-A mesh of devices has no counterpart here: one device serves every shard,
-and the shard dimension runs as **one batched step**.  The stacked arrays
-are viewed flat (anchors ``(S * max_nc,)``, expand ``(S * max_nc, el)``,
+On one device every shard is served by **one batched step**.  The stacked
+arrays are viewed flat (anchors ``(S * max_nc,)``, expand ``(S * max_nc, el)``,
 reshapes of the same storage), and one small int32 array holds each shard's
 C-offsets shifted by ``s * max_nc``, so list ``t`` of shard ``s`` is list
 ``s * (T + 1) + t`` of one ordinary :class:`AnchoredIndex` and its slice
@@ -19,6 +19,17 @@ never reaches another shard's entries or the padding between shards.  The
 ids, so a window is one candidate gather and one probe per probed term for
 all shards together (``probe="kernel"``: one ``anchor_probe_sliced``
 launch per probed term per window, whatever ``S``).
+
+On a mesh (a ``DeviceMesh``, ``repro_torch.sharding.compat.make_mesh``) each
+rank along ``shard_axis`` holds ``S / n`` of the stacked shards on its own
+device — a slice of the leading dimension of every array, ``doc_base``
+included, so ids stay the global shards' — and runs the same batched step
+over its local shards; the ``(S / n, B, C)`` values and masks are then
+all-gathered along ``shard_axis`` to ``(S, B, C)``, as the reference's
+``shard_map`` returns them.  Ranks along the other axes hold the same
+shards and give the same answers.  Every rank must sweep the same windows
+(each window is one ``all_gather``): the window count comes from the global
+C-offsets of all shards, never from the local ones.
 
 Both query kinds of the batched engine run under this layout: conjunctive
 AND (mode="and") and offset-shifted phrase probes (mode="phrase"); the
@@ -39,9 +50,11 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.anchors import AnchoredIndex, build_anchored
 from ..core.device import resolve_device
+from ..sharding.compat import mesh_device, require_device_mesh
 from .engine import (
     MAX_CAND_ROWS,
     _kernel_member,
@@ -55,12 +68,12 @@ from .plan import PHRASE
 _INT32_MAX = 2**31 - 1
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise ValueError(
-            f"mesh={mesh!r}: the partitioned server runs on one device, which "
-            f"serves every shard as a leading dimension of one batched step; "
-            f"pass mesh=None")
+def _axis_size(mesh, shard_axis: str, what: str) -> int:
+    require_device_mesh(mesh, what)
+    names = tuple(mesh.mesh_dim_names)
+    if shard_axis not in names:
+        raise ValueError(f"{what}: shard_axis={shard_axis!r} is not an axis of the mesh {names}")
+    return mesh.size(names.index(shard_axis))
 
 
 def shard_offsets(c_offsets: np.ndarray, max_nc: int) -> np.ndarray:
@@ -82,8 +95,12 @@ def shard_offsets(c_offsets: np.ndarray, max_nc: int) -> np.ndarray:
 class PartitionedAnchoredIndex:
     arrays: dict[str, torch.Tensor]  # each with leading (n_shards,) dim
     doc_bounds: np.ndarray  # (n_shards + 1,) global doc-range boundaries
-    n_shards: int
+    n_shards: int  # the shards held here (a rank's own on a mesh)
     expand_len: int
+    #: the first shard held here, and the C-offsets (S, T + 1) of all the
+    #: layout's shards (``None``: the shards held here are all of them)
+    first_shard: int = 0
+    global_c_offsets: np.ndarray | None = None
     #: ``shard_offsets`` of ``arrays["c_offsets"]``, on the arrays' device
     flat_c_offsets: torch.Tensor = field(init=False)
 
@@ -168,12 +185,39 @@ class PartitionedAnchoredIndex:
     def device(self) -> torch.device:
         return self.arrays["anchors"].device
 
+    def all_c_offsets(self) -> np.ndarray:
+        """(S, T + 1) C-offsets of every shard of the layout (the window
+        count of a sweep comes from these, on every rank alike)."""
+        if self.global_c_offsets is not None:
+            return self.global_c_offsets
+        return self.arrays["c_offsets"].cpu().numpy()
+
+    def local_shards(self, mesh, shard_axis: str = "data") -> "PartitionedAnchoredIndex":
+        """This rank's ``S / n`` shards along ``shard_axis`` of ``mesh`` (``n``
+        its size), copied onto the rank's device; ``S`` not divisible by ``n``
+        raises, as the reference's ``shard_map`` does."""
+        if self.global_c_offsets is not None:
+            raise ValueError("local_shards: this layout already holds one rank's shards")
+        n = _axis_size(mesh, shard_axis, "local_shards")
+        if self.n_shards % n:
+            raise ValueError(f"{self.n_shards} shards do not divide over the {n} ranks of "
+                             f"mesh axis {shard_axis!r}")
+        per = self.n_shards // n
+        lo = mesh.get_local_rank(shard_axis) * per
+        dev = mesh_device(mesh)
+        arrays = {k: v[lo:lo + per].to(dev).clone() for k, v in self.arrays.items()}
+        return PartitionedAnchoredIndex(arrays=arrays, doc_bounds=self.doc_bounds,
+                                        n_shards=per, expand_len=self.expand_len,
+                                        first_shard=lo, global_c_offsets=self.all_c_offsets())
+
     def step_arrays(self) -> dict[str, torch.Tensor]:
         """The stacked arrays plus the flat list table the batched step reads."""
         return {**self.arrays, "flat_c_offsets": self.flat_c_offsets}
 
     def device_bytes(self) -> int:
-        """Device bytes of the stacked arrays and the flat list table."""
+        """Device bytes of the stacked arrays and the flat list table held
+        here (on a mesh, a rank's; their sum over the shard axis is the
+        one-device number)."""
         return sum(t.numel() * t.element_size() for t in self.step_arrays().values())
 
 
@@ -194,12 +238,14 @@ def make_partitioned_serve_step(max_terms: int, mesh=None, shard_axis: str = "da
     """Returns serve(arrays, query_terms, query_lens, row_start=0) ->
     (vals, mask), each (n_shards, B, C): every shard's window of the same
     step in one batched pass (see the module docstring); ``arrays`` is
-    :meth:`PartitionedAnchoredIndex.step_arrays`.  ``mode`` selects
-    AND or offset-shifted phrase probes; ``probe="kernel"`` probes each term
-    with the ``anchor_probe_sliced`` kernel, ``"torch"`` with plain tensor
-    code.  ``mesh`` must be ``None`` (one device serves every shard)."""
-    del shard_axis  # a mesh axis name; no mesh here
-    _refuse_mesh(mesh)
+    :meth:`PartitionedAnchoredIndex.step_arrays` of the shards held here.
+    ``mode`` selects AND or offset-shifted phrase probes; ``probe="kernel"``
+    probes each term with the ``anchor_probe_sliced`` kernel, ``"torch"``
+    with plain tensor code.  With a ``mesh`` the arrays are this rank's
+    shards along ``shard_axis`` and the results are all-gathered along it to
+    every shard's (every rank of the axis must call the step together)."""
+    n_ranks = None if mesh is None else _axis_size(mesh, shard_axis,
+                                                      "make_partitioned_serve_step")
     member = _kernel_member() if probe == "kernel" else None
     phrase = mode == PHRASE
 
@@ -220,13 +266,27 @@ def make_partitioned_serve_step(max_terms: int, mesh=None, shard_axis: str = "da
         vals = cand_vals - 1 + base
         return vals.reshape(s, b, -1), match.reshape(s, b, -1)
 
-    return serve
+    if mesh is None:
+        return serve
+    group = mesh.get_group(shard_axis)
+
+    def serve_gathered(arrays: dict, query_terms: torch.Tensor, query_lens: torch.Tensor,
+                       row_start: int = 0):
+        vals, match = serve(arrays, query_terms, query_lens, row_start)
+        # one collective a window: values and masks packed as int32
+        packed = torch.stack([vals, match.to(torch.int32)], dim=1).contiguous()
+        parts = [torch.empty_like(packed) for _ in range(n_ranks)]
+        dist.all_gather(parts, packed, group=group)
+        full = torch.cat(parts)  # (S, 2, B, C), shards in the axis' order
+        return full[:, 0], full[:, 1].bool()
+
+    return serve_gathered
 
 
 def serve_partitioned_windowed(pidx: PartitionedAnchoredIndex, serve, qt, ql) -> list[np.ndarray]:
     """Sweep candidate windows across all shards and merge: exact results
     for per-shard lists of any length (concatenating per-shard hits)."""
-    c_off = pidx.arrays["c_offsets"].cpu().numpy()  # (S, n_terms + 1)
+    c_off = pidx.all_c_offsets()  # (S, n_terms + 1) of every shard
     first = np.asarray(qt)[:, 0]
     rows = (c_off[:, first + 1] - c_off[:, first]).max()
     dev = pidx.device
@@ -267,7 +327,10 @@ class PartitionedServer:
     conjunctive and phrase steps exist shard-local (``kinds``); the plan
     compiler routes top-k / doc listing to the host.  ``probe`` is
     ``"kernel"`` (the CUDA kernel; default on a GPU) or ``"torch"`` (plain
-    tensor code; default on the CPU).  ``mesh`` must be ``None``.
+    tensor code; default on the CPU).  With a ``mesh`` (a ``DeviceMesh``)
+    ``pidx`` is the whole layout, of which each rank keeps its shards along
+    ``shard_axis`` on its device (:meth:`PartitionedAnchoredIndex.
+    local_shards`); every rank must then run the same queries together.
     """
 
     pidx: PartitionedAnchoredIndex
@@ -283,12 +346,13 @@ class PartitionedServer:
     windows_swept: int = 0  # batched window steps run (all shards in each)
 
     def __post_init__(self):
-        _refuse_mesh(self.mesh)
-        self.probe = resolve_probe(self.probe, self.pidx.device)
         if self._lengths_np is None:
             self._lengths_np = self.pidx.arrays["lengths"].cpu().numpy().sum(axis=0)
         if self._c_offsets_np is None:
-            self._c_offsets_np = self.pidx.arrays["c_offsets"].cpu().numpy()
+            self._c_offsets_np = self.pidx.all_c_offsets()
+        if self.mesh is not None:
+            self.pidx = self.pidx.local_shards(self.mesh, self.shard_axis)
+        self.probe = resolve_probe(self.probe, self.pidx.device)
         self._arrays = self.pidx.step_arrays()
 
     @classmethod
@@ -297,11 +361,17 @@ class PartitionedServer:
         """Shard an already-built index (any registered backend) into the
         partitioned layout on ``device`` — the in-memory counterpart of
         :meth:`open`, used by the replicated serving tier to stamp out shard
-        sets."""
-        _refuse_mesh(mesh)
-        probe = resolve_probe(probe, resolve_device(device))
-        pidx = PartitionedAnchoredIndex.from_index(index, n_shards=n_shards,
-                                                   device=device, **kw)
+        sets.  With a ``mesh`` the layout is built on the host and each rank
+        copies its own shards onto its device (``device`` must name the
+        mesh's device type)."""
+        dev = resolve_device(device)
+        if mesh is not None:
+            _axis_size(mesh, shard_axis, "PartitionedServer.from_index")
+            if dev.type != mesh.device_type:
+                raise ValueError(f"device={device!r} on a {mesh.device_type!r} mesh")
+        probe = resolve_probe(probe, dev)
+        pidx = PartitionedAnchoredIndex.from_index(
+            index, n_shards=n_shards, device="cpu" if mesh is not None else dev, **kw)
         return cls(pidx=pidx, host_index=index, mesh=mesh, shard_axis=shard_axis,
                    probe=probe)
 
@@ -344,7 +414,8 @@ class PartitionedServer:
         if key not in self._steps:
             self.trace_events += 1  # a step-cache miss: a new traffic shape
             self._steps[key] = make_partitioned_serve_step(
-                max_terms=width, mode=mode, probe=self.probe)
+                max_terms=width, mesh=self.mesh, shard_axis=self.shard_axis, mode=mode,
+                probe=self.probe)
         return self._steps[key]
 
     def _sweep(self, mode: str, queries: list[list[str]],

@@ -80,7 +80,7 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _clip_scale(max_norm: float, norm: torch.Tensor) -> torch.Tensor:
+def clip_scale(max_norm: float, norm: torch.Tensor) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
 
 
@@ -89,7 +89,7 @@ def clip_by_global_norm(tree: dict, max_norm: float):
     The updates clip one leaf at a time instead (the same values, without a
     float32 copy of every gradient at once)."""
     n = global_norm(tree)
-    scale = _clip_scale(max_norm, n)
+    scale = clip_scale(max_norm, n)
     return {k: g.float() * scale for k, g in tree.items()}, n
 
 
@@ -106,10 +106,13 @@ def adamw_init(params: dict) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptConfig, params: dict, grads: dict, state: dict):
+def adamw_update(cfg: OptConfig, params: dict, grads: dict, state: dict, gnorm=None):
+    """``gnorm``: the global norm of the whole gradient when ``grads`` holds
+    only this rank's shards of it (the sharded step); by default that of
+    ``grads``."""
     params = param_tree(params)
-    gnorm = global_norm(grads)
-    scale = _clip_scale(cfg.clip_norm, gnorm)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
+    scale = clip_scale(cfg.clip_norm, gnorm)
     step = state["step"] + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.betas
@@ -155,27 +158,38 @@ def adafactor_init(params: dict) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def adafactor_decay(step: torch.Tensor) -> torch.Tensor:
+    """The second-moment decay at the updated ``step``."""
+    return 1.0 - step.float() ** -0.8
+
+
+def adafactor_leaf(cfg: OptConfig, p: torch.Tensor, g32: torch.Tensor, vr: torch.Tensor,
+                   vc: torch.Tensor, decay: torch.Tensor):
+    """``(u, new_vr, new_vc)`` of one whole leaf: ``g32`` its clipped float32
+    gradient; the factored means run over the leaf's last two dimensions."""
+    if _factored(p):
+        new_vr = decay * vr + (1 - decay) * torch.mean(g32 * g32, dim=-1)
+        new_vc = decay * vc + (1 - decay) * torch.mean(g32 * g32, dim=-2)
+        r = new_vr / torch.clamp(torch.mean(new_vr, dim=-1, keepdim=True), min=1e-30)
+        u = g32 / (torch.sqrt(r)[..., None] * torch.sqrt(new_vc)[..., None, :] + cfg.eps)
+    else:
+        new_vr = decay * vr + (1 - decay) * g32 * g32
+        new_vc = vc
+        u = g32 / (torch.sqrt(new_vr) + cfg.eps)
+    return u + cfg.weight_decay * p.float(), new_vr, new_vc
+
+
 @torch.no_grad()
 def adafactor_update(cfg: OptConfig, params: dict, grads: dict, state: dict):
     params = param_tree(params)
     gnorm = global_norm(grads)
-    scale = _clip_scale(cfg.clip_norm, gnorm)
+    scale = clip_scale(cfg.clip_norm, gnorm)
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    decay = 1.0 - step.float() ** -0.8
+    decay = adafactor_decay(step)
     for k, p in params.items():
-        g32 = grads[k].float() * scale
         vr, vc = state["vr"][k], state["vc"][k]
-        if _factored(p):
-            new_vr = decay * vr + (1 - decay) * torch.mean(g32 * g32, dim=-1)
-            new_vc = decay * vc + (1 - decay) * torch.mean(g32 * g32, dim=-2)
-            r = new_vr / torch.clamp(torch.mean(new_vr, dim=-1, keepdim=True), min=1e-30)
-            u = g32 / (torch.sqrt(r)[..., None] * torch.sqrt(new_vc)[..., None, :] + cfg.eps)
-        else:
-            new_vr = decay * vr + (1 - decay) * g32 * g32
-            new_vc = vc
-            u = g32 / (torch.sqrt(new_vr) + cfg.eps)
-        u = u + cfg.weight_decay * p.float()
+        u, new_vr, new_vc = adafactor_leaf(cfg, p, grads[k].float() * scale, vr, vc, decay)
         p.copy_((p.float() - lr * u).to(p.dtype))
         vr.copy_(new_vr)
         vc.copy_(new_vc)

@@ -143,9 +143,11 @@ def test_missing_leaf_and_mesh_refused(tmp_path):
     ck.save(1, {"x": torch.tensor(1.0)})
     with pytest.raises(KeyError, match="y"):
         ck.restore({"x": torch.tensor(0.0), "y": torch.tensor(0.0)})
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a sharding tree of something else, a mesh that is not a DeviceMesh: refused
+    # by name (the mesh path runs in tests/test_torch_distributed.py)
+    with pytest.raises(TypeError, match="neither a spec nor a sharding"):
         ck.restore({"x": torch.tensor(0.0)}, sharding_tree={"x": "spec"})
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         reshard({"x": torch.tensor(0.0)}, "mesh", {"x": None})
     with pytest.raises(FileNotFoundError):
         Checkpointer(str(tmp_path / "empty")).restore({"x": torch.tensor(0.0)})

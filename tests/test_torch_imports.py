@@ -70,7 +70,10 @@ def test_module_list_covers_the_slice():
                    "repro_torch.train.loop", "repro_torch.checkpoint",
                    "repro_torch.checkpoint.checkpointer", "repro_torch.models.gnn",
                    "repro_torch.models.segment", "repro_torch.data.graphs",
-                   "repro_torch.launch.train"):
+                   "repro_torch.launch.train", "repro_torch.sharding",
+                   "repro_torch.sharding.compat", "repro_torch.sharding.specs",
+                   "repro_torch.sharding.spmd", "repro_torch.launch.mesh",
+                   "repro_torch.train.grad_compression"):
         assert needed in MODULES, needed
 
 
@@ -99,6 +102,28 @@ def test_serving_frontier_imports_build_no_kernel():
         "import sys\n"
         "import repro_torch.serving.frontend, repro_torch.serving.partitioned\n"
         "import repro_torch.launch.serve\n"
+        "from repro_torch.kernels import cuda_build\n"
+        "assert cuda_build._lib is None and not cuda_build.build_info\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_mesh_tier_imports_touch_no_process_group():
+    """The mesh tier (meshes, specs, the sharded step, gradient compression)
+    and the modules that now accept a mesh import without ``jax`` or
+    ``repro``, build no kernel and start no process group."""
+    code = (
+        "import sys\n"
+        "import repro_torch.sharding.compat, repro_torch.sharding.specs\n"
+        "import repro_torch.sharding.spmd, repro_torch.launch.mesh\n"
+        "import repro_torch.train.grad_compression, repro_torch.serving.partitioned\n"
+        "import repro_torch.checkpoint.checkpointer\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "from repro_torch.kernels import cuda_build\n"
         "assert cuda_build._lib is None and not cuda_build.build_info\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"

@@ -380,13 +380,15 @@ def test_open_reference_artifact(collection, indexes, tmp_path):
 
 
 def test_mesh_and_kernel_probe_refused_on_cpu(indexes, lists):
+    """A mesh that is not a ``DeviceMesh`` is refused by name (the mesh path
+    itself runs in tests/test_torch_distributed.py)."""
     idx = indexes[0]
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         part.PartitionedServer.from_index(idx, 2, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         part.make_partitioned_serve_step(2, mesh=object())
     pidx = part.PartitionedAnchoredIndex.build(lists, N_DOCS, 2, device="cpu")
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         part.PartitionedServer(pidx, FakeHost(len(lists)), mesh=object())
     with pytest.raises(ValueError, match="probe='kernel'"):
         part.PartitionedServer.from_index(idx, 2, device="cpu", probe="kernel")
