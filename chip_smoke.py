@@ -113,7 +113,25 @@ launch counts set to 0 just before it and read just after:
   table gradient) that the same check must catch; then
   ``repro_torch.launch.train.main`` on xDeepFM with checkpoints, run again
   to resume, and a bf16 qwen3-8b train state saved and restored bit for
-  bit, its manifest as the reference's Checkpointer writes it.
+  bit, its manifest as the reference's Checkpointer writes it;
+* drivers — the port's drivers in-process on the card, each with its
+  launch counts set to 0 just before it and read just after
+  (``launches_drivers`` in the kernels line): ``repro_torch.examples.
+  serve_queries`` (a host session against ``Session.build`` on the card,
+  32/32 agreement, the fused layout's ``decode_window`` /
+  ``probe_window``), ``scripts.lifecycle_smoke`` (build, persist, open on
+  the card, serve, ingest, the checksum gate naming the corrupted
+  component), ``examples.recsys_retrieval`` (the Re-Pair tag pre-filter,
+  ``tt_retrieval`` on the card through ``embedding_bag``, the same top-5),
+  ``examples.train_lm`` (the 8-layer float32 granite member, row 7's
+  forward and lse under autograd, checkpoints, then a resume at the last
+  one) and ``scripts.smoke`` (registry, inverted / self-index agreement,
+  explain, lifecycle, version mining on the card, serve_queries);
+  ``--only-drivers`` runs it and the dry-run alone;
+* dryrun — ``python -m repro_torch.launch.dryrun`` in a subprocess for
+  qwen3-8b ``train_4k`` on the (16, 16) mesh and moonshot-v1-16b-a3b
+  ``train_4k`` on the (2, 16, 16) mesh (a fake world of 256 / 512 ranks on
+  ``meta`` tensors): each record ``ok``, no CUDA context in the subprocess.
 
 Every answer is compared with the host-only session's, and each kernel is held
 against its plain PyTorch version on the card at edge shapes and at the inputs
@@ -154,8 +172,10 @@ import argparse
 import contextlib
 import dataclasses
 import faulthandler
+import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -275,8 +295,13 @@ NEW_BACKENDS = ("rice", "rice_runs", "simple9", "pfordelta", "opt_pfd", "elias_f
                 "vbyte_cmb", "vbyte_stb", "vbyte_lzend")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line a phase; ``at_s`` is the script's time when it ends."""
+    print(json.dumps({"phase": phase, "at_s": round(time.perf_counter() - _T0, 1), **kw}),
+          flush=True)
 
 
 def emit_done(t_start: float) -> None:
@@ -4929,6 +4954,147 @@ def mesh_phase(args, dev, built: dict, cut: dict | None) -> dict:
             "phase_s": time.perf_counter() - t1}
 
 
+DRIVERS_DIR = ROOT / "build" / "drivers"
+#: train_lm's run: 30 steps, checkpoints every 10, then a resume of 5
+DRIVER_TRAIN_STEPS, DRIVER_CKPT_EVERY, DRIVER_RESUME_STEPS = 30, 10, 5
+#: the kernels each driver must launch on the card (the kernels line has all)
+DRIVER_KERNELS = {"serve_queries": ("decode_window", "probe_window"),
+                  "lifecycle_smoke": ("decode_window", "probe_window"),
+                  "recsys_retrieval": ("embedding_bag",),
+                  "train_lm": ("flash_attention_tpu",),
+                  "smoke": ("decode_window", "probe_window", "minhash_rows")}
+
+
+def _run_driver(name: str, fn, dev) -> dict:
+    """One driver in-process on ``dev``, its launch counts set to 0 just
+    before it and read just after, its printed lines kept."""
+    out = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: n for k, n in launch_counts().items() if n}
+    lines = out.getvalue().splitlines()
+    missing = [k for k in DRIVER_KERNELS[name] if not launches.get(k)]
+    require(not missing, f"driver {name} launched no {missing} on the card")
+    return {"seconds": round(secs, 3), "launches": launches, "result": result,
+            "printed": [l for l in lines if "ms" in l or "OK" in l or "agreement" in l
+                        or "loss:" in l or "top-5" in l or "candidates" in l][:40]}
+
+
+def drivers_phase(dev) -> dict:
+    """Drivers 4-8 of the port in-process on the card, each at its own
+    defaults but ``train_lm``'s step count: ``serve_queries`` (the host
+    session against ``Session.build`` on the card, 32/32), ``lifecycle_smoke``
+    (build, persist, open on the card, serve, ingest, the checksum gate),
+    ``recsys_retrieval`` (the Re-Pair tag pre-filter, ``tt_retrieval`` on
+    the card, the same top-5), ``train_lm`` (the 8-layer float32 granite
+    member, checkpoints, then a resume) and ``smoke``.  Each driver's own
+    assertions hold, or it raises."""
+    from repro_torch.examples import recsys_retrieval, serve_queries, train_lm
+    from repro_torch.scripts import lifecycle_smoke, smoke
+    import shutil
+
+    shutil.rmtree(DRIVERS_DIR, ignore_errors=True)
+    DRIVERS_DIR.mkdir(parents=True)
+    cuda = ["--device", dev.type]
+    ckpt = ["--ckpt-dir", str(DRIVERS_DIR / "train_ckpt"), "--ckpt-every", str(DRIVER_CKPT_EVERY)]
+    out = {}
+    try:
+        r = _run_driver("serve_queries", lambda: serve_queries.main(cuda), dev)
+        r["result"] = {k: round(r["result"][k], 3) for k in ("host_ms", "device_ms")}
+        out["serve_queries"] = r
+        r = _run_driver("lifecycle_smoke",
+                        lambda: lifecycle_smoke.main([str(DRIVERS_DIR / "lifecycle"), *cuda]),
+                        dev)
+        require(r["result"] == 0, f"lifecycle_smoke exited {r['result']}")
+        out["lifecycle_smoke"] = r
+        r = _run_driver("recsys_retrieval", lambda: recsys_retrieval.main(cuda), dev)
+        res = r["result"]
+        r["result"] = {"candidates": len(res["candidates"]), "top5": res["top5"].tolist(),
+                       "brute_ms": round(res["brute_ms"], 3),
+                       "filtered_ms": round(res["filtered_ms"], 3)}
+        out["recsys_retrieval"] = r
+        r = _run_driver("train_lm", lambda: train_lm.main(
+            ["--steps", str(DRIVER_TRAIN_STEPS), *ckpt, *cuda]), dev)
+        logs = r["result"]["logs"]
+        losses = [l["loss"] for l in logs]
+        require(all(math.isfinite(x) for x in losses), f"train_lm losses {losses}")
+        require(r["result"]["ckpt_steps"] == [DRIVER_TRAIN_STEPS - DRIVER_CKPT_EVERY,
+                                              DRIVER_TRAIN_STEPS],
+                f"train_lm checkpoints {r['result']['ckpt_steps']}")
+        r["result"] = {"losses": [round(x, 4) for x in losses],
+                       "step_ms_median": round(1e3 * statistics.median(
+                           l["dt_s"] for l in logs[1:]), 3),
+                       "first_step_ms": round(1e3 * logs[0]["dt_s"], 3),
+                       "ckpt_steps": r["result"]["ckpt_steps"]}
+        out["train_lm"] = r
+        _free(dev)
+        with contextlib.redirect_stdout(io.StringIO()):
+            resumed = train_lm.main(["--steps", str(DRIVER_RESUME_STEPS), *ckpt, *cuda])
+        require(resumed["start"] == DRIVER_TRAIN_STEPS,
+                f"train_lm resumed at {resumed['start']}, not {DRIVER_TRAIN_STEPS}")
+        out["train_lm"]["resumed_at"] = resumed["start"]
+        del resumed
+        _free(dev)
+        r = _run_driver("smoke", lambda: smoke.main(cuda), dev)
+        require(r["result"] == 0, f"smoke exited {r['result']}")
+        out["smoke"] = r
+    finally:
+        shutil.rmtree(DRIVERS_DIR, ignore_errors=True)
+    return out
+
+
+DRYRUN_CELLS = (("qwen3-8b", "train_4k", False), ("moonshot-v1-16b-a3b", "train_4k", True))
+DRYRUN_SCRIPT = """
+import json, runpy, sys
+import torch
+sys.argv = ["repro_torch.launch.dryrun", *sys.argv[1:]]
+runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+print(json.dumps({"cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def dryrun_phase() -> dict:
+    """``python -m repro_torch.launch.dryrun`` (through ``runpy``, so that
+    the process can say afterwards whether it started CUDA) for
+    ``DRYRUN_CELLS`` in a subprocess each: a fake world of 256 / 512 ranks
+    on ``meta`` tensors; every record ``ok``, no CUDA context."""
+    import shutil
+
+    out_dir = ROOT / "build" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cells = []
+    try:
+        for arch, shape, multi in DRYRUN_CELLS:
+            argv = ["--arch", arch, "--shape", shape, "--out", str(out_dir)]
+            argv += ["--multi-pod"] if multi else []
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", DRYRUN_SCRIPT, *argv],
+                                  capture_output=True, text=True, timeout=600, cwd=str(ROOT),
+                                  env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+            secs = time.perf_counter() - t0
+            require(proc.returncode == 0, f"dryrun {arch} {shape}: exit {proc.returncode}: "
+                    f"{proc.stderr[-2000:]}")
+            state = json.loads(proc.stdout.strip().splitlines()[-1])
+            tag = "multipod" if multi else "singlepod"
+            rec = json.loads((out_dir / f"{arch}__{shape}__{tag}.json").read_text())
+            require(rec["status"] == "ok", f"dryrun {arch} {shape} {tag}: {rec.get('error')}")
+            require(not state["cuda_initialized"],
+                    f"dryrun {arch} {shape}: the subprocess initialised CUDA")
+            cells.append({"arch": arch, "shape": shape, "mesh": rec["mesh"],
+                          "status": rec["status"], "seconds": round(secs, 2),
+                          "cuda_initialized": state["cuda_initialized"],
+                          "memory": rec["memory"], "collectives": rec["collectives"],
+                          "roofline": rec["roofline"]})
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"cells": cells}
+
+
 def build_sessions(built: dict, device: str, probe: str | None) -> tuple[dict, dict]:
     from repro_torch.serving.session import Session
 
@@ -4959,7 +5125,9 @@ def group_terms(server, batch, kind: str, n_terms: tuple[int, ...]):
 # ----------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--articles", type=int, default=80)
+    # 60 x 50 = 3,000 documents keeps the whole run near 810 s (80 x 50 took 1146.7 s
+    # with every phase on an NVIDIA H100 80GB HBM3 at 700 W, too near the 1200 s limit)
+    ap.add_argument("--articles", type=int, default=60)
     ap.add_argument("--versions", type=int, default=50)
     ap.add_argument("--words", type=int, default=400)
     ap.add_argument("--per-cell", type=int, default=24,
@@ -4980,6 +5148,10 @@ def main() -> int:
                     help="run the device and build phases, the collection and its "
                          "indexes, and the mesh phase alone (a quick check of the mesh "
                          "tier; prints no kernels line and no result)")
+    ap.add_argument("--only-drivers", action="store_true",
+                    help="run the device and build phases, then the drivers and the "
+                         "dry-run alone (a quick check of the drivers on the card; prints "
+                         "no kernels line and no result)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5012,6 +5184,11 @@ def main() -> int:
         train = train_phase(args, torch.device("cuda"))
         emit("train", card=card, **train)
         require(not train["failures"], f"train: {train['failures']}")
+        emit_done(t_start)
+        return 0
+    if args.only_drivers:
+        emit("drivers", card=card, **drivers_phase(torch.device("cuda")))
+        emit("dryrun", card=card, **dryrun_phase())
         emit_done(t_start)
         return 0
     if args.only_mesh:
@@ -5210,6 +5387,13 @@ def main() -> int:
     train = train_phase(args, dev)
     emit("train", card=card, **train)
     require(not train["failures"], f"train: {train['failures']}")
+    _free(dev)
+
+    # the drivers in-process on the card (each with its launch counts), then
+    # the dry-run of two production cells in subprocesses that touch no card
+    drivers = drivers_phase(dev)
+    emit("drivers", card=card, **drivers)
+    emit("dryrun", card=card, **dryrun_phase())
 
     # one entry per kernel: the serving kernels at the positional phrase2
     # shape (the serve path's most frequent) — the window kernels on the fused
@@ -5310,6 +5494,10 @@ def main() -> int:
     for k in kernels:
         if k["name"] in mesh["launches"]:
             k["launches_mesh"] = mesh["launches"][k["name"]]
+    # the drivers' launches, per driver, beside the others
+    for k in kernels:
+        k["launches_drivers"] = {d: r["launches"][k["name"]] for d, r in drivers.items()
+                                 if r.get("launches", {}).get(k["name"])}
     require(len(kernels) == len(KERNEL_META), f"the kernels line lists {len(kernels)} "
             f"kernels, expected {len(KERNEL_META)}")
     emit_done(t_start)

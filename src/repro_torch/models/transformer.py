@@ -313,7 +313,7 @@ def decode_step(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
     inside = (positions >= 0) & (positions < s)
     if positions.device.type == "cuda":
         torch._assert_async(inside.all(), f"decode_step: a position outside the cache's [0, {s})")
-    elif not bool(inside.all()):
+    elif positions.device.type == "cpu" and not bool(inside.all()):  # meta holds none
         raise IndexError(f"positions {positions.tolist()} outside the cache's [0, {s})")
     h, hd = cfg.n_heads, cfg.head_dim
     x = params.embed[tokens.long()].to(_dtype(cfg))  # (B, 1, D)

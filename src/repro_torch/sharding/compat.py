@@ -195,9 +195,11 @@ class NamedSharding:
 
 def local_shard(full: torch.Tensor, mesh, placements) -> torch.Tensor:
     """This rank's shard of ``full`` (which every rank holds) under
-    ``placements``, sliced locally: no collective."""
-    return distribute_tensor(full.to(mesh_device(mesh)), mesh, placements,
-                             src_data_rank=None).to_local()
+    ``placements``, sliced locally: no collective.  A ``meta`` tensor (the
+    dry-run's) stays on ``meta``."""
+    if not full.is_meta:
+        full = full.to(mesh_device(mesh))
+    return distribute_tensor(full, mesh, placements, src_data_rank=None).to_local()
 
 
 def _place(leaf, sharding: NamedSharding):

@@ -100,21 +100,26 @@ def _loss_count(cfg, batch: dict):
 
 def make_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, state_specs: dict,
                             batch_specs: dict, n_micro: int = 1,
-                            shape_name: str | None = None):
+                            shape_name: str | None = None, attention: str | None = None,
+                            device=None):
     """``train_step(state, batch) -> (state, metrics)`` on ``mesh`` for a
     state placed by ``state_specs`` (see the module docstring).  ``batch``
     is the whole batch (NumPy arrays or tensors), the same on every rank;
     ``batch_specs`` holds a spec for each of its leaves.  ``n_micro``
     (LMs) accumulates over the rank's slices of the unsharded step's
     micro-batches; ``shape_name`` picks a GNN's input width.  The loss
-    takes the kernels on a card (``steps.loss_for``).  The state and the
+    takes the kernels on a card (``steps.loss_for``; ``attention`` names
+    the LMs' route).  ``device`` is the working model's device, the mesh's
+    by default; the dry-run passes ``"meta"`` with a ``meta`` state and
+    batch, so that nothing is allocated.  The state and the
     metrics are those of the unsharded step: the state is updated in place
     and returned with ``step`` one higher.  ``train_step.grads(state, batch)``
-    runs steps 1-4 alone and returns ``(gradients, metrics)``."""
+    runs steps 1-4 alone and returns ``(gradients, metrics)``;
+    ``train_step.work`` is the working model of step 1."""
     require_device_mesh(mesh, "make_sharded_train_step")
     if n_micro > 1 and not isinstance(cfg, LMConfig):
         raise ValueError(f"n_micro={n_micro}: only the LM step accumulates micro-batches")
-    dev = mesh_device(mesh)
+    dev = mesh_device(mesh) if device is None else torch.device(device)
     flat_specs = flatten_specs(state_specs)
     param_sh = {k[len("params/"):]: NamedSharding(mesh, v).placements()
                 for k, v in flat_specs.items() if k.startswith("params/")}
@@ -133,7 +138,7 @@ def make_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, state_specs: dict,
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
         return t
 
-    loss_fn = steps.loss_for(cfg)
+    loss_fn = steps.loss_for(cfg, attention)
     moe = isinstance(cfg, LMConfig) and cfg.moe is not None
     if moe and n_slices > 1:  # see the module docstring
         if cfg.moe_groups % n_slices:
@@ -142,7 +147,7 @@ def make_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, state_specs: dict,
                              f"token groups, and its expert capacity would not be the "
                              f"unsharded step's; set moe_groups to the data ranks")
         loss_fn = steps.loss_for(dataclasses.replace(cfg, moe_groups=cfg.moe_groups // n_slices),
-                                 count_sum=_reduce)
+                                 attention, count_sum=_reduce)
     work = steps.init_model_params(cfg, None, "meta", shape_name).to_empty(device=dev)
     work_params = param_tree(work)
     if set(work_params) != set(param_sh):
@@ -187,6 +192,7 @@ def make_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, state_specs: dict,
                 {**metrics, **extra})
 
     train_step.grads = grads
+    train_step.work = work
     return train_step
 
 

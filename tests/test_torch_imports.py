@@ -73,7 +73,14 @@ def test_module_list_covers_the_slice():
                    "repro_torch.launch.train", "repro_torch.sharding",
                    "repro_torch.sharding.compat", "repro_torch.sharding.specs",
                    "repro_torch.sharding.spmd", "repro_torch.launch.mesh",
-                   "repro_torch.train.grad_compression"):
+                   "repro_torch.train.grad_compression",
+                   *(f"repro_torch.launch.{m}" for m in (
+                       "dryrun", "hlo_cost", "hlo_analysis", "roofline")),
+                   "repro_torch.examples", "repro_torch.scripts",
+                   *(f"repro_torch.examples.{m}" for m in (
+                       "quickstart", "serve_queries", "recsys_retrieval", "train_lm")),
+                   *(f"repro_torch.scripts.{m}" for m in (
+                       "list_backends", "explain", "lifecycle_smoke", "smoke"))):
         assert needed in MODULES, needed
 
 
@@ -124,6 +131,28 @@ def test_mesh_tier_imports_touch_no_process_group():
         "import repro_torch.checkpoint.checkpointer\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()\n"
+        "from repro_torch.kernels import cuda_build\n"
+        "assert cuda_build._lib is None and not cuda_build.build_info\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_dryrun_and_drivers_import_touch_nothing():
+    """The dry-run tier and the drivers import without ``jax`` or
+    ``repro``, build no kernel, start no process group and touch no CUDA."""
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.hlo_cost, repro_torch.launch.hlo_analysis\n"
+        "import repro_torch.examples.quickstart, repro_torch.examples.serve_queries\n"
+        "import repro_torch.examples.recsys_retrieval, repro_torch.examples.train_lm\n"
+        "import repro_torch.scripts.smoke\n"
+        "import torch, torch.distributed as dist\n"
+        "assert not dist.is_initialized() and not torch.cuda.is_initialized()\n"
         "from repro_torch.kernels import cuda_build\n"
         "assert cuda_build._lib is None and not cuda_build.build_info\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
