@@ -25,15 +25,19 @@ launch counts set to 0 just before it and read just after:
   both load routes (a look-back race would show now and then);
 * anchor_probe — ``repro_torch.kernels.anchor_probe`` with the positional
   index's longest list as the anchors and the next lists' positions as the
-  queries;
+  queries, on the route its wrapper picks (``lift``: binary lifting, two
+  queries a thread) and on the other (``bisect``), each repeated 50 times
+  against the plain version;
 * serve — one mixed query batch through ``Session.execute``, fused and dense
   device layouts, ``similar:`` / ``versions-of:`` over the mined index
   included; the fused layout serves each window in two launches
-  (``decode_window``, ``probe_window``), the dense one probes each term with
-  ``anchor_probe_sliced``; a traced fused window at phrase2 and at and2 is
-  split into host and device time beside the same window served by the
-  row-given route (``decode_rows``, then ``anchor_probe_sliced`` and
-  ``probe_rows`` per probed term: the fused step before the window kernels);
+  (``decode_window``, ``probe_window``), the dense one in one
+  (``dense_probe_window``: every term's anchor search and row compare) after
+  its candidate gather; a traced window at phrase2 and at and2 of each
+  layout is split into host and device time beside the same window served
+  by the route before its window kernels (fused: ``decode_rows``, then
+  ``anchor_probe_sliced`` and ``probe_rows`` per probed term; dense:
+  ``anchor_probe_sliced`` and a torch row compare per probed term);
 * ranked — a batch of ``rank10:`` queries (24 each of 2, 3 and 4 terms, an
   rng of its own) through both card sessions: the BM25 ranked step (padded
   run arrays, scatter-add, stable sort; no kernel of the table), every
@@ -48,8 +52,8 @@ launch counts set to 0 just before it and read just after:
   background while it serves, refreshed once;
 * frontier — ``PartitionedServer`` over the full non-positional index in 2
   and 4 shards (arrays built for the card equal to a CPU build; every shard
-  of a window in one batched step, ``anchor_probe_sliced`` once per probed
-  term a window), the positional index of the first 1,000 documents in 2
+  of a window in one batched step, one ``dense_probe_window`` a window),
+  the positional index of the first 1,000 documents in 2
   shards (phrases), ``replicated_session`` (2 fused replicas of the full
   indexes on the 432 queries, ``rank10:`` included; a replica failing
   mid-batch; 2 replicas x 2 shards over the cut), ``run_open_loop`` over
@@ -61,7 +65,8 @@ launch counts set to 0 just before it and read just after:
 * mesh — the mesh tier over NCCL with a world of one (``RANK=0``,
   ``WORLD_SIZE=1``, a free port on 127.0.0.1, ``make_local_mesh(1, 1)`` on
   ``"cuda"``): ``PartitionedServer(mesh=..., shard_axis="data",
-  probe="kernel")`` in 4 shards over the full non-positional index (the
+  probe="kernel")`` (one ``dense_probe_window`` a window) in 4 shards over
+  the full non-positional index (the
   batch's AND queries) and over the frontier's positional cut (its phrase
   queries), every answer equal to the ``mesh=None`` server's and the host
   session's; ``make_sharded_train_step`` on qwen3-8b and moonshot-v1-16b-a3b
@@ -135,7 +140,7 @@ launch counts set to 0 just before it and read just after:
 
 Every answer is compared with the host-only session's, and each kernel is held
 against its plain PyTorch version on the card at edge shapes and at the inputs
-the paths handed it: the eight integer kernels and ``embedding_bag`` with
+the paths handed it: the nine integer kernels and ``embedding_bag`` with
 tolerance 0, the two attention kernels with an elementwise limit per kernel
 and output dtype (``ATTENTION_TOL``: float32 sums in another order; a bf16
 output one rounding apart), their path inputs widened to float32 as well,
@@ -148,6 +153,7 @@ every route, and on both LM paths every prefill launch of the first two
 must take ``wgmma``, every MoE decode ``moe_gemm`` ``small_c`` and every
 ``flash_decode`` ``vec16``.  ``dgap_decode`` picks 16-byte or element loads
 from the stream's alignment (offset views reach the second);
+``anchor_probe`` its ``lift`` route up to 2^20 anchors, ``bisect`` past it;
 ``embedding_bag`` 16-byte, 8-byte or element loads from the table's width,
 row stride and alignment (the x0 lookups must take ``vec8``, the linear
 terms ``scalar``); ``minhash_rows`` one launch (``one_pass``) or a clearing
@@ -212,6 +218,9 @@ KERNEL_META = {
     "probe_window": {
         "route": "cuda", "source": "src/repro_torch/csrc/fused_decode.cu",
         "replaces": "src/repro/kernels/fused_decode/kernel.py:97"},
+    "dense_probe_window": {
+        "route": "cuda", "source": "src/repro_torch/csrc/anchor_intersect.cu",
+        "replaces": "src/repro/kernels/anchor_intersect/kernel.py:88"},
     "minhash_rows": {
         "route": "cuda", "source": "src/repro_torch/csrc/minhash_sig.cu",
         "replaces": "src/repro/kernels/minhash_sig/kernel.py:61"},
@@ -239,7 +248,8 @@ KERNEL_META = {
 }
 #: the kernels whose outputs are integers or bools, held to tolerance 0
 INTEGER_KERNELS = ("anchor_probe_sliced", "decode_rows", "probe_rows", "decode_window",
-                   "probe_window", "minhash_rows", "anchor_probe", "dgap_decode")
+                   "probe_window", "dense_probe_window", "minhash_rows", "anchor_probe",
+                   "dgap_decode")
 #: the attention kernels' limits against their plain versions, by kernel and
 #: output dtype, elementwise: |got - want| <= rel * |want| + abs.  Both sides
 #: widen their inputs to float32 and compute in float32; they differ only in
@@ -257,6 +267,9 @@ ATTENTION_TOL = {name: {torch.float32: (0.0, ATTENTION_F32_ABS),
 #: row-given route's, which the fused step must launch no time
 SERVE_KERNELS = ("decode_window", "probe_window")
 ROW_GIVEN_KERNELS = ("anchor_probe_sliced", "decode_rows", "probe_rows")
+#: the dense layout's serving kernel (one launch a window); the per-term
+#: route's anchor_probe_sliced, which the dense step must launch no time
+DENSE_KERNELS = ("dense_probe_window",)
 #: the lm_serve phase's request: the model (full width), prompts per batch,
 #: tokens per prompt and greedy decode steps
 LM_CONFIG = "qwen3-8b"
@@ -446,6 +459,46 @@ def probe_window_bound(args, sliced_calls, row_calls):
     words = (_distinct_words(cat(slices, 0), cat(slices, 1))
              + _distinct_words(cat(rows, 0), cat(rows, 1))) if slices else 0
     return bound(6 * b * c + 4 * min(words, loads), loads)
+
+
+def dense_probe_window_bound(args, term_calls):
+    """dense_probe_window: 6 B per candidate (value and flag in, match out)
+    and the probes this run's data makes.  A candidate's loop stops at its
+    first miss, so the per-term route's calls on the same window (each
+    term's targets and slices) say which probes run; each costs its anchor
+    slice's bisection steps, its row's over the row's live lanes (two loads
+    a step: value and flag) and one compare, and reads at most the anchor
+    words under the distinct slices and the 5 B (value, flag) of the live
+    lanes of the distinct rows probed (or 4 B per load where that is
+    fewer)."""
+    from repro_torch.core.anchors import rows_contain
+    from repro_torch.kernels.anchor_intersect.ops import INT32_MAX, anchor_probe_sliced_torch
+
+    cand_vals, cand_valid, _, ql, _, anchors, expand, expand_valid, phrase = args
+    b, c = cand_vals.shape
+    n = anchors.numel()
+    cand = cand_vals.reshape(-1)
+    alive = cand_valid.reshape(-1)
+    row_len = expand_valid.sum(dim=1)
+    loads, slices, rows = 0, [], []
+    for t, sa in enumerate(term_calls, start=1):
+        targets, lo, hi, _ = sa
+        active = (t < ql).repeat_interleave(c)
+        run = alive & active & (lo < hi)
+        if phrase:
+            run &= cand <= INT32_MAX - 1 - t
+        j = torch.maximum(anchor_probe_sliced_torch(*sa) - 1, lo).clamp(0, max(n - 1, 0)).long()
+        live = row_len[j]
+        loads += (_search_steps((hi - lo)[run]) + 2 * _search_steps(live[run])
+                  + int(run.sum()))
+        slices.append((lo[run], (hi - lo)[run]))
+        rows.append((j[run] * expand.shape[1], live[run]))
+        hit = rows_contain(expand, expand_valid, j, targets)
+        alive = alive & (~active | (run & hit))
+    cat = lambda parts, i: torch.cat([x[i] for x in parts])  # noqa: E731
+    words = (4 * _distinct_words(cat(slices, 0), cat(slices, 1))
+             + 5 * _distinct_words(cat(rows, 0), cat(rows, 1))) if slices else 0
+    return bound(6 * b * c + min(words, 4 * loads), loads)
 
 
 def probe_bound(pool, ptr, lens):
@@ -709,6 +762,106 @@ def window_edge_cases(dev, seed: int) -> list[dict]:
     return out
 
 
+def dense_window_table(rng, n_lists: int, L: int, dev) -> dict:
+    """A dense entry table like ``AnchoredIndex.from_store`` builds, rows
+    ``L`` lanes wide: lists of 0..300 entries; each row's valid lanes a
+    prefix of 1..L lanes (a few rows fill the row) rising by gaps of 1..4
+    from its anchor, the next entry's anchor its last value; garbage in the
+    dead lanes; lists 0-2 and the last one empty; list 4 is list 3 moved up
+    by 1 (a phrase of the two hits) and list 5 sits at the top of the int32
+    range (a phrase target there would wrap)."""
+    sizes = rng.integers(1, 300, n_lists)
+    sizes[[0, 1, 2, n_lists - 1]] = 0
+    sizes[4] = sizes[3]
+    n = int(sizes.sum())
+    lens = rng.integers(1, L + 1, n)
+    lens[rng.random(n) < 0.1] = L
+    gaps = rng.integers(1, 5, (n, L))
+    rows = np.cumsum(gaps, axis=1) * (np.arange(L)[None, :] < lens[:, None])
+    span = rows[np.arange(n), lens - 1]
+    anchors = np.zeros(n, np.int64)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    for i in range(n_lists):
+        lo, hi = int(offs[i]), int(offs[i + 1])
+        if i == 4:
+            rows[lo:hi] = rows[offs[3]:offs[4]]
+            lens[lo:hi] = lens[offs[3]:offs[4]]
+            anchors[lo:hi] = anchors[offs[3]:offs[4]] + 1
+            continue
+        start = 2**31 - 1 - int(span[lo:hi].sum()) - 3 if i == 5 else int(rng.integers(0, 1000))
+        anchors[lo:hi] = start + np.concatenate([[0], np.cumsum(span[lo:hi])[:-1]])
+    live = np.arange(L)[None, :] < lens[:, None]
+    expand = np.where(live, anchors[:, None] + rows, rng.integers(-2**31, 2**31, (n, L)))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)  # noqa: E731
+    return {"c_offsets": t(offs), "anchors": t(anchors), "expand": t(expand),
+            "expand_valid": torch.from_numpy(live).to(dev), "sizes": sizes}
+
+
+#: edge shapes of dense_probe_window: row widths (1,024 and 2,048: the
+#: serving path's; 33 and 2,049 one lane past a power of two), and the
+#: candidates a query
+DENSE_L = (1, 7, 32, 33, 1024, 2048, 2049)
+DENSE_C = 700
+
+
+def dense_window_edge_cases(dev, seed: int) -> list[dict]:
+    """dense_probe_window against its plain version on tables of
+    ``dense_window_table``: queries driven by and probing every kind of list
+    (empty, shifted copy, top of the range, an id past the table), the
+    padded row of a query with an unknown term, lengths 0, 1, W and W + 1,
+    inactive columns holding other ids, terms read through a wider matrix
+    (a row stride); candidates drawn from the driving list's live lanes,
+    each less or plus 1, at the int32 top and at random, a tenth invalid."""
+    from repro_torch.core.anchors import rows_are_sorted_prefixes
+    from repro_torch.kernels.anchor_intersect.ops import (
+        dense_probe_window, dense_probe_window_torch)
+
+    rng = np.random.default_rng(seed + 23)
+    out = []
+    n_lists = 40
+    for L in DENSE_L:
+        tab = dense_window_table(rng, n_lists, L, dev)
+        require(rows_are_sorted_prefixes(tab["expand"], tab["expand_valid"]),
+                f"the dense edge table of {L} lanes breaks the kernel's precondition")
+        table = [tab[k] for k in ("c_offsets", "anchors", "expand", "expand_valid")]
+        offs = tab["c_offsets"].cpu().numpy()
+        expand = tab["expand"].cpu().numpy()
+        live = tab["expand_valid"].cpu().numpy()
+        for b in WINDOW_B:
+            for width, phrase in WINDOW_WIDTHS:
+                wide = rng.integers(0, n_lists, (b, width + 3))
+                wide[:, 0] = rng.choice([3, 4, 5, 6, 7, 0, n_lists - 1, n_lists + 2], b)
+                if width > 1:
+                    wide[:, 1] = np.where(wide[:, 0] == 3, 4, wide[:, 0])
+                lens = rng.integers(0, width + 2, b)
+                lens[0] = width
+                if b > 2:
+                    wide[2], lens[2] = 0, 1
+                cand = rng.integers(0, 2**31 - 1, (b, DENSE_C))
+                for r in range(b):
+                    i = min(max(int(wide[r, 0]), 0), n_lists - 1)
+                    posts = expand[offs[i]:offs[i + 1]][live[offs[i]:offs[i + 1]]]
+                    if len(posts):
+                        cand[r, :600] = rng.choice(posts, 600) + rng.integers(-1, 2, 600)
+                cand[:, 600:620] = 2**31 - 1 - rng.integers(0, 4, (b, 20))
+                vals = torch.from_numpy(cand.astype(np.int32)).to(dev)
+                valid = torch.rand(vals.shape, device=dev) >= 0.1
+                qt = torch.from_numpy(wide.astype(np.int32)).to(dev)[:, :width]
+                ql = torch.from_numpy(lens.astype(np.int32)).to(dev)
+                args = (vals, valid, qt, ql, *table, phrase)
+                got, want = dense_probe_window(*args), dense_probe_window_torch(*args)
+                mism, err = diff_stats(got, want)
+                out.append({"kernel": "dense_probe_window",
+                            "shape": {"B": b, "C": DENSE_C, "W": width, "L": L, "phrase": phrase},
+                            "mismatches": mism, "max_abs_err": err,
+                            "hits": int(want.sum().item())})
+    require(any(r["shape"]["phrase"] and r["hits"] and r["shape"]["W"] > 1 for r in out),
+            "no dense phrase edge case hits")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
 #: edge shapes of the MinHash kernel: rows, lanes (512 = one warp's chunk:
 #: wider tiles take the chunked route), hashes
 MINHASH_ROWS = (0, 1, 31, 32, 33, 4097)
@@ -792,7 +945,8 @@ def wrapper_refusals(dev) -> int:
     device, the attention kernels' float32 / bf16 tensors of the head dims
     they are built for, and each raises on anything else; returns how many
     refusals were checked."""
-    from repro_torch.kernels.anchor_intersect.ops import anchor_probe, anchor_probe_sliced
+    from repro_torch.kernels.anchor_intersect.ops import (
+        anchor_probe, anchor_probe_sliced, dense_probe_window)
     from repro_torch.kernels.dgap_decode.ops import dgap_decode
     from repro_torch.kernels.flash_attention.ops import flash_attention_tpu
     from repro_torch.kernels.flash_decode.ops import flash_decode
@@ -830,6 +984,19 @@ def wrapper_refusals(dev) -> int:
         (ValueError, "at most", lambda: probe_window(
             s[:1], s[:1].bool(), torch.zeros((1, MAX_WINDOW_TERMS + 1), dtype=torch.int32,
                                              device=dev), q[:1], q, q, q, q, q, True)),
+        (TypeError, "int32", lambda: dense_probe_window(s.long(), s.bool(), s, q, q, q, s,
+                                                        s.bool(), False)),
+        (ValueError, "lies on", lambda: dense_probe_window(s, s.bool(), s, q, q, q.cpu(), s,
+                                                           s.bool(), False)),
+        (ValueError, "contiguous", lambda: dense_probe_window(s, s.bool(), s[:, ::2], q, q, q,
+                                                              s, s.bool(), True)),
+        (ValueError, "rows", lambda: dense_probe_window(s, s.bool(), s, q, q, q, s[:3],
+                                                        s[:3].bool(), False)),
+        (ValueError, "expand_valid", lambda: dense_probe_window(s, s.bool(), s, q, q, q, s, s,
+                                                                False)),
+        (ValueError, "at most", lambda: dense_probe_window(
+            s[:1], s[:1].bool(), torch.zeros((1, MAX_WINDOW_TERMS + 1), dtype=torch.int32,
+                                             device=dev), q[:1], q, q, s, s.bool(), True)),
         (TypeError, "int32", lambda: minhash_rows(s.long(), q, q, q)),
         (ValueError, "lies on", lambda: minhash_rows(s, q.cpu(), q, q)),
         (ValueError, "contiguous", lambda: minhash_rows(s.t(), q, q, q)),
@@ -870,7 +1037,8 @@ def recorded_wrappers():
     from repro_torch.kernels.minhash_sig import ops as mh
 
     homes = {"anchor_probe_sliced": ai, "decode_rows": fd, "probe_rows": fd,
-             "decode_window": fd, "probe_window": fd, "minhash_rows": mh}
+             "decode_window": fd, "probe_window": fd, "dense_probe_window": ai,
+             "minhash_rows": mh}
     seen = {name: [] for name in homes}
     originals = {name: getattr(mod, name) for name, mod in homes.items()}
 
@@ -937,15 +1105,41 @@ def row_given_step(max_terms: int, phrase: bool, max_phrase: int):
     return step
 
 
+def term_step(max_terms: int, phrase: bool):
+    """The dense kernel step as the port ran it before ``dense_probe_window``,
+    kept as the route to compare with: the window's candidates gathered by
+    torch ops (``engine.candidates_for``), then per probed term
+    ``anchor_probe_sliced`` for the covering entry and the row compare in
+    torch ops (``member_batch_kernel``), the terms combined by torch ops
+    (``engine._probe_terms``).  Returns ``(candidate postings, match)``, as
+    the dense step without top-k or doc listing does.  The wrapper is looked
+    up at each call (a recorder in front of it sees the calls)."""
+    from repro_torch.kernels.anchor_intersect import ops as ai
+    from repro_torch.serving import engine
+
+    def member(idx, list_ids, values):
+        return ai.member_batch_kernel(idx.anchors, idx.c_offsets, idx.expand, idx.expand_valid,
+                                      list_ids, values)
+
+    def step(index: dict, query_terms, query_lens, row_start: int = 0):
+        idx = engine._as_anchored(index)
+        cand_vals, cand_valid = engine.candidates_for(idx, query_terms[:, 0], row_start)
+        match = engine._probe_terms(idx, query_terms, query_lens, cand_vals, cand_valid,
+                                    max_terms, phrase, member=member)
+        return cand_vals - 1, match
+
+    return step
+
+
 def main_path_inputs(server, kind: str, qt: np.ndarray, ql: np.ndarray,
                      window: int = 0) -> dict:
     """What one device step of ``server`` hands each kernel: a step like the
     server's own (same layout, probe and width) is built and run on window
     ``window`` of the term-id batch with recorders in front of the wrappers.
-    A fused server's window is also run through ``row_given_step``: both
-    routes must give the same candidates and matches, and their calls are
-    kept side by side (the row-given ones also size the window kernels'
-    data-dependent bounds)."""
+    A fused server's window is also run through ``row_given_step``, a dense
+    one's through ``term_step``: both routes must give the same candidates
+    and matches, and their calls are kept side by side (the earlier route's
+    also size the window kernels' data-dependent bounds)."""
     from repro_torch.serving.engine import MAX_CAND_ROWS, make_serve_step
     from repro_torch.serving.plan import AND, PHRASE
 
@@ -962,7 +1156,7 @@ def main_path_inputs(server, kind: str, qt: np.ndarray, ql: np.ndarray,
     got = {name: len(calls) for name, calls in seen.items()}
     want = {name: 0 for name in seen}
     want.update({"decode_window": 1, "probe_window": 1} if fused
-                else {"anchor_probe_sliced": width - 1})
+                else {"dense_probe_window": 1})
     require(got == want, f"a {server.layout} step of width {width} made the kernel calls "
             f"{got}, expected {want}")
     calls = {name: c for name, c in seen.items() if c}
@@ -979,6 +1173,18 @@ def main_path_inputs(server, kind: str, qt: np.ndarray, ql: np.ndarray,
                 f"the window kernels and the row-given route differ at width {width}, "
                 f"window {window}")
         calls.update({f"{name} (rows given)": c for name, c in seen.items() if c})
+    else:
+        with recorded_wrappers() as seen, torch.no_grad():
+            old = term_step(width, kind == "phrase")(*args)
+        got = {name: len(c) for name, c in seen.items()}
+        want = {name: 0 for name in seen}
+        want["anchor_probe_sliced"] = width - 1
+        require(got == want, f"the per-term dense step of width {width} made the kernel calls "
+                f"{got}, expected {want}")
+        require(all(torch.equal(a, b) for a, b in zip(out, old)),
+                f"the dense window kernel and the per-term route differ at width {width}, "
+                f"window {window}")
+        calls.update({f"{name} (per term)": c for name, c in seen.items() if c})
     return {"calls": calls, "c_offsets": server.arrays["c_offsets"],
             "B": int(qt.shape[0]), "window": window}
 
@@ -1002,9 +1208,11 @@ def kernels_at_main_path(name: str, inp: dict, reps: int, timed: bool) -> list[d
     """Every recorded call of the step against the plain version (tolerance
     0); with ``timed``, the first call of each kernel is also timed, beside
     the plain version, the bound and the library yardstick.  Calls of the
-    row-given route are keyed ``"<kernel> (rows given)"``."""
+    row-given route are keyed ``"<kernel> (rows given)"``, those of the
+    dense per-term route ``"<kernel> (per term)"``."""
     from repro_torch.kernels.anchor_intersect.ops import (
-        anchor_probe_sliced, anchor_probe_sliced_torch)
+        anchor_probe_sliced, anchor_probe_sliced_torch, dense_probe_window,
+        dense_probe_window_torch)
     from repro_torch.kernels.fused_decode.ops import (
         decode_rows, decode_rows_torch, decode_window, decode_window_torch, probe_rows,
         probe_rows_torch, probe_window, probe_window_torch)
@@ -1013,8 +1221,10 @@ def kernels_at_main_path(name: str, inp: dict, reps: int, timed: bool) -> list[d
              "decode_rows": (decode_rows, decode_rows_torch),
              "probe_rows": (probe_rows, probe_rows_torch),
              "decode_window": (decode_window, decode_window_torch),
-             "probe_window": (probe_window, probe_window_torch)}
+             "probe_window": (probe_window, probe_window_torch),
+             "dense_probe_window": (dense_probe_window, dense_probe_window_torch)}
     given = lambda kernel: inp["calls"].get(f"{kernel} (rows given)")  # noqa: E731
+    per_term = inp["calls"].get("anchor_probe_sliced (per term)") or []
     rows = []
     for key, calls in inp["calls"].items():
         kernel = key.split(" ")[0]
@@ -1033,6 +1243,9 @@ def kernels_at_main_path(name: str, inp: dict, reps: int, timed: bool) -> list[d
         elif kernel == "probe_window":
             shape = {"B": a[0].shape[0], "C": a[0].shape[1], "W": a[2].shape[1],
                      "phrase": a[9], "P": a[8].numel()}
+        elif kernel == "dense_probe_window":
+            shape = {"B": a[0].shape[0], "C": a[0].shape[1], "W": a[2].shape[1],
+                     "phrase": a[8], "NA": a[5].numel(), "expand_len": a[6].shape[1]}
         else:
             shape = {"R": a[1].numel(), "P": a[0].numel()}
             shape.update({"L": a[4]} if kernel == "decode_rows"
@@ -1055,6 +1268,8 @@ def kernels_at_main_path(name: str, inp: dict, reps: int, timed: bool) -> list[d
                 b_ms, b_by = probe_bound(a[0], a[1], a[3])
             elif kernel == "decode_window":
                 b_ms, b_by = decode_window_bound(a, given("decode_rows")[0])
+            elif kernel == "dense_probe_window":
+                b_ms, b_by = dense_probe_window_bound(a, per_term)
             else:
                 b_ms, b_by = probe_window_bound(a, given("anchor_probe_sliced") or [],
                                                 given("probe_rows") or [])
@@ -1112,8 +1327,9 @@ def backends_path(built: dict, batch, device: str) -> dict:
         require(not wrong, f"{len(wrong)} {name} answers differ from the host session's, "
                 f"first: {wrong[:3]}")
         if device != "cpu":
-            require(launches["anchor_probe_sliced"] > 0,
-                    f"anchor_probe_sliced was not launched serving {name}: {launches}")
+            require(launches["dense_probe_window"] > 0 and launches["anchor_probe_sliced"] == 0,
+                    f"serving {name}: dense_probe_window not launched, or anchor_probe_sliced "
+                    f"launched: {launches}")
             require(all(t.is_cuda for t in sess.server.arrays.values()),
                     f"a {name} server array is not a CUDA tensor")
         rows[name] = {"build_s": t1 - t0, "lists_equal": len(lists), "check_lists_s": t2 - t1,
@@ -1133,9 +1349,14 @@ def backends_path(built: dict, batch, device: str) -> dict:
 # ----------------------------------------------------------------------
 #: edge lengths of the d-gap scan
 DGAP_LENGTHS = (0, 1, 2, 255, 256, 257, 4095, 4096, 4097, 65535, 65536, 65537, 2**24 + 13)
-#: edge shapes of the whole-array anchor probe
-PROBE_NQ = (0, 1, 255, 256, 257, 2**20)
-PROBE_NA = (0, 1, 2047, 2048, 2049)
+#: edge shapes of the whole-array anchor probe: query counts at a block's
+#: edge for both routes (the lift route's block takes 512 queries), anchor
+#: counts at powers of two +- 1 (the lifting takes a step more), the lift
+#: route's limit (2^20 anchors) and one past it
+PROBE_NQ = (0, 1, 255, 256, 257, 511, 512, 513, 2**20)
+PROBE_NA = (0, 1, 2, 3, 2047, 2048, 2049, 2**20, 2**20 + 1)
+#: calls of anchor_probe repeated at the path's inputs on each route, each compared
+PROBE_REPEATS = 50
 INT32_MAX = 2**31 - 1
 
 
@@ -1289,12 +1510,30 @@ def dgap_path(built: dict, dev, reps: int) -> dict:
             "launches": launches, "launches_by_route": routes, "row": row}
 
 
+@contextlib.contextmanager
+def probe_route(route: str | None):
+    """anchor_probe on ``route`` for the time of the block, by moving the
+    wrapper's limit of the lift route (both launches take any NA); ``None``
+    leaves the wrapper's own choice."""
+    from repro_torch.kernels.anchor_intersect import ops as ai
+
+    saved = ai.LIFT_MAX_ANCHORS
+    limits = {None: saved, "bisect": -1, "lift": 2**31}
+    ai.LIFT_MAX_ANCHORS = limits[route]
+    try:
+        yield
+    finally:
+        ai.LIFT_MAX_ANCHORS = saved
+
+
 def anchor_probe_edge_cases(dev, seed: int) -> list[dict]:
-    """anchor_probe against its plain version at every (NQ, NA) edge shape:
-    sorted anchors with runs of duplicates, the top ones equal to 2^31 - 1
-    where NA > 2, queries below the first anchor, above the last, on
-    anchors and between them."""
-    from repro_torch.kernels.anchor_intersect.ops import anchor_probe, anchor_probe_torch
+    """anchor_probe against its plain version at every (NQ, NA) edge shape,
+    on both routes: sorted anchors with runs of duplicates (one across
+    index 2047, a boundary of the lifting's steps), the first equal to
+    -2^31 and the top ones to 2^31 - 1 where NA > 2; queries in no order,
+    below the first anchor, above the last, on anchors and between them."""
+    from repro_torch.kernels.anchor_intersect.ops import (
+        anchor_probe, anchor_probe_route, anchor_probe_torch)
 
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)  # noqa: E731
@@ -1303,20 +1542,30 @@ def anchor_probe_edge_cases(dev, seed: int) -> list[dict]:
         anchors = np.sort(rng.integers(-10**6, 10**6, na))
         if na > 8:
             anchors[na // 3: na // 3 + 5] = anchors[na // 3]  # a run of duplicates
+        if na > 2050:  # a run across a boundary of the lifting's steps
+            anchors[2045:2050] = anchors[2045]
         if na > 2:
+            anchors[0] = -2**31
             anchors[-2:] = INT32_MAX
+        anchors = np.sort(anchors)
         for nq in PROBE_NQ:
             q = rng.integers(-10**6 - 5, 10**6 + 5, nq)
             if na:
                 q[1::3] = rng.choice(anchors, len(q[1::3]))  # hits
-            q[::7] = -2**31  # below every anchor
+            q[::7] = -2**31  # below or on the first anchor
             q[3::11] = INT32_MAX - 1  # above every anchor below 2^31 - 1
             args = (t(q), t(anchors))
-            got, want = anchor_probe(*args), anchor_probe_torch(*args)
-            mism, err = diff_stats(got, want)
-            out.append({"kernel": "anchor_probe", "shape": {"NQ": nq, "NA": na},
-                        "mismatches": mism, "max_abs_err": err,
-                        "hits": int(want[1].sum().item())})
+            want = anchor_probe_torch(*args)
+            for forced in ("lift", "bisect"):
+                with probe_route(forced):
+                    route = anchor_probe_route(args[1])
+                    got = anchor_probe(*args)
+                mism, err = diff_stats(got, want)
+                out.append({"kernel": "anchor_probe", "shape": {"NQ": nq, "NA": na},
+                            "route": route, "mismatches": mism, "max_abs_err": err,
+                            "hits": int(want[1].sum().item())})
+    require({r["route"] for r in out} == {"lift", "bisect"},
+            "the anchor_probe edge cases did not reach both routes")
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return out
@@ -1329,9 +1578,12 @@ def anchor_probe_path(built: dict, dev, reps: int, n_query_lists: int = 4) -> di
     few longest lists, and each of them less 1 (a phrase probe's shift: a
     hit is the anchors' term followed by the query's).  ``idx`` must equal
     ``np.searchsorted(..., side="right")`` and ``found`` ``np.isin``.  Then
-    timed beside the plain version, the bound and ``torch.searchsorted`` with
-    the ``found`` gather."""
-    from repro_torch.kernels.anchor_intersect.ops import anchor_probe, anchor_probe_torch
+    the same inputs ``PROBE_REPEATS`` times on each route against the plain
+    version, and timed (on the wrapper's route, then on each) beside the
+    plain version, the bound and ``torch.searchsorted`` with the ``found``
+    gather."""
+    from repro_torch.kernels.anchor_intersect.ops import (
+        anchor_probe, anchor_probe_route, anchor_probe_torch)
 
     store = built["pidx"].store
     by_len = sorted(range(store.n_lists), key=lambda i: -store.list_length(i))
@@ -1345,6 +1597,7 @@ def anchor_probe_path(built: dict, dev, reps: int, n_query_lists: int = 4) -> di
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = launch_counts()
+    routes = route_counts()["anchor_probe"]
     require(np.array_equal(idx.cpu().numpy(), np.searchsorted(anchors_np, queries_np,
                                                               side="right")),
             "anchor_probe idx differs from np.searchsorted(side='right')")
@@ -1353,7 +1606,18 @@ def anchor_probe_path(built: dict, dev, reps: int, n_query_lists: int = 4) -> di
     if dev.type == "cuda":
         require(launches["anchor_probe"] == 1, f"anchor_probe launches on its path: {launches}")
     args = (queries, anchors)
-    mism, err = diff_stats(anchor_probe(*args), anchor_probe_torch(*args))
+    want = anchor_probe_torch(*args)
+    mism, err = diff_stats(anchor_probe(*args), want)
+    repeats = {}
+    for route in ("lift", "bisect"):
+        with probe_route(route):
+            m = e = bad = 0
+            for _ in range(PROBE_REPEATS):
+                mi, er = diff_stats(anchor_probe(*args), want)
+                m, e, bad = m + mi, max(e, er), bad + (mi > 0)
+        repeats[route] = {"repeats": PROBE_REPEATS, "calls_differing": bad, "mismatches": m,
+                          "max_abs_err": e}
+        mism, err = mism + m, max(err, e)
 
     def lib():
         i = torch.searchsorted(anchors, queries, right=True)
@@ -1366,7 +1630,8 @@ def anchor_probe_path(built: dict, dev, reps: int, n_query_lists: int = 4) -> di
     steps = nq * int(np.ceil(np.log2(na + 1)))
     b_ms, b_by = bound(12 * nq + 4 * min(na, steps), steps + nq)
     row = {"kernel": "anchor_probe", "at": "anchor_probe/positional-lists",
-           "shape": {"NQ": nq, "NA": na}, "mismatches": mism, "max_abs_err": err,
+           "shape": {"NQ": nq, "NA": na}, "route": anchor_probe_route(anchors),
+           "mismatches": mism, "max_abs_err": err, "repeats": repeats,
            "library": "torch.searchsorted(right=True) + the found gather",
            "library_agrees": lib_agrees, "bound_ms": b_ms, "bound_by": b_by}
     if dev.type == "cuda":
@@ -1374,8 +1639,16 @@ def anchor_probe_path(built: dict, dev, reps: int, n_query_lists: int = 4) -> di
                    call_ms=time_ms(lambda: anchor_probe(*args), reps, preload=False),
                    plain_ms=time_ms(lambda: anchor_probe_torch(*args), reps),
                    library_ms=time_ms(lib, reps))
+        row["ms_by_route"], row["call_ms_by_route"] = {}, {}
+        for route in ("lift", "bisect"):
+            with probe_route(route):
+                row["ms_by_route"][route] = time_ms(lambda: anchor_probe(*args), reps)
+                row["call_ms_by_route"][route] = time_ms(lambda: anchor_probe(*args), reps,
+                                                         preload=False)
     return {"anchors": na, "queries": nq, "query_lists": n_query_lists,
-            "hits": int(found.sum().item()), "launches": launches, "row": row}
+            "hits": int(found.sum().item()), "launches": launches,
+            "launches_by_route": routes, "row": row,
+            "_inputs": {"queries": queries, "anchors": anchors}}
 
 
 # ----------------------------------------------------------------------
@@ -2723,7 +2996,8 @@ def make_batch(docs, idx, rng, per_cell: int) -> list[tuple[str, str]]:
 
 def _wrappers() -> dict:
     """Every kernel wrapper by its kernel's name (each counts its launches)."""
-    from repro_torch.kernels.anchor_intersect.ops import anchor_probe, anchor_probe_sliced
+    from repro_torch.kernels.anchor_intersect.ops import (
+        anchor_probe, anchor_probe_sliced, dense_probe_window)
     from repro_torch.kernels.dgap_decode.ops import dgap_decode
     from repro_torch.kernels.flash_attention.ops import flash_attention_tpu
     from repro_torch.kernels.flash_decode.ops import flash_decode
@@ -2735,7 +3009,8 @@ def _wrappers() -> dict:
     from repro_torch.kernels.moe_gemm.ops import moe_gemm
     return {"anchor_probe_sliced": anchor_probe_sliced, "decode_rows": decode_rows,
             "probe_rows": probe_rows, "decode_window": decode_window,
-            "probe_window": probe_window, "minhash_rows": minhash_rows,
+            "probe_window": probe_window, "dense_probe_window": dense_probe_window,
+            "minhash_rows": minhash_rows,
             "anchor_probe": anchor_probe, "dgap_decode": dgap_decode,
             "flash_attention_tpu": flash_attention_tpu, "flash_decode": flash_decode,
             "embedding_bag": embedding_bag, "cin_layer": cin_layer, "moe_gemm": moe_gemm}
@@ -2763,7 +3038,7 @@ def launch_counts() -> dict:
 
 #: the kernels whose wrappers pick a route before each launch
 ROUTED_KERNELS = ("dgap_decode", "flash_attention_tpu", "flash_decode", "moe_gemm",
-                  "embedding_bag", "minhash_rows")
+                  "embedding_bag", "minhash_rows", "anchor_probe")
 
 
 def route_counts() -> dict:
@@ -2936,8 +3211,9 @@ def rlz_path(built: dict, batch, device: str) -> dict:
             "the rlz store built on the card differs from the one built on the CPU")
     require(idx.store_kw == {}, f"the device leaked into store_kw: {idx.store_kw}")
     if device != "cpu":
-        require(launches["minhash_rows"] > 0 and launches["anchor_probe_sliced"] > 0,
-                f"a kernel of the rlz path was not launched: {launches}")
+        require(launches["minhash_rows"] > 0 and launches["dense_probe_window"] > 0
+                and launches["anchor_probe_sliced"] == 0,
+                f"the rlz path's kernels: {launches}")
         require(all(t.is_cuda for t in sess.server.arrays.values()),
                 "an rlz server array is not a CUDA tensor")
     return {"lists": a.n_lists, "heads": a.n_heads, "size_in_bits": a.size_in_bits,
@@ -2987,49 +3263,57 @@ def minhash_at_mining(inputs: dict, reps: int) -> list[dict]:
 
 
 def window_splits(sessions: dict, batch, reps: int) -> dict:
-    """The fused layout's phrase2 and and2 batches (as ``group_terms`` cuts
-    them from the mixed batch), on a card: their first window through the
-    session's kind of step (the window kernels) and through
-    ``row_given_step``, each split into host and device time by
-    ``ab_timing.window_split``.  (Both routes' answers on every recorded
-    window are compared in ``main_path_inputs``; parent against change is
-    ``ab_timing.py --windows``.)"""
+    """The phrase2 and and2 batches (as ``group_terms`` cuts them from the
+    mixed batch) of both layouts, on a card: their first window through the
+    session's kind of step (the window kernels) and through the route
+    before them (fused: ``row_given_step``; dense: ``term_step``), each
+    split into host and device time by ``ab_timing.window_split``; the
+    dense ones keyed ``dense/<batch>``.  (Both routes' answers on every
+    recorded window are compared in ``main_path_inputs``; parent against
+    change is ``ab_timing.py --windows``.)"""
     from repro_torch.kernels.ab_timing import window_split
     from repro_torch.serving.engine import make_serve_step
 
     out = {}
-    for name, srv, kind in (("phrase2", sessions["fused"].positional_server, "phrase"),
-                            ("and2", sessions["fused"].server, "and")):
-        qt, ql, n_win = group_terms(srv, batch, kind, (2,))
-        width = qt.shape[1]
-        routes = {"window_kernels": make_serve_step(
-                      max_terms=width, mode=kind, n_docs=srv.n_docs, probe="kernel",
-                      layout="fused", max_phrase=srv.max_phrase),
-                  "rows_given": row_given_step(width, kind == "phrase", srv.max_phrase)}
-        split = {route: window_split(torch, step, srv.arrays, qt, ql, 0, reps)
-                 for route, step in routes.items()}
-        require(split["window_kernels"]["answer"] == split["rows_given"]["answer"],
-                f"{name}: the two routes' first windows differ: {split}")
-        out[name] = {"queries": int(qt.shape[0]), "width": width, "windows": n_win, **split}
+    for layout, earlier in (("fused", "rows_given"), ("dense", "per_term")):
+        for name, srv, kind in (("phrase2", sessions[layout].positional_server, "phrase"),
+                                ("and2", sessions[layout].server, "and")):
+            qt, ql, n_win = group_terms(srv, batch, kind, (2,))
+            width = qt.shape[1]
+            routes = {"window_kernels": make_serve_step(
+                          max_terms=width, mode=kind, n_docs=srv.n_docs, probe="kernel",
+                          layout=layout, max_phrase=srv.max_phrase),
+                      earlier: (row_given_step(width, kind == "phrase", srv.max_phrase)
+                                if layout == "fused" else term_step(width, kind == "phrase"))}
+            split = {route: window_split(torch, step, srv.arrays, qt, ql, 0, reps)
+                     for route, step in routes.items()}
+            require(split["window_kernels"]["answer"] == split[earlier]["answer"],
+                    f"{layout} {name}: the two routes' first windows differ: {split}")
+            key = name if layout == "fused" else f"dense/{name}"
+            out[key] = {"queries": int(qt.shape[0]), "width": width, "windows": n_win, **split}
     return out
 
 
-def save_windows(sessions: dict, batch, sig_calls: dict, path: str) -> None:
-    """The fused servers' arrays and the phrase2 / and2 term batches, and the
-    shingles, lens and hash parameters of the two signature calls, for
-    ``src/repro_torch/kernels/ab_timing.py --windows`` (parent against
-    change on the inputs the paths record)."""
-    from repro_torch.kernels.ab_timing import FUSED_ARRAYS, SIGNATURE_ARGS
+def save_windows(sessions: dict, batch, sig_calls: dict, probe_inputs: dict,
+                 path: str) -> None:
+    """The fused and dense servers' arrays and their phrase2 / and2 term
+    batches (the dense ones under ``dense/``), the shingles, lens and hash
+    parameters of the two signature calls, and the anchor_probe path's
+    queries and anchors, for ``src/repro_torch/kernels/ab_timing.py
+    --windows`` (parent against change on the inputs the paths record)."""
+    from repro_torch.kernels.ab_timing import DENSE_ARRAYS, FUSED_ARRAYS, SIGNATURE_ARGS
 
-    data = {}
+    data = {f"anchor_probe/{k}": t.cpu().numpy() for k, t in probe_inputs.items()}
     for at, calls in sig_calls.items():
         data.update({f"{at}/{k}": t.cpu().numpy() for k, t in zip(SIGNATURE_ARGS, calls[0])})
-    for name, srv, kind in (("phrase2", sessions["fused"].positional_server, "phrase"),
-                            ("and2", sessions["fused"].server, "and")):
-        qt, ql, _ = group_terms(srv, batch, kind, (2,))
-        data.update({f"{name}/qt": qt, f"{name}/ql": ql,
-                     f"{name}/max_phrase": np.asarray(srv.max_phrase)})
-        data.update({f"{name}/{k}": srv.arrays[k].cpu().numpy() for k in FUSED_ARRAYS})
+    for layout, keys in (("fused", FUSED_ARRAYS), ("dense", DENSE_ARRAYS)):
+        for name, srv, kind in (("phrase2", sessions[layout].positional_server, "phrase"),
+                                ("and2", sessions[layout].server, "and")):
+            key = name if layout == "fused" else f"dense/{name}"
+            qt, ql, _ = group_terms(srv, batch, kind, (2,))
+            data.update({f"{key}/qt": qt, f"{key}/ql": ql,
+                         f"{key}/max_phrase": np.asarray(srv.max_phrase)})
+            data.update({f"{key}/{k}": srv.arrays[k].cpu().numpy() for k in keys})
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **data)
 
@@ -3037,9 +3321,9 @@ def save_windows(sessions: dict, batch, sig_calls: dict, path: str) -> None:
 def serve(built: dict, sessions: dict, batch: list[tuple[str, str]], device: str,
           reps: int = 20) -> dict:
     """Drive the mixed batch through the fused session (the main path, with
-    the launch counts read around it), the dense session and the host-only
-    session, and compare every answer exactly; on a card, also
-    ``window_splits``."""
+    the launch counts read around it), the dense session (its launch counts
+    read around it too) and the host-only session, and compare every answer
+    exactly; on a card, also ``window_splits``."""
     from repro_torch.serving.engine import RANK_ARRAYS
     from repro_torch.serving.session import Session
 
@@ -3131,9 +3415,14 @@ def serve(built: dict, sessions: dict, batch: list[tuple[str, str]], device: str
                 f"{ {k: fused_launches[k] for k in SERVE_KERNELS} }")
         require(all(fused_launches[k] == 0 for k in ROW_GIVEN_KERNELS),
                 f"the fused main path launched a row-given kernel: {fused_launches}")
-        require(dense_launches["anchor_probe_sliced"] > 0
-                and all(dense_launches[k] == 0 for k in SERVE_KERNELS),
-                f"the dense path's kernels: {dense_launches}")
+        require(fused_launches["dense_probe_window"] == 0,
+                f"the fused main path launched the dense window kernel: {fused_launches}")
+        dense_windows = windows["dense/nonpositional"] + windows["dense/positional"]
+        require(all(dense_launches[k] == dense_windows for k in DENSE_KERNELS),
+                f"the dense path swept {dense_windows} windows but launched "
+                f"{ {k: dense_launches[k] for k in DENSE_KERNELS} }")
+        require(all(dense_launches[k] == 0 for k in SERVE_KERNELS + ROW_GIVEN_KERNELS),
+                f"the dense path launched a kernel of another route: {dense_launches}")
         splits = window_splits(sessions, batch, reps)
     n = len(queries)
     return {
@@ -3460,8 +3749,8 @@ FRONTIER_DRIVER = ["--articles", "8", "--versions", "10", "--queries", "64", "--
 def shard_probes(sess, queries: list[str], servers: dict) -> int:
     """The probe launches a batch needs on partitioned servers (``servers``
     by the index a route names): per device group of the session, its
-    windows x (width - 1), whatever the shard count (all shards of a window
-    probe in one launch a term)."""
+    windows, whatever the shard count and the width (all shards and terms
+    of a window probe in one ``dense_probe_window`` launch)."""
     from repro_torch.serving.plan import PHRASE, parse_query
 
     groups: dict = {}
@@ -3477,7 +3766,7 @@ def shard_probes(sess, queries: list[str], servers: dict) -> int:
         qt, _, ok = server.encode(terms, sort_by_length=(kind != PHRASE), width=width)
         first = qt[:, 0][ok] if ok.any() else qt[:1, 0]
         rows = int((c[:, first + 1] - c[:, first]).max())
-        total += max(1, -(-rows // 64)) * (width - 1)
+        total += max(1, -(-rows // 64))
     return total
 
 
@@ -3569,9 +3858,9 @@ def frontier(built: dict, sessions: dict, batch: list[tuple[str, str]],
                     f"host session's, first {bad[:3]}")
             expected = shard_probes(sess, and_q, {"nonpositional": srv})
             if on_gpu:
-                require(launches == {"anchor_probe_sliced": expected},
+                require(launches == {"dense_probe_window": expected},
                         f"shards={n_shards}: launched {launches}, expected "
-                        f"{expected} anchor_probe_sliced")
+                        f"{expected} dense_probe_window")
             sync()
             t0 = time.perf_counter()
             sess.execute(and_q)
@@ -3624,7 +3913,7 @@ def frontier(built: dict, sessions: dict, batch: list[tuple[str, str]],
         require(not bad, f"positional shards: {len(bad)} phrase answers differ, first {bad[:3]}")
         expected = shard_probes(sess, phrase_q, {"positional": psrv})
         if on_gpu:
-            require(launches == {"anchor_probe_sliced": expected},
+            require(launches == {"dense_probe_window": expected},
                     f"positional shards: launched {launches}, expected {expected}")
         t0 = time.perf_counter()
         sess.execute(phrase_q)
@@ -3728,7 +4017,7 @@ def frontier(built: dict, sessions: dict, batch: list[tuple[str, str]],
         expected = shard_probes(rs, cut_q, {"nonpositional": rs.server._replicas[0].server,
                                             "positional": rs.positional_server._replicas[0].server})
         if on_gpu:
-            require(launches == {"anchor_probe_sliced": expected},
+            require(launches == {"dense_probe_window": expected},
                     f"replicated 2 x 2 (cut): launched {launches}, expected {expected}")
         t0 = time.perf_counter()
         rs.execute(cut_q)
@@ -4687,8 +4976,8 @@ def mesh_partitioned(mesh, built: dict, cut: dict, and_q: list, and_want: list, 
     ``probe="kernel"`` at ``MESH_SHARDS`` shards: the full non-positional
     index on the batch's AND queries, the positional cut on its phrase
     queries; every answer equal to the ``mesh=None`` server's and the host
-    session's, ``anchor_probe_sliced`` launched once per probed term per
-    window (launch counts read around the mesh servers' passes alone)."""
+    session's, ``dense_probe_window`` launched once a window (launch counts
+    read around the mesh servers' passes alone)."""
     from repro_torch.serving.partitioned import PartitionedAnchoredIndex, PartitionedServer
     from repro_torch.serving.session import Session
 
@@ -4728,9 +5017,9 @@ def mesh_partitioned(mesh, built: dict, cut: dict, and_q: list, and_want: list, 
         srv = servers["mesh"]
         expected = shard_probes(sessions["mesh"], queries,
                                 {"nonpositional" if name == "and" else "positional": srv})
-        require(launches[name] == ({"anchor_probe_sliced": expected} if on_gpu else {}),
+        require(launches[name] == ({"dense_probe_window": expected} if on_gpu else {}),
                 f"mesh {name}: launched {launches[name]}, expected {expected} "
-                f"anchor_probe_sliced")
+                f"dense_probe_window")
         require(srv.pidx.device_bytes() == servers["one"].pidx.device_bytes(),
                 f"mesh {name}: a world of one holds {srv.pidx.device_bytes()} bytes, one "
                 f"device {servers['one'].pidx.device_bytes()}")
@@ -4740,8 +5029,8 @@ def mesh_partitioned(mesh, built: dict, cut: dict, and_q: list, and_want: list, 
                      "expected_probe_launches": expected,
                      "device_bytes": srv.pidx.device_bytes(), "answers_equal": True}
         del servers, sessions, whole, srv
-    out["launches"] = {"anchor_probe_sliced": sum(x.get("anchor_probe_sliced", 0)
-                                                  for x in launches.values())}
+    out["launches"] = {"dense_probe_window": sum(x.get("dense_probe_window", 0)
+                                                 for x in launches.values())}
     return out
 
 
@@ -4944,7 +5233,7 @@ def mesh_phase(args, dev, built: dict, cut: dict | None) -> dict:
         mesh_desc = {"shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names),
                      "device_type": mesh.device_type}
     _free(dev)
-    launches = {"anchor_probe_sliced": part["launches"]["anchor_probe_sliced"],
+    launches = {"dense_probe_window": part["launches"]["dense_probe_window"],
                 "flash_attention_tpu": sum(r["launches"]["flash_attention_tpu"] for r in lms),
                 "moe_gemm": sum(r["launches"]["moe_gemm"] for r in lms)}
     return {"backend": backend, "world_size": 1, "mesh": mesh_desc,
@@ -5135,9 +5424,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--save-windows", default=None, metavar="FILE.npz",
-                    help="also write the fused servers' arrays, the phrase2 / and2 "
-                         "batches and the two signature calls' inputs for "
-                         "ab_timing.py --windows")
+                    help="also write the fused and dense servers' arrays, their phrase2 / "
+                         "and2 batches, the two signature calls' inputs and the "
+                         "anchor_probe path's for ab_timing.py --windows")
     ap.add_argument("--lm-layers", type=int, default=None,
                     help="cut the lm_serve phase's model to this many layers "
                          "(default: full depth)")
@@ -5213,12 +5502,15 @@ def main() -> int:
     # at edge shapes, then on its path (launch counts read around it) and timed
     dev = torch.device("cuda")
     entry = {}
+    path_inputs = None  # the anchor_probe path's queries and anchors
     for phase, name, edge_fn, path_fn in (
             ("dgap", "dgap_decode", dgap_edge_cases, dgap_path),
             ("anchor_probe", "anchor_probe", anchor_probe_edge_cases, anchor_probe_path)):
         edges_here = edge_fn(dev, args.seed)
         path = path_fn(built, dev, args.reps)
         row = path.pop("row")
+        if "_inputs" in path:
+            path_inputs = path.pop("_inputs")
         mism = sum(r["mismatches"] for r in edges_here) + row["mismatches"]
         emit(phase, card=card, tolerance=0,
              edge_cases=len(edges_here), mismatches=mism,
@@ -5235,13 +5527,14 @@ def main() -> int:
 
     # kernels, against their plain versions on the card: edge shapes, then what
     # a device step hands them on each path that launches one — both layouts,
-    # both indexes, 2-term and 3-4-term batches, first and last window — and
-    # what mining handed the signature kernel.  The 2-term first-window steps
-    # and both signature calls are also timed.
+    # both indexes, 2-term and 3-4-term batches, first and last window, each
+    # beside the route before the window kernels — and what mining handed the
+    # signature kernel.  The 2-term first-window steps and both signature
+    # calls are also timed.
     longest_slice = int(torch.diff(
         sessions["fused"].positional_server.arrays["c_offsets"]).max().item())
     edges = (edge_cases(dev, args.seed, longest_slice) + window_edge_cases(dev, args.seed)
-             + minhash_edge_cases(dev, args.seed))
+             + dense_window_edge_cases(dev, args.seed) + minhash_edge_cases(dev, args.seed))
     refusals = wrapper_refusals(dev)
     measured = []
     for layout in ("fused", "dense"):
@@ -5252,8 +5545,6 @@ def main() -> int:
                 qt, ql, n_win = group_terms(srv, batch, mode, n_terms)
                 for window in sorted({0, n_win - 1}):
                     timed = n_terms == (2,) and window == 0
-                    if layout == "dense" and not timed:
-                        continue  # its one kernel sees the fused step's inputs again
                     name = f"{layout}/{which}/{mode}{'-'.join(map(str, n_terms))}"
                     inp = main_path_inputs(srv, mode, qt, ql, window)
                     measured += kernels_at_main_path(name, inp, args.reps, timed)
@@ -5275,7 +5566,8 @@ def main() -> int:
             "torch.searchsorted yardstick disagrees with anchor_probe_sliced")
 
     if args.save_windows:
-        save_windows(sessions, batch, sig_calls, args.save_windows)
+        save_windows(sessions, batch, sig_calls, path_inputs, args.save_windows)
+    del path_inputs
     del sig_calls, rlz_calls
     result = serve(built, sessions, batch, "cuda", args.reps)
     emit("serve", card=card, collection=built["info"], session_build_s=session_s, **result)
@@ -5397,9 +5689,10 @@ def main() -> int:
 
     # one entry per kernel: the serving kernels at the positional phrase2
     # shape (the serve path's most frequent) — the window kernels on the fused
-    # path, anchor_probe_sliced on the dense one, decode_rows / probe_rows
-    # timed at the row-given route's calls on the same windows (no layout's
-    # main path launches them any more: their launches are the fused path's,
+    # path, dense_probe_window on the dense one, decode_rows / probe_rows
+    # timed at the row-given route's calls on the same fused windows and
+    # anchor_probe_sliced at the per-term route's on the same dense ones (no
+    # layout's main path launches these three any more: their launches are
     # 0) — the signature kernel at the documents of the mining path with its
     # posting-list shape beside it; the per-shape list is in the "kernels"
     # phase line above
@@ -5408,7 +5701,8 @@ def main() -> int:
                                if x["kernel"] == name)
     timing_keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     serving = {"decode_window": (at, "fused"), "probe_window": (at, "fused"),
-               "anchor_probe_sliced": ("dense/positional/phrase2", "dense"),
+               "dense_probe_window": ("dense/positional/phrase2", "dense"),
+               "anchor_probe_sliced": ("dense/positional/phrase2 (per term)", "dense"),
                "decode_rows": (f"{at} (rows given)", "fused"),
                "probe_rows": (f"{at} (rows given)", "fused")}
     kernels = []

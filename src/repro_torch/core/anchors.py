@@ -300,11 +300,27 @@ def member_batch(idx: AnchoredIndex, list_ids: torch.Tensor,
     ids = list_ids.long()
     lo = idx.c_offsets[ids]
     hi = idx.c_offsets[ids + 1]
-    if idx.anchors.shape[0] == 0:
+    n = idx.anchors.shape[0]
+    if n == 0:
         return torch.zeros(values.shape, dtype=torch.bool, device=values.device)
     l = lower_bound_sliced(idx.anchors, lo, hi, targets)
-    j = torch.maximum(l - 1, lo)
+    # an empty last list has lo == hi == n: its entry reads the last row
+    # (masked by lo < hi), as the reference's clamped gather does
+    j = torch.maximum(l - 1, lo).clamp(max=n - 1)
     return rows_contain(idx.expand, idx.expand_valid, j, targets) & (lo < hi)
+
+
+def rows_are_sorted_prefixes(expand: torch.Tensor, expand_valid: torch.Tensor) -> bool:
+    """Whether every row's valid lanes are a prefix of the row and their
+    values strictly increase (signed int32): the precondition of the dense
+    window kernel's row bisection (``kernels.anchor_intersect.ops.
+    dense_probe_window``).  Every builder here gives such rows; the tests
+    hold each dense table to it."""
+    if expand.numel() == 0:
+        return True
+    prefix = bool((expand_valid[:, 1:] <= expand_valid[:, :-1]).all())
+    rising = (expand[:, 1:].long() > expand[:, :-1].long()) | ~expand_valid[:, 1:]
+    return prefix and bool(rising.all())
 
 
 def member_batch_compressed(idx: CompressedAnchoredIndex, list_ids: torch.Tensor,

@@ -3,7 +3,7 @@ CUDA card, for the ``repro_torch`` found first on ``sys.path``::
 
     python3 src/repro_torch/kernels/ab_timing.py [--src OTHER/src] [--reps N]
                                                  [--only index|model|attention]
-                                                 [--windows FILE.npz]
+                                                 [--windows FILE.npz] [--probe-sweep]
 
 ``--src`` puts another checkout's ``src`` first, so two checkouts of the
 port (say a commit and its parent) are timed by the same code on the same
@@ -14,14 +14,20 @@ card: run them in turns in one call (A B B A).  Inputs are random, seeded.
   beside ``torch.cumsum``; where the checkout's wrapper has two load routes,
   the element-load route too (a view one element in).  Outputs equal the
   plain version.  With ``--windows`` (a file ``chip_smoke.py
-  --save-windows`` writes: the fused servers' arrays and the serving path's
-  phrase2 / and2 term batches, and the inputs of the mining and ``rlz``
-  signature calls), one fused ``probe="kernel"`` serve step of the checkout
-  on the first window of each batch: :func:`window_split`'s host ms, window
-  ms, device ms and kernels a window, and a digest of its answers (equal
-  across checkouts); and ``minhash_rows`` on the two recorded signature
-  calls, equal to the plain version, with a digest of its output, and once
-  more with every row's length 0 (``ms_no_live_lanes``: no hashing).
+  --save-windows`` writes: the fused and dense servers' arrays and the
+  serving path's phrase2 / and2 term batches of each, the inputs of the
+  mining and ``rlz`` signature calls, and the ``anchor_probe`` path's
+  queries and anchors), one fused and one dense ``probe="kernel"`` serve
+  step of the checkout on the first window of each batch:
+  :func:`window_split`'s host ms, window ms, device ms and kernels a
+  window, and a digest of its answers (equal across checkouts);
+  ``minhash_rows`` on the two recorded signature calls, equal to the plain
+  version, with a digest of its output, and once more with every row's
+  length 0 (``ms_no_live_lanes``: no hashing); and ``anchor_probe`` at the
+  path's inputs, equal to the plain version, on the route its wrapper picks
+  and, where the checkout has routes, on each.  With ``--probe-sweep``, both
+  ``anchor_probe`` routes at ``PROBE_SWEEP_NA`` anchors (seeded, the path's
+  query shape): where the wrapper's choice between them falls.
 * model side: ``embedding_bag`` at xDeepFM's ``serve_bulk`` x0 lookup and
   linear term (the registry's table, seeded ids in each field's
   vocabulary), ``flash_decode`` and ``cin_layer`` at the LM and recsys
@@ -120,8 +126,10 @@ def window_split(torch, step, arrays: dict, qt, ql, row_start: int = 0, reps: in
                        "digest": int((answer[0].long() * answer[1]).sum().item())}}
 
 
-#: the fused server's arrays a windows file holds for each batch
+#: the fused and the dense server's arrays a windows file holds for each
+#: batch (the dense ones under ``dense/<batch>/``)
 FUSED_ARRAYS = ("anchors", "c_offsets", "c_ptr", "c_len", "pool", "lengths")
+DENSE_ARRAYS = ("anchors", "c_offsets", "expand", "expand_valid", "lengths")
 #: the arguments of a signature call a windows file holds, under
 #: ``mining/documents/`` and ``rlz/posting-lists/``
 SIGNATURE_ARGS = ("shingles", "lens", "a", "b")
@@ -152,20 +160,85 @@ def signature_calls(torch, out: dict, reps: int, path: str) -> None:
         out[f"minhash_rows/{at}"] = row
 
 
-def fused_steps(torch, out: dict, reps: int, path: str) -> None:
+def serve_steps(torch, out: dict, reps: int, path: str) -> None:
+    """The checkout's fused and dense kernel steps on the first recorded
+    window of each batch."""
     import numpy as np
 
     from repro_torch.serving.engine import make_serve_step
 
     data = np.load(path)
-    for batch in ("phrase2", "and2"):
-        arrays = {k: torch.from_numpy(data[f"{batch}/{k}"]).cuda() for k in FUSED_ARRAYS}
-        qt, ql = data[f"{batch}/qt"], data[f"{batch}/ql"]
-        step = make_serve_step(max_terms=qt.shape[1], mode=batch.rstrip("0123456789"),
-                               probe="kernel", layout="fused",
-                               max_phrase=int(data[f"{batch}/max_phrase"]))
-        out[f"fused step/{batch}, B {qt.shape[0]}, W {qt.shape[1]}, first window"] = \
-            window_split(torch, step, arrays, qt, ql, reps=reps)
+    for layout, keys in (("fused", FUSED_ARRAYS), ("dense", DENSE_ARRAYS)):
+        for batch in ("phrase2", "and2"):
+            key = batch if layout == "fused" else f"dense/{batch}"
+            arrays = {k: torch.from_numpy(data[f"{key}/{k}"]).cuda() for k in keys}
+            qt, ql = data[f"{key}/qt"], data[f"{key}/ql"]
+            step = make_serve_step(max_terms=qt.shape[1], mode=batch.rstrip("0123456789"),
+                                   probe="kernel", layout=layout,
+                                   max_phrase=int(data[f"{key}/max_phrase"]))
+            out[f"{layout} step/{batch}, B {qt.shape[0]}, W {qt.shape[1]}, first window"] = \
+                window_split(torch, step, arrays, qt, ql, reps=reps)
+            del arrays
+
+
+def probe_calls(torch, out: dict, reps: int, path: str) -> None:
+    """``anchor_probe`` at the recorded path inputs, on the route the
+    checkout's wrapper picks and, where it has routes, on each (the
+    wrapper's limit of the lift route moved); beside one
+    ``torch.searchsorted`` call."""
+    import numpy as np
+
+    from repro_torch.kernels.anchor_intersect import ops as ai
+
+    data = np.load(path)
+    q, a = (torch.from_numpy(data[f"anchor_probe/{k}"]).cuda() for k in ("queries", "anchors"))
+    probe_routes(torch, out, reps, ai, q, a, f"anchor_probe/path, NQ {q.numel()}, NA {a.numel()}")
+
+
+def probe_routes(torch, out: dict, reps: int, ai, q, a, at: str) -> None:
+    """``anchor_probe`` of the checkout's ops module ``ai`` on (q, a): as
+    its wrapper routes it, then on each route it has."""
+    want = ai.anchor_probe_torch(q, a)
+    limits = {None: None}
+    if hasattr(ai, "LIFT_MAX_ANCHORS"):
+        limits.update(lift=2**31, bisect=-1)
+    saved = getattr(ai, "LIFT_MAX_ANCHORS", None)
+    for forced, limit in limits.items():
+        if limit is not None:
+            ai.LIFT_MAX_ANCHORS = limit
+        try:
+            got = ai.anchor_probe(q, a)
+            route = ai.anchor_probe_route(a) if hasattr(ai, "anchor_probe_route") else "bisect"
+            out[f"{at}, {route}{'' if forced else ' (the wrapper)'}"] = {
+                "ms": device_ms(torch, lambda: ai.anchor_probe(q, a), reps),
+                "equal": bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
+                "searchsorted_ms": device_ms(
+                    torch, lambda: torch.searchsorted(a, q, right=True), reps)}
+        finally:
+            if saved is not None:
+                ai.LIFT_MAX_ANCHORS = saved
+
+
+#: anchor counts at which ``--probe-sweep`` times both anchor_probe routes
+#: (sorted random anchors; 339,712 queries in eight sorted runs, as the
+#: path's: four lists' positions and each less 1)
+PROBE_SWEEP_NA = (2**11, 2**15, 148_433, 2**19, 2**20, 2**21, 2**22)
+
+
+def probe_sweep(torch, out: dict, reps: int, seed: int) -> None:
+    import numpy as np
+
+    from repro_torch.kernels.anchor_intersect import ops as ai
+
+    rng = np.random.default_rng(seed)
+    for na in PROBE_SWEEP_NA:
+        span = 16 * na
+        a = np.sort(rng.integers(0, span, na))
+        runs = [np.sort(rng.integers(0, span, 339_712 // 8)) for _ in range(4)]
+        q = np.concatenate(runs + [r - 1 for r in runs])
+        qt = torch.from_numpy(q.astype(np.int32)).cuda()
+        at = torch.from_numpy(a.astype(np.int32)).cuda()
+        probe_routes(torch, out, reps, ai, qt, at, f"anchor_probe/sweep, NQ {q.size}, NA {na}")
 
 
 #: the positional index's d-gap stream on the serving path: the whole stream,
@@ -303,9 +376,13 @@ def main() -> int:
     ap.add_argument("--only", choices=("index", "model", "attention"), default=None,
                     help="time one side only, or the prefill attention alone (default: "
                          "both sides)")
+    ap.add_argument("--probe-sweep", action="store_true",
+                    help="also time both anchor_probe routes at PROBE_SWEEP_NA anchors "
+                         "(index side)")
     ap.add_argument("--windows", default=None,
-                    help="recorded fused windows (chip_smoke.py --save-windows) to time "
-                         "one serve step on (index side)")
+                    help="recorded windows (chip_smoke.py --save-windows) to time one "
+                         "fused and one dense serve step, the signature calls and "
+                         "anchor_probe on (index side)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -327,9 +404,12 @@ def main() -> int:
         attention(torch, out, args.reps, args.seed)
     if args.only in (None, "index"):
         index_side(torch, out, args.reps, args.seed)
+        if args.probe_sweep:
+            probe_sweep(torch, out, args.reps, args.seed)
         if args.windows:
-            fused_steps(torch, out, args.reps, args.windows)
+            serve_steps(torch, out, args.reps, args.windows)
             signature_calls(torch, out, args.reps, args.windows)
+            probe_calls(torch, out, args.reps, args.windows)
     if args.only in (None, "model"):
         model_side(torch, out, args.reps, args.seed)
     print(json.dumps(out), flush=True)

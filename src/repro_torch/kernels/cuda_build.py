@@ -37,8 +37,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     # (q, lo, hi, anchors, out, nq, stream)
     "anchor_probe_sliced_launch": (_P, _P, _P, _P, _P, _L, _P),
-    # (q, anchors, idx, found, nq, na, stream)
-    "anchor_probe_launch": (_P, _P, _P, _P, _L, _L, _P),
+    # (q, anchors, idx, found, nq, na, route, stream)
+    "anchor_probe_launch": (_P, _P, _P, _P, _L, _L, _I, _P),
+    # (cand_vals, cand_valid, C, query_terms, row stride, W, query_lens,
+    #  c_offsets, n_offsets, anchors, n_entries, expand, expand_valid,
+    #  expand_len, phrase, hit, B, stream)
+    "dense_probe_window_launch": (_P, _P, _L, _P, _L, _I, _P, _P, _L, _P, _L, _P, _P, _I,
+                                  _I, _P, _L, _P),
     # (gaps, out, workspace, workspace_len, n, route, stream)
     "dgap_decode_launch": (_P, _P, _P, _L, _L, _I, _P),
     # (pool, pool_n, ptr, base, lens, values, valid, rows, L, stream)

@@ -305,12 +305,13 @@ def fused_candidates_for(idx: CompressedAnchoredIndex, list_ids: torch.Tensor,
 
 def _probe_terms(idx, query_terms, query_lens, cand_vals, cand_valid,
                  max_terms: int, phrase: bool, member=None):
-    """AND / phrase probe loop shared by all steps.  For phrase queries term
-    ``t`` probes candidate + t (offset-shifted intersection, §3).  ``member``
-    is the probe implementation (the plain batched binary search by default —
-    picked by index layout — or the dense layout's CUDA kernel via
-    ``probe="kernel"``; the fused layout's kernel step runs this loop as one
-    ``fused_decode.probe_window`` launch instead)."""
+    """AND / phrase probe loop shared by the plain steps.  For phrase
+    queries term ``t`` probes candidate + t (offset-shifted intersection,
+    §3).  ``member`` is the probe implementation (the plain batched binary
+    search by default, picked by index layout).  The kernel steps run this
+    loop as one launch a window instead: ``fused_decode.probe_window`` on
+    the fused layout, ``anchor_intersect.dense_probe_window`` on the dense
+    one."""
     if member is None:
         member = (member_batch_compressed
                   if isinstance(idx, CompressedAnchoredIndex) else member_batch)
@@ -334,16 +335,6 @@ def _probe_terms(idx, query_terms, query_lens, cand_vals, cand_valid,
             hit = hit & safe
         match = match & (hit | ~active)
     return match
-
-
-def _kernel_member():
-    from ..kernels.anchor_intersect.ops import member_batch_kernel
-
-    def member(idx: AnchoredIndex, list_ids, values):
-        return member_batch_kernel(idx.anchors, idx.c_offsets, idx.expand,
-                                   idx.expand_valid, list_ids, values)
-
-    return member
 
 
 def _idf_weights(idx, query_terms, query_lens, max_terms: int,
@@ -407,10 +398,12 @@ def make_serve_step(max_terms: int = 8, mode: str = AND, topk: int = 0,
     and duplicates are dropped *on device* by a running maximum — matched
     values are sorted within a window, so an entry is the first of its
     document iff its doc id exceeds the running maximum of everything
-    before it.  ``probe="kernel"`` routes candidate generation and the
-    probes through the CUDA kernels: for the dense layout
-    ``anchor_intersect``'s sliced lower bound once per probed term; for the
-    fused one two launches a window whatever the width —
+    before it.  ``probe="kernel"`` routes the probes (and the fused
+    layout's candidate generation) through the CUDA kernels, a fixed number
+    of launches a window whatever the width: for the dense layout one
+    ``anchor_intersect.dense_probe_window`` (every term's anchor search and
+    row compare, the AND of the terms; the candidates are a gather of
+    expand rows in torch ops); for the fused one two —
     ``fused_decode.decode_window`` (the window's rows derived and decoded)
     and ``fused_decode.probe_window`` (every term's anchor search and row
     probe, the AND of the terms).
@@ -424,15 +417,15 @@ def make_serve_step(max_terms: int = 8, mode: str = AND, topk: int = 0,
         raise ValueError(f"unknown probe {probe!r}; use one of {PROBES}")
     phrase = mode == PHRASE
     fused = layout == "fused"
-    member = None
     window = None  # (decode_window, probe_window): the fused kernel step
+    dense_window = None  # dense_probe_window: the dense kernel step's probes
     if probe == "kernel":
         if fused:
             from ..kernels.fused_decode.ops import decode_window, probe_window
 
             window = (decode_window, probe_window)
         else:
-            member = _kernel_member()
+            from ..kernels.anchor_intersect.ops import dense_probe_window as dense_window
 
     def serve(index: dict, query_terms: torch.Tensor, query_lens: torch.Tensor,
               row_start: int = 0):
@@ -449,8 +442,13 @@ def make_serve_step(max_terms: int = 8, mode: str = AND, topk: int = 0,
         else:
             generate = fused_candidates_for if fused else candidates_for
             cand_vals, cand_valid = generate(idx, query_terms[:, 0], row_start)
-            match = _probe_terms(idx, query_terms, query_lens, cand_vals, cand_valid,
-                                 max_terms, phrase, member=member)
+            if dense_window is not None:
+                match = dense_window(cand_vals, cand_valid, query_terms[:, :max_terms],
+                                     query_lens, idx.c_offsets, idx.anchors, idx.expand,
+                                     idx.expand_valid, phrase)
+            else:
+                match = _probe_terms(idx, query_terms, query_lens, cand_vals, cand_valid,
+                                     max_terms, phrase)
         if doclist:
             vals = cand_vals - 1
             ds = index.get("doc_starts")

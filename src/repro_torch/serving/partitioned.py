@@ -16,9 +16,9 @@ C-offsets shifted by ``s * max_nc``, so list ``t`` of shard ``s`` is list
 ``s * (T + 1) + t`` of one ordinary :class:`AnchoredIndex` and its slice
 never reaches another shard's entries or the padding between shards.  The
 ``(B, W)`` query block is replicated to ``(S * B, W)`` with offset term
-ids, so a window is one candidate gather and one probe per probed term for
-all shards together (``probe="kernel"``: one ``anchor_probe_sliced``
-launch per probed term per window, whatever ``S``).
+ids, so a window is one candidate gather and one probe loop for all
+shards together (``probe="kernel"``: one ``dense_probe_window`` launch a
+window, whatever ``S`` and the query width).
 
 On a mesh (a ``DeviceMesh``, ``repro_torch.sharding.compat.make_mesh``) each
 rank along ``shard_axis`` holds ``S / n`` of the stacked shards on its own
@@ -57,7 +57,6 @@ from ..core.device import resolve_device
 from ..sharding.compat import mesh_device, require_device_mesh
 from .engine import (
     MAX_CAND_ROWS,
-    _kernel_member,
     _probe_terms,
     candidates_for,
     encode_queries,
@@ -240,13 +239,16 @@ def make_partitioned_serve_step(max_terms: int, mesh=None, shard_axis: str = "da
     step in one batched pass (see the module docstring); ``arrays`` is
     :meth:`PartitionedAnchoredIndex.step_arrays` of the shards held here.
     ``mode`` selects AND or offset-shifted phrase probes; ``probe="kernel"``
-    probes each term with the ``anchor_probe_sliced`` kernel, ``"torch"``
-    with plain tensor code.  With a ``mesh`` the arrays are this rank's
-    shards along ``shard_axis`` and the results are all-gathered along it to
-    every shard's (every rank of the axis must call the step together)."""
+    runs every term's probes of a window in one ``dense_probe_window``
+    launch, ``"torch"`` runs them in plain tensor code.  With a ``mesh`` the
+    arrays are this rank's shards along ``shard_axis`` and the results are
+    all-gathered along it to every shard's (every rank of the axis must call
+    the step together)."""
     n_ranks = None if mesh is None else _axis_size(mesh, shard_axis,
                                                       "make_partitioned_serve_step")
-    member = _kernel_member() if probe == "kernel" else None
+    dense_window = None
+    if probe == "kernel":
+        from ..kernels.anchor_intersect.ops import dense_probe_window as dense_window
     phrase = mode == PHRASE
 
     def serve(arrays: dict, query_terms: torch.Tensor, query_lens: torch.Tensor,
@@ -259,8 +261,11 @@ def make_partitioned_serve_step(max_terms: int, mesh=None, shard_axis: str = "da
         qt = (query_terms[None] + shift[:, None, None]).reshape(s * b, w)
         ql = query_lens.repeat(s)
         cand_vals, cand_valid = candidates_for(idx, qt[:, 0], row_start)
-        match = _probe_terms(idx, qt, ql, cand_vals, cand_valid, max_terms,
-                             phrase, member=member)
+        if dense_window is not None:
+            match = dense_window(cand_vals, cand_valid, qt[:, :max_terms], ql, idx.c_offsets,
+                                 idx.anchors, idx.expand, idx.expand_valid, phrase)
+        else:
+            match = _probe_terms(idx, qt, ql, cand_vals, cand_valid, max_terms, phrase)
         # back to global ids (int32, as the reference's)
         base = arrays["doc_base"].repeat_interleave(b)[:, None]
         vals = cand_vals - 1 + base

@@ -20,7 +20,8 @@ from repro.kernels.fused_decode.ref import decode_rows_ref as ref_decode_ref
 from repro.kernels.fused_decode.ref import probe_rows_ref as ref_probe_ref
 from repro_torch.core import anchors as port_anchors
 from repro_torch.kernels.anchor_intersect import ops as ai_ops
-from repro_torch.kernels.anchor_intersect.ref import anchor_probe_ref, anchor_probe_sliced_ref
+from repro_torch.kernels.anchor_intersect.ref import (
+    anchor_probe_lift_ref, anchor_probe_ref, anchor_probe_sliced_ref)
 from repro_torch.kernels.dgap_decode import ops as dg_ops
 from repro_torch.kernels.dgap_decode.ref import dgap_decode_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -360,6 +361,68 @@ def test_anchor_probe_vs_jax_and_oracles(nq, na, dups):
     assert np.array_equal(idx.numpy(), pidx) and np.array_equal(found.numpy(), pfound)
     assert np.array_equal(idx.numpy(), np.searchsorted(anchors, queries, side="right"))
     assert np.array_equal(found.numpy().astype(bool), np.isin(queries, anchors))
+
+
+# ----------------------------------------------------------------------
+# anchor_probe's lift route (binary lifting, two queries a thread) replayed
+# step by step, and its route choice
+# ----------------------------------------------------------------------
+LIFT_NA = (0, 1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65535,
+           65537)
+
+
+def _lift_case(rng, na: int):
+    """Sorted anchors with runs of duplicates across the lifting's step
+    boundaries (runs ending on, starting on and spanning an index 2^k - 1),
+    the first at -2^31 and the top ones at 2^31 - 1 where NA allows;
+    unsorted queries: every anchor, each less and plus 1, random values,
+    the int32 extremes."""
+    anchors = np.sort(rng.integers(-10**6, 10**6, na)).astype(np.int64)
+    for at in (5, 14, 60, 250):
+        if na > at + 6:
+            anchors[at:at + 6] = anchors[at]
+    anchors = np.sort(anchors)
+    if na > 3:
+        anchors[0] = -2**31
+        anchors[-2:] = 2**31 - 1
+    q = np.concatenate([anchors, anchors - 1, anchors + 1, rng.integers(-10**6 - 5, 10**6 + 5, 300),
+                        [-2**31, -2**31 + 1, 2**31 - 2, 2**31 - 1, 0]])
+    q = np.clip(q, -2**31, 2**31 - 1)
+    return rng.permutation(q).astype(np.int32), anchors.astype(np.int32)
+
+
+@pytest.mark.parametrize("na", LIFT_NA)
+def test_anchor_probe_lift_route_replay(na):
+    """The lift route's arithmetic (binary lifting from the largest power of
+    two <= NA, found from the last anchor read) equals searchsorted-right
+    and np.isin at NA = 0, 1 and 2^k +- 1, with duplicate runs across the
+    steps' boundaries, unsorted queries and queries at the int32 extremes;
+    so does the plain version."""
+    rng = np.random.default_rng(7000 + na)
+    queries, anchors = _lift_case(rng, na)
+    idx, found = anchor_probe_lift_ref(queries, anchors)
+    want_idx = np.searchsorted(anchors.astype(np.int64), queries.astype(np.int64), side="right")
+    assert np.array_equal(idx, want_idx)
+    assert np.array_equal(found.astype(bool), np.isin(queries, anchors))
+    pidx, pfound = ai_ops.anchor_probe(t32(queries), t32(anchors))
+    assert np.array_equal(pidx.numpy(), want_idx)
+    assert np.array_equal(pfound.numpy(), found)
+
+
+def test_anchor_probe_route_choice():
+    """``lift`` up to LIFT_MAX_ANCHORS (2^20) anchors, ``bisect`` past it;
+    the plain version and the route counts do not move on the CPU."""
+    limit = ai_ops.LIFT_MAX_ANCHORS
+    assert limit == 2**20
+    route = lambda na: ai_ops.anchor_probe_route(torch.empty(na, dtype=torch.int32))  # noqa: E731
+    for na in (0, 1, 148_433, limit - 1, limit):
+        assert route(na) == "lift", na
+    for na in (limit + 1, 2**22):
+        assert route(na) == "bisect", na
+    before = dict(ai_ops.anchor_probe.launches_by_route)
+    ai_ops.anchor_probe(t32([1, 5]), t32([1, 2, 3]))
+    assert ai_ops.anchor_probe.launches_by_route == before
+    assert set(before) == set(ai_ops.ROUTE_CODES) == {"bisect", "lift"}
 
 
 def test_anchor_probe_empty_inputs():

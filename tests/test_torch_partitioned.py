@@ -224,19 +224,26 @@ def test_batched_step_equals_per_shard_loop(built_lists, lists):
 
 
 def test_kernel_step_probes_once_per_term_per_window(built_lists, lists, monkeypatch):
-    """``probe="kernel"`` routes every probe through ``anchor_probe_sliced``:
-    one call per probed term per window for all shards together (the
-    wrapper takes its plain version on these CPU tensors)."""
+    """``probe="kernel"`` routes every probe through ``dense_probe_window``:
+    one call a window for every probed term of all shards together (the
+    wrapper takes its plain version on these CPU tensors), and no
+    ``anchor_probe_sliced`` call."""
     from repro_torch.kernels.anchor_intersect import ops
 
-    calls = []
-    real = ops.anchor_probe_sliced
+    calls, sliced = [], []
+    real = ops.dense_probe_window
+    real_sliced = ops.anchor_probe_sliced
 
-    def recorded(queries, lo, hi, anchors):
-        calls.append(queries.shape[0])
-        return real(queries, lo, hi, anchors)
+    def recorded(cand_vals, *rest):
+        calls.append(cand_vals.shape)
+        return real(cand_vals, *rest)
 
-    monkeypatch.setattr(ops, "anchor_probe_sliced", recorded)
+    def recorded_sliced(*args):
+        sliced.append(args[0].shape[0])
+        return real_sliced(*args)
+
+    monkeypatch.setattr(ops, "dense_probe_window", recorded)
+    monkeypatch.setattr(ops, "anchor_probe_sliced", recorded_sliced)
     port, _ = built_lists[4, "equal"]
     srv = part.PartitionedServer(port, FakeHost(len(lists)), probe="torch")
     qs = [["t0", "t1", "t2"], ["t1", "t3", "t5"], ["t0", "t4"]]
@@ -251,8 +258,8 @@ def test_kernel_step_probes_once_per_term_per_window(built_lists, lists, monkeyp
                           w * MAX_CAND_ROWS)
         for qi in range(len(qs)):
             hits[qi].append(vals[:, qi][mask[:, qi]].numpy())
-    assert len(calls) == n_windows * (4 - 1)
-    assert set(calls) == {4 * len(qs) * MAX_CAND_ROWS * port.expand_len}
+    assert len(calls) == n_windows and not sliced
+    assert set(calls) == {(4 * len(qs), MAX_CAND_ROWS * port.expand_len)}
     for h, g in zip(hits, want):
         assert np.array_equal(np.unique(np.concatenate(h)), g)
 
