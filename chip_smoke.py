@@ -73,7 +73,9 @@ launch counts set to 0 just before it and read just after:
   as the train phase runs them (full width, 2 layers, 2 x 4,096 tokens in 2
   micro-batches, AdamW at lr 1e-5), its gradients, metrics and updated
   state bit-equal to ``make_lm_train_step``'s kernel path (a world of one
-  makes every collective the identity); ``psum_int8`` / ``psum_topk`` on two
+  makes every collective the identity), and no ``full_tensor`` on any LM
+  parameter (the step splits its compute over the mesh and gathers one
+  layer at a time); ``psum_int8`` / ``psum_topk`` on two
   of its gradients, bit-equal to their formula; a full-size xDeepFM train
   state resharded, saved, restored and placed back, bit for bit.
   ``--only-mesh`` runs it alone;
@@ -115,7 +117,15 @@ launch counts set to 0 just before it and read just after:
   plain path from the same weights (no launch), the losses falling, and
   before the steps the first step's gradients leaf by leaf against the
   plain path's, with planted faults (a base-2 lse, a dropped weight or
-  table gradient) that the same check must catch; then
+  table gradient) that the same check must catch; the two LMs' kernel-path
+  gradients under ``remat="block"`` (each layer checkpointed, the
+  configs' default) bit-equal to those under ``"none"``, and a step of each
+  timed with its peak memory (A B B A); rows 7 and 11 at the shapes one rank
+  of the (16, 16) mesh hands them (qwen3-8b: B 16, T 4,096, 2 q heads on 1
+  kv head; moonshot: 1 on 1; its 4 experts' (4, 7,680, 2,048) dispatch
+  buffer, forward and both backward products) against their plain
+  versions, timed beside SDPA / ``torch.bmm`` and their bounds, on their
+  ``wgmma`` routes; then
   ``repro_torch.launch.train.main`` on xDeepFM with checkpoints, run again
   to resume, and a bf16 qwen3-8b train state saved and restored bit for
   bit, its manifest as the reference's Checkpointer writes it;
@@ -136,7 +146,11 @@ launch counts set to 0 just before it and read just after:
 * dryrun — ``python -m repro_torch.launch.dryrun`` in a subprocess for
   qwen3-8b ``train_4k`` on the (16, 16) mesh and moonshot-v1-16b-a3b
   ``train_4k`` on the (2, 16, 16) mesh (a fake world of 256 / 512 ranks on
-  ``meta`` tensors): each record ``ok``, no CUDA context in the subprocess.
+  ``meta`` tensors): each record ``ok``, no CUDA context in the subprocess,
+  and each LM train cell's memory a rank (the split step: gathered embed /
+  head and one layer, float32 gradient shards and one layer's transient,
+  remat's layer boundaries and one layer's recompute) under the card's
+  74.5 GiB.
 
 Every answer is compared with the host-only session's, and each kernel is held
 against its plain PyTorch version on the card at edge shapes and at the inputs
@@ -4218,6 +4232,19 @@ TRAIN_ATTN_SHAPES = ((1, 1, 2, 2, 64), (2, 7, 8, 2, 128), (1, 100, 4, 4, 64),
 CIN_GRAD_SHAPES = ((1, 1, 1, 1, 1), (3, 4, 6, 7, 1), (33, 5, 8, 41, 10))
 CIN_GRAD_PATH_ROWS = 4096
 TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+#: the remat policies whose kernel-path gradients must be bit-equal, and
+#: whose steps are timed A B B A beside their peak memory
+TRAIN_REMAT = ("block", "none")
+#: rows 7 and 11 at one rank's shapes on the (16, 16) mesh at train_4k:
+#: 256 rows / 16 data ranks, 4,096 tokens (attention runs on whole T), the
+#: rank's q and kv heads (qwen3-8b: 32 / 16 q heads on 8 kv heads, 4 q heads
+#: a kv head; moonshot: 16 / 16 on 16); moonshot's 64 / 16 experts on the
+#: dispatch buffer of one 65,536-token group at top-6, capacity factor 1.25
+#: (C = 7,680), D 2,048, F 1,408
+RANK_ATTN_SHAPES = {"qwen3-8b": (16, 4096, 2, 1, 128), "moonshot-v1-16b-a3b": (16, 4096, 1, 1, 128)}
+RANK_MOE_SHAPE = (4, 7680, 2048, 1408)
+#: the card's memory a rank may use (80 GB HBM3 less what the driver keeps)
+CARD_GIB = 74.5
 
 
 def lse_limit(q, k, lse, causal: bool):
@@ -4630,6 +4657,129 @@ def _free(dev) -> None:
         torch.cuda.empty_cache()
 
 
+def forward_passes(cfg) -> int:
+    """A layer's forward passes in a train step: the forward, and under remat
+    its recompute in the backward."""
+    return 1 if cfg.remat == "none" else 2
+
+
+def train_remat(name: str, cfg, params, batch: dict, dev) -> dict:
+    """The kernel path's first-step gradients under each of ``TRAIN_REMAT``
+    (bit-equal: the recompute repeats the forward; the peak memory of the
+    forward and backward alone above what was allocated before them, the
+    first held gradients included for the second), then one step of each
+    timed with CUDA events, A B B A from the same weights, with
+    ``max_memory_allocated`` over the step and above what was allocated
+    before it (weights, optimiser state, batch)."""
+    from repro_torch.models import steps
+    from repro_torch.train.optimizer import OptConfig
+
+    opt = OptConfig(**TRAIN_OPT)
+    on_gpu = dev.type == "cuda"
+    init = _clone_params(params)
+    grads, grad_peak = {}, {}
+    for remat in TRAIN_REMAT:
+        c = dataclasses.replace(cfg, remat=remat)
+        if on_gpu:
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        grads[remat] = steps._accum_grads(steps.loss_for(c), params, batch, TRAIN_LM_MICRO)[2]
+        if on_gpu:
+            torch.cuda.synchronize()
+            grad_peak[remat] = torch.cuda.max_memory_allocated() - start
+    a, b = (grads[r] for r in TRAIN_REMAT)
+    differ = [k for k in a if not (a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]))]
+    del grads, a, b
+    out = {r: {"step_ms": [], "peak_bytes": [], "peak_above_start_bytes": [], "loss": []}
+           for r in TRAIN_REMAT}
+    for remat in TRAIN_REMAT + TRAIN_REMAT[::-1]:
+        _free(dev)
+        _load_params(params, init)
+        step = steps.make_lm_train_step(dataclasses.replace(cfg, remat=remat), opt,
+                                        n_micro=TRAIN_LM_MICRO)
+        state = steps.init_state(params, opt)
+        if on_gpu:
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+        state, metrics = step(state, batch)
+        r = out[remat]
+        r["loss"].append(float(metrics["loss"]))
+        if on_gpu:
+            e1.record()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            r["step_ms"].append(e0.elapsed_time(e1))
+            r["peak_bytes"].append(peak)
+            r["peak_above_start_bytes"].append(peak - start)
+        del state
+    _load_params(params, init)
+    del init
+    _free(dev)
+    _train_check(not differ, f"train {name}: gradients under remat {TRAIN_REMAT} differ in "
+                 f"{differ[:4]}")
+    _train_check(len({x for r in out.values() for x in r["loss"]}) == 1,
+                 f"train {name}: the remat policies' step losses differ: {out}")
+    return {"policies": list(TRAIN_REMAT), "gradients_bit_equal": not differ,
+            "gradients_peak_above_start_bytes": grad_peak,
+            "order": list(TRAIN_REMAT + TRAIN_REMAT[::-1]), **out}
+
+
+def rank_shape_kernels(dev, seed: int, reps: int) -> list[dict]:
+    """Rows 7 and 11 at one rank's shapes of the (16, 16) mesh
+    (``RANK_ATTN_SHAPES``, ``RANK_MOE_SHAPE``), random bf16 operands:
+    ``flash_attention_tpu`` against its plain version (out within
+    ``ATTENTION_TOL``, lse within :func:`lse_limit`), timed beside SDPA and
+    its bound, with the log-sum-exp on as the train step runs it; and
+    ``moe_gemm``'s forward and both backward products (``MoeGemm``'s
+    operand layouts) within 2 gamma_(inner + 1), timed beside ``torch.bmm``
+    and their bounds.  Every launch must take ``wgmma``."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_route, flash_attention_tpu
+    from repro_torch.kernels.moe_gemm.ops import moe_gemm_route
+
+    on_gpu = dev.type == "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    rows = []
+    for model, (b, t, h, kh, hd) in RANK_ATTN_SHAPES.items():
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                   for shape in ((b, t, h, hd), (b, t, kh, hd), (b, t, kh, hd)))
+        at = f"train_4k one rank of (16, 16)/{model}"
+        row = flash_attention_timed((q, k, v), {"causal": True}, at, reps, on_gpu)
+        lse_rows: list = []
+        attention_train_rows(lse_rows, {"B": b, "T": t, "H": h, "K": kh, "hd": hd}, q, k, v,
+                             True, grads=False)
+        row.update(kernel="flash_attention_tpu", route=flash_attention_route(q, k, v),
+                   lse_limit_used=lse_rows[0]["lse_limit_used"],
+                   within_tolerance=row["within_tolerance"] and lse_rows[0]["within_tolerance"])
+        if on_gpu:
+            row["ms_lse"] = time_ms(lambda: flash_attention_tpu(q, k, v, True, return_lse=True),
+                                    reps)
+        rows.append(row)
+        del q, k, v, lse_rows
+    e, c, d, f = RANK_MOE_SHAPE
+    buf = torch.randn((e, c, d), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((e, d, f), generator=g, device=dev) / math.sqrt(d)).to(torch.bfloat16)
+    dout = torch.randn((e, c, f), generator=g, device=dev).to(torch.bfloat16)
+    for product, (x, y) in (("forward", (buf, w)),
+                            ("backward dbuf", (dout, w.transpose(1, 2).contiguous())),
+                            ("backward dw", (buf.transpose(1, 2).contiguous(), dout))):
+        row = model_kernel_at_path("moe_gemm", (x, y), f"train_4k one rank of (16, 16)/"
+                                   f"moonshot-v1-16b-a3b/{product}", reps, timed=on_gpu)
+        row.update(kernel="moe_gemm", route=moe_gemm_route(x, y))
+        rows.append(row)
+    del buf, w, dout
+    for r in rows:
+        _train_check(r["within_tolerance"], f"rank shapes: {r['kernel']} at {r['at']} outside "
+                     f"its limit: {r}")
+        if on_gpu:
+            _train_check(r["route"] == "wgmma", f"rank shapes: {r['kernel']} at {r['at']} took "
+                         f"{r['route']}, not wgmma")
+    return rows
+
+
 def train_lm(name: str, args, dev, checkpoint: bool = False) -> dict:
     """``name`` at full width, ``TRAIN_LM_LAYERS`` layers, bf16: the
     kernel path (attention through ``FlashAttention`` over the kernel's
@@ -4660,8 +4810,10 @@ def train_lm(name: str, args, dev, checkpoint: bool = False) -> dict:
     grad_check = train_grad_check(name, grads_of(None), grads_of("torch"), (
         "lse_base2",) + (("moe_dw_zero",) if cfg.moe else ()), TRAIN_GRAD_GAP[cfg.dtype])
     _free(dev)
+    remat = train_remat(name, cfg, params, batch, dev)
     r = train_one_model(name, params, fns, batch, TRAIN_STEPS[name], dev)
     r["grad_check"] = grad_check
+    r["remat"] = remat
     r.update(layers=cfg.n_layers, tokens_per_step=TRAIN_LM_BATCH * TRAIN_LM_SEQ,
              n_micro=TRAIN_LM_MICRO, dtype=cfg.dtype, seconds=time.perf_counter() - t0)
     kernels = ("flash_attention_tpu", "flash_attention_tpu_lse") + (
@@ -4669,9 +4821,9 @@ def train_lm(name: str, args, dev, checkpoint: bool = False) -> dict:
     _check_train(r, kernels, lambda loss: TRAIN_LM_LOSS_TOL)
     for step in r["kernel_path"]["launches"]:
         _train_check(step["flash_attention_tpu_lse"] == step["flash_attention_tpu"]
-                == TRAIN_LM_LAYERS * TRAIN_LM_MICRO,
+                == TRAIN_LM_LAYERS * TRAIN_LM_MICRO * forward_passes(cfg),
                 f"train {name}: attention launches {step}, expected one with lse a layer a "
-                f"micro-batch")
+                f"micro-batch a forward pass ({forward_passes(cfg)}: remat {cfg.remat})")
     if dev.type == "cuda":
         for routes in r["kernel_path"]["routes"]:
             _train_check(set(routes["flash_attention_tpu"]) == {"wgmma"}
@@ -4864,6 +5016,8 @@ def train_phase(args, dev) -> dict:
     attn = train_attention_pieces(dev, args.seed)
     lse_ms = lse_timing(dev, args.reps) if dev.type == "cuda" else None
     pieces, timed = train_model_pieces(dev, args.seed, args.reps)
+    rank_rows = rank_shape_kernels(dev, args.seed, args.reps)
+    _free(dev)
     bad = [r for r in attn + pieces if not r["within_tolerance"]]
     emit("train_pieces", rows=len(attn) + len(pieces), outside_limits=bad,
          attention=[r for r in attn if r["dtype"] == "bfloat16" or "at" in r["shape"]],
@@ -4894,7 +5048,8 @@ def train_phase(args, dev) -> dict:
                                                   if "grad_limit_used" in r)
                                            for g in ("dq", "dk", "dv")},
                        "attention_at_path": [r for r in attn if "at" in r["shape"]],
-                       "timed": timed, "lse_timing": lse_ms},
+                       "timed": timed, "lse_timing": lse_ms,
+                       "at_rank_shapes": rank_rows},
             "models": models, "checkpoint": models[0].pop("checkpoint"), "driver": driver,
             "tolerance": {"lm_loss_abs": TRAIN_LM_LOSS_TOL,
                           "recsys_loss_rel": TRAIN_RECSYS_LOSS_REL,
@@ -5047,6 +5202,24 @@ def _equal_trees(a: dict, b: dict) -> list:
     return bad
 
 
+@contextlib.contextmanager
+def counted_full_tensor():
+    """``DTensor.full_tensor`` calls made in the block, in ``["n"]``."""
+    from unittest import mock
+
+    from torch.distributed.tensor import DTensor
+
+    seen = {"n": 0}
+    real = DTensor.full_tensor
+
+    def full(t, *a, **k):
+        seen["n"] += 1
+        return real(t, *a, **k)
+
+    with mock.patch.object(DTensor, "full_tensor", full):
+        yield seen
+
+
 def mesh_train_lm(name: str, mesh, args, dev) -> tuple[dict, dict]:
     """``make_sharded_train_step`` for ``name`` at full width with the train
     phase's depth, tokens, micro-batches and rate, against
@@ -5076,9 +5249,11 @@ def mesh_train_lm(name: str, mesh, args, dev) -> tuple[dict, dict]:
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     _free(dev)
     setup_s = time.perf_counter() - t0
-    # the gradients of the first step, both ways
+    # the gradients of the first step, both ways (the sharded step's full_tensor
+    # calls counted: it gathers no whole parameter)
     want_g = steps._accum_grads(steps.loss_for(cfg), params, batch, TRAIN_LM_MICRO)[2]
-    got_g, _ = sstep.grads(sharded, batch)
+    with counted_full_tensor() as full_calls:
+        got_g, _ = sstep.grads(sharded, batch)
     grad_bad = [k for k in want_g if not torch.equal(want_g[k].float(), got_g[k])]
     keep = {k: got_g[k] for k in MESH_PSUM_LEAVES}
     del want_g, got_g
@@ -5093,10 +5268,12 @@ def mesh_train_lm(name: str, mesh, args, dev) -> tuple[dict, dict]:
     reset_launch_counts()
     sync()
     t1 = time.perf_counter()
-    sharded, m2 = sstep(sharded, batch)
+    with counted_full_tensor() as step_full_calls:
+        sharded, m2 = sstep(sharded, batch)
     sync()
     sharded_ms = (time.perf_counter() - t1) * 1e3
     launches = _train_launches()
+    full_calls = {"grads": full_calls["n"], "step": step_full_calls["n"]}
     metric_bad = [k for k in m1 if not torch.equal(m1[k].float(), m2[k].float())]
     state_bad = _equal_trees(flatten(state), flatten(sharded))
     del state, sharded, params, sstep
@@ -5105,7 +5282,10 @@ def mesh_train_lm(name: str, mesh, args, dev) -> tuple[dict, dict]:
             f"kernel path's in {grad_bad[:4]}")
     require(not metric_bad, f"mesh {name}: metrics {metric_bad} differ")
     require(not state_bad, f"mesh {name}: updated state differs in {state_bad[:4]}")
-    per_step = TRAIN_LM_LAYERS * TRAIN_LM_MICRO if dev.type == "cuda" else 0
+    require(not any(full_calls.values()), f"mesh {name}: the sharded LM step called "
+            f"full_tensor {full_calls} times")
+    per_step = (TRAIN_LM_LAYERS * TRAIN_LM_MICRO * forward_passes(cfg) if dev.type == "cuda"
+                else 0)
     require(launches["flash_attention_tpu"] == launches["flash_attention_tpu_lse"] == per_step,
             f"mesh {name}: attention launches {launches}, expected {per_step} with lse")
     if cfg.moe and dev.type == "cuda":
@@ -5115,6 +5295,7 @@ def mesh_train_lm(name: str, mesh, args, dev) -> tuple[dict, dict]:
             "tokens_per_step": TRAIN_LM_BATCH * TRAIN_LM_SEQ, "n_micro": TRAIN_LM_MICRO,
             "loss": float(m2["loss"]), "grad_norm": float(m2["grad_norm"]),
             "bit_equal": {"gradients": True, "metrics": True, "state": True},
+            "full_tensor_calls": full_calls,
             "leaves": len(flatten(specs)), "launches": launches,
             "sharded_step_wall_ms": sharded_ms, "unsharded_step_wall_ms": unsharded_ms,
             "setup_s": setup_s, "seconds": time.perf_counter() - t0}, keep
@@ -5374,11 +5555,14 @@ def dryrun_phase() -> dict:
             require(rec["status"] == "ok", f"dryrun {arch} {shape} {tag}: {rec.get('error')}")
             require(not state["cuda_initialized"],
                     f"dryrun {arch} {shape}: the subprocess initialised CUDA")
+            gib = rec["memory"]["total_per_device_gib"]
+            require(gib < CARD_GIB, f"dryrun {arch} {shape} {tag}: {gib} GiB a rank, over "
+                    f"the card's {CARD_GIB}")
             cells.append({"arch": arch, "shape": shape, "mesh": rec["mesh"],
                           "status": rec["status"], "seconds": round(secs, 2),
                           "cuda_initialized": state["cuda_initialized"],
                           "memory": rec["memory"], "collectives": rec["collectives"],
-                          "roofline": rec["roofline"]})
+                          "roofline": rec["roofline"], "notes": rec["notes"]})
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     return {"cells": cells}
@@ -5784,6 +5968,14 @@ def main() -> int:
     row11["backward_at_path"] = {at: {key: r[key] for key in timing_keys + ("route",)}
                                  for at, r in train["pieces"]["timed"].items()
                                  if at.startswith("train/moonshot")}
+    # rows 7 and 11 at one rank's shapes of the (16, 16) mesh (the split train step)
+    rank_keys = timing_keys + ("route", "max_abs_err", "limit_used")
+    for row in (row7, row11):
+        row["at_rank_shapes"] = {
+            r["at"]: {**{key: r[key] for key in rank_keys},
+                      **({"ms_lse": r["ms_lse"], "lse_limit_used": r["lse_limit_used"]}
+                         if "ms_lse" in r else {})}
+            for r in train["pieces"]["at_rank_shapes"] if r["kernel"] == row["name"]}
     # the mesh phase's launches beside the others (rows 1, 7 and 11)
     for k in kernels:
         if k["name"] in mesh["launches"]:

@@ -12,14 +12,19 @@ group is destroyed after the cell.  The state and the inputs are ``meta``
 tensors placed as DTensors by the reference's partition specs
 (:mod:`repro_torch.sharding.specs`), and the cell runs rank 0's step once:
 
-* train cells: :func:`repro_torch.sharding.spmd.make_sharded_train_step`
-  on a ``meta`` working model (gather the weights, slice the batch, loss
-  and gradients, the float32 gradient all-reduce, the update of the rank's
-  shards);
+* LM train cells: :func:`repro_torch.sharding.spmd.make_sharded_train_step`,
+  the split step (:mod:`repro_torch.sharding.lm_split`): the rank's rows and
+  T / m tokens, its heads, FFN columns and experts, per-layer gathers over
+  ``"data"`` (FSDP) and ``"model"``, each layer checkpointed as
+  ``cfg.remat`` says (the recompute is counted), gradients reduce-scattered
+  into float32 shards, the update of the rank's shards;
+* the other train cells: the same factory's gathered step (gather the
+  weights, slice the batch, loss and gradients, the float32 gradient
+  all-reduce, the update of the rank's shards);
 * prefill / decode / serve cells: the port's serving step on whole
   gathered weights and the rank's rows of the inputs (every other sharded
-  dimension of an input gathered), the port's data-parallel model of
-  compute (:mod:`repro_torch.sharding.spmd`'s docstring).
+  dimension of an input gathered): serving stays data-parallel over
+  gathered weights.
 
 Every model op runs the plain PyTorch route, named in the call
 (``attention="torch"`` for the LMs and their MoE products; the recsys
@@ -41,10 +46,16 @@ What a record holds, against the reference's:
 * ``memory``: the port's own model of a rank's bytes, in parts:
   ``state_bytes`` (its shards of the parameters and the optimiser state),
   ``input_bytes`` (the batch, or its shards of the serving inputs),
-  ``gathered_weight_bytes`` (the whole weights every rank works on),
-  ``grad_bytes`` (the whole float32 gradient of a train step),
+  ``gathered_weight_bytes`` (the weights gathered whole; for the LM train
+  step the largest set gathered at once: the embedding and head and one
+  layer's gathered weights, :func:`lm_train_parts`), ``grad_bytes`` (a
+  train step's float32 gradient: whole for the gathered step, the rank's
+  shards plus one layer's float32 transient for the LM step),
   ``saved_activation_bytes`` (what autograd saves for the backward,
-  weights excluded, from ``saved_tensors_hooks``), and
+  weights excluded, from ``saved_tensors_hooks``; under remat those hooks
+  see only what is saved outside the checkpointed layers, so the LM train
+  step adds the layer boundaries that remat keeps and one layer's
+  recompute, counted in a run without remat), and
   ``total_per_device_gib``, their sum; not XLA's ``memory_analysis()``.
 * ``roofline``: :func:`.hlo_analysis.roofline_terms` on the H100's
   datasheet peaks.
@@ -83,7 +94,7 @@ from ..kernels.cin_interaction.ops import cin_layer_torch
 from ..kernels.embedding_bag.ops import embedding_bag_torch
 from ..models import recsys
 from ..models import steps as steps_mod
-from ..sharding import spmd
+from ..sharding import spmd, tp
 from ..sharding.compat import NamedSharding, P, place
 from ..sharding.specs import best_div_axes, input_specs_sharding_for, param_specs_for
 from ..train.optimizer import OptConfig, param_tree
@@ -216,21 +227,42 @@ class CostMode(TorchDispatchMode):
 
 class SavedBytes:
     """``saved_tensors_hooks`` that sum the bytes autograd saves for the
-    backward, each storage once, the weights' storages excluded."""
+    backward, each storage once, the weights' storages excluded (those of
+    ``exclude``, and every weight operand that the LM splits passed to
+    :meth:`hooks` fetch while it is on).  A checkpointed layer's saves are its own
+    hooks': these see what is saved outside the layers.  Every storage
+    seen is held until the record is dropped, so that a storage freed in
+    the step cannot hand its identity to a new one (``meta`` storages hold
+    no memory)."""
 
     def __init__(self, exclude):
-        self.seen = {t.untyped_storage()._cdata for t in exclude}
+        self._held = [t.untyped_storage() for t in exclude]
+        self.seen = {st._cdata for st in self._held}
         self.bytes = 0
 
+    def _hold(self, t) -> bool:
+        st = t.untyped_storage()
+        if st._cdata in self.seen:
+            return False
+        self._held.append(st)
+        self.seen.add(st._cdata)
+        return True
+
     def pack(self, t):
-        key = t.untyped_storage()._cdata
-        if key not in self.seen:
-            self.seen.add(key)
+        if self._hold(t):
             self.bytes += t.untyped_storage().nbytes()
         return t
 
-    def hooks(self):
-        return torch.autograd.graph.saved_tensors_hooks(self.pack, lambda t: t)
+    @contextlib.contextmanager
+    def hooks(self, *splits):
+        for split in splits:
+            split.on_fetch = self._hold
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(self.pack, lambda t: t):
+                yield
+        finally:
+            for split in splits:
+                split.on_fetch = None
 
 
 @contextlib.contextmanager
@@ -256,6 +288,15 @@ class Cell:
     input_bytes: int
     grad_bytes: int
     notes: list
+    #: the largest set of gathered weights held at once (None: work_params')
+    gathered_bytes: int | None = None
+    #: an LM train cell's plan (``sharding.lm_split.LMSplit``), whose
+    #: fetched weights the saved activations leave out
+    split: object = None
+    #: an LM train cell's saved activations from the counted run's
+    #: (outside the layers): ``saved(outside) -> bytes``, the layer
+    #: boundaries that remat keeps and one layer's recompute added
+    saved: object = None
 
 
 def _named(mesh, spec_tree):
@@ -336,6 +377,8 @@ def build_cell(arch: str, shape_name: str, mesh, multi_pod: bool, cfg=None) -> C
     inputs = cfg.input_specs(shape_name)
     attention = "torch" if isinstance(cfg, LMConfig) else None
 
+    if kind == "train" and isinstance(cfg, LMConfig):
+        return _lm_train_cell(cfg, shape_name, mesh, multi_pod, in_specs, inputs)
     if kind == "train" or isinstance(cfg, GNNConfig):
         opt_cfg = opt_config_for(cfg)
         state = spmd.meta_state(cfg, opt_cfg, shape_name)
@@ -390,6 +433,67 @@ def build_cell(arch: str, shape_name: str, mesh, multi_pod: bool, cfg=None) -> C
                 return serve(gather(), **operands())
     return Cell(run=run, work_params=work_params, state_bytes=_local_bytes(placed),
                 input_bytes=_local_bytes(placed_in), grad_bytes=0, notes=notes)
+
+
+def _lm_train_cell(cfg, shape_name: str, mesh, multi_pod: bool, in_specs: dict,
+                   inputs: dict) -> Cell:
+    """An LM's split train step (``sharding.lm_split``): its memory parts
+    from the plan, one layer's recompute from a run without remat."""
+    opt_cfg = opt_config_for(cfg)
+    state = spmd.meta_state(cfg, opt_cfg, shape_name)
+    sspecs = spmd.state_specs_for(cfg, state, mesh, multi_pod)
+    placed = place(state, _named(mesh, sspecs))
+    kw = dict(shape_name=shape_name, attention="torch", device="meta")
+    step = spmd.make_sharded_train_step(cfg, opt_cfg, mesh, sspecs, in_specs, **kw)
+    plain = spmd.make_sharded_train_step(dataclasses.replace(cfg, remat="none"), opt_cfg, mesh,
+                                         sspecs, in_specs, **kw)
+    parts = lm_train_parts(cfg, step.split, placed["params"], inputs["tokens"].shape)
+
+    def saved(outside: int) -> int:
+        record = SavedBytes(())
+        with record.hooks(plain.split):
+            plain.grads(placed, inputs)
+        per_layer = (record.bytes - outside) // cfg.n_layers
+        return outside + parts["boundary_bytes"] + per_layer
+
+    notes = [f"split: {step.split.heads[0]} q heads, {step.split.heads[1]} kv heads"
+             + (f", experts {step.split.expert_range}" if cfg.moe else "")
+             + f" and {inputs['tokens'].shape[1] // step.split.m} tokens a row a rank; "
+             f"remat {cfg.remat}"]
+    return Cell(run=lambda: step(placed, inputs), work_params={},
+                state_bytes=_local_bytes({"params": placed["params"], "opt": placed["opt"]}),
+                input_bytes=_nbytes(inputs), grad_bytes=parts["grad_bytes"], notes=notes,
+                gathered_bytes=parts["gathered_weight_bytes"], split=step.split,
+                saved=saved if cfg.remat != "none" else None)
+
+
+def lm_train_parts(cfg, split, placed_params: dict, batch_shape) -> dict:
+    """A rank's bytes of the LM split step, from its plan: the gathered
+    weights held at once (the gathered embed / head and one layer's
+    gathered weights), its float32 gradient (the shards and one layer's
+    float32 transient before the reduce-scatters) and the layer boundaries
+    that remat keeps (one (B / data ranks, T / m, D) tensor a layer)."""
+    def operand(path: str) -> tuple[int, int]:  # (elements of one operand, element size)
+        local = placed_params[path].to_local()
+        n = local[0].numel() if path.startswith("layers/") else local.numel()
+        for _, group in split.plans[path][0]:
+            n *= tp.group_size(group)
+        return n, local.element_size()
+
+    gathered = transient = 0
+    for path, (gathers, _) in split.plans.items():
+        n, size = operand(path)
+        if gathers:
+            gathered += n * size
+        if path.startswith("layers/"):
+            transient += 4 * n
+    shards = sum(4 * t.to_local().numel() for t in placed_params.values())
+    n_slices = math.prod(split.mesh.size(j) for j, a in enumerate(split.names) if a != "model")
+    b, t = batch_shape
+    elem = 2 if cfg.dtype == "bfloat16" else 4
+    return {"gathered_weight_bytes": gathered, "grad_bytes": shards + transient,
+            "boundary_bytes": cfg.n_layers * (b // n_slices) * (t // split.m) * cfg.d_model
+            * elem}
 
 
 def _place_leaf(t: torch.Tensor, mesh, spec: P) -> DTensor:
@@ -449,13 +553,14 @@ def count_cell(cell: Cell) -> tuple[HLOCost, int]:
     bytes)``."""
     cost_mode = CostMode()
     saved = SavedBytes(cell.work_params.values())
-    with FlopCounterMode(display=False) as flop_mode, cost_mode, saved.hooks():
+    splits = () if cell.split is None else (cell.split,)
+    with FlopCounterMode(display=False) as flop_mode, cost_mode, saved.hooks(*splits):
         cell.run()
     hc = HLOCost(flops=float(flop_mode.get_total_flops()), hbm_bytes=float(cost_mode.hbm_bytes),
                  collective_bytes=float(sum(cost_mode.bytes_by_op.values())),
                  bytes_by_op=dict(cost_mode.bytes_by_op),
                  count_by_op=dict(cost_mode.count_by_op))
-    return hc, saved.bytes
+    return hc, saved.bytes if cell.saved is None else cell.saved(saved.bytes)
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str | None = None,
@@ -478,7 +583,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str | None = 
             t2 = time.time()
         finally:
             dist.destroy_process_group()
-        gathered = _nbytes(list(cell.work_params.values()))
+        gathered = (_nbytes(list(cell.work_params.values())) if cell.gathered_bytes is None
+                     else cell.gathered_bytes)
         parts = {"state_bytes": cell.state_bytes, "input_bytes": cell.input_bytes,
                  "gathered_weight_bytes": gathered, "grad_bytes": cell.grad_bytes,
                  "saved_activation_bytes": saved}

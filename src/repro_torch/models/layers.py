@@ -195,13 +195,84 @@ def moe_dispatch(experts: torch.Tensor, dims: MoEDims, n_groups: int = 1) -> dic
             "cap": cap}
 
 
+def moe_aux(probs: torch.Tensor, experts: torch.Tensor, n_experts: int,
+            count_sum=None) -> torch.Tensor:
+    """The Switch-style load-balancing loss of routed tokens: ``probs``
+    (N, E), ``experts`` (N, k).  ``count_sum``, given where the tokens are
+    one rank's part of the batch, sums the (E + 1,) float32 choice and token
+    counts over the ranks that hold the other parts (in place) so that the
+    load fractions are the whole batch's; the mean probability stays the
+    rank's own (the loss is linear in it: the ranks' losses, weighted by
+    their token shares, sum to the whole batch's)."""
+    n, k = experts.shape
+    e = n_experts
+    me = probs.mean(dim=0)
+    chosen = experts.reshape(-1, 1) == torch.arange(e, device=probs.device)
+    counts = torch.cat([chosen.sum(dim=0).float(), me.new_full((1,), n)])
+    if count_sum is not None:
+        counts = count_sum(counts)
+    # a tensor divisor with or without count_sum: CUDA divides by a host
+    # scalar as a product with its reciprocal, which may differ in the last bit
+    ce = counts[:e] / (counts[e] * k)
+    return e * torch.sum(me * ce)
+
+
+def moe_experts(x: torch.Tensor, gates: torch.Tensor, experts: torch.Tensor,
+                w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+                dims: MoEDims, n_groups: int = 1, gemm=None,
+                expert_range: tuple[int, int] | None = None) -> torch.Tensor:
+    """The expert half of ``moe_block``: the tokens ``x`` (N, D) and their
+    routing (``gates``, ``experts`` (N, k)) dispatched under the group-local
+    capacity plan of all N tokens, the three expert products, and each
+    token's k weighted outputs summed in slot order, in float32: (N, D).
+
+    ``expert_range = (lo, hi)`` computes experts ``lo`` to ``hi - 1`` alone,
+    whose weights ``w_*`` then hold (hi - lo, ...): a choice of another
+    expert adds 0, so the float32 sum of every range's output is the whole
+    layer's (the expert-parallel split)."""
+    gemm = gemm or moe_gemm
+    n, d = x.shape
+    e, k, g = dims.n_experts, dims.top_k, n_groups
+    lo, hi = expert_range or (0, e)
+    plan = moe_dispatch(experts, dims, g)
+    s, cap = n // g, plan["cap"]
+    keep, se, st = plan["keep"], plan["expert"], plan["token"]
+    if (lo, hi) != (0, e):
+        keep = keep & (se >= lo) & (se < hi)
+        se = torch.clamp(se - lo, 0, hi - lo - 1)
+    el = hi - lo
+    slot = torch.clamp(plan["pos"], max=cap - 1)
+    gi = torch.arange(g, device=x.device)[:, None].expand(g, s * k)
+    # dispatch buffer (G, E * C + 1, D): each kept choice owns its row, every
+    # dropped one writes to the scratch row E * C, which is then cut off (the
+    # one write whose winner is unspecified, and it is never read)
+    buf = torch.zeros((g, el * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[gi, torch.where(keep, se * cap + slot, el * cap)] = x.reshape(g, s, d)[gi, st]
+    buf = buf[:, :el * cap].reshape(g, el, cap, d).transpose(0, 1).reshape(el, g * cap, d)
+    gate = gemm(buf, w_gate).to(x.dtype)
+    up = gemm(buf, w_up).to(x.dtype)
+    y = gemm(F.silu(gate) * up, w_down).to(x.dtype)
+    y = y.reshape(el, g, cap, d).transpose(0, 1)  # (G, E, C, D)
+    # combine: each choice's output back in (token, slot) order
+    tok_out = torch.where(keep[..., None], y[gi, se, slot], 0).float()  # sorted order
+    by_choice = torch.empty_like(tok_out)
+    by_choice[gi, plan["order"]] = tok_out
+    weighted = by_choice.reshape(n, k, d) * gates[..., None]
+    out = weighted[:, 0]
+    for r in range(1, k):
+        out = out + weighted[:, r]
+    return out
+
+
 def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
               w_up: torch.Tensor, w_down: torch.Tensor, dims: MoEDims, n_groups: int = 1,
               gemm=None, with_aux: bool = True,
               count_sum=None) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Top-k MoE with grouped sort-based capacity dispatch, as the
     reference's ``moe_block`` (its ``dp_axes`` / ``ep_axis`` are sharding
-    constraints on activations, which the port does not shard).
+    constraints on activations; the port's expert-parallel split is
+    ``models.transformer``'s, through :func:`moe_experts`'s
+    ``expert_range``).
 
     x: (N, D) tokens; router_w (D, E); w_gate, w_up (E, D, F); w_down
     (E, F, D).  ``gemm(buf, w)`` computes the three expert products over the
@@ -211,45 +282,8 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     order (no float atomics).  No step waits for the device: every index
     is a tensor, and a dropped choice writes to a scratch slot.  Returns
     (out (N, D) in ``x.dtype``, the Switch-style aux loss, or None without
-    ``with_aux``).  ``count_sum``, given where x is one rank's slice of the
-    batch, sums the (E + 1,) float32 choice and token counts over the ranks
-    (in place) so that the aux loss's load fractions are the whole batch's."""
-    gemm = gemm or moe_gemm
-    n, d = x.shape
-    e, k, g = dims.n_experts, dims.top_k, n_groups
-    probs, gates, experts = moe_router(x, router_w, k)
-
-    aux = None
-    if with_aux:  # Switch-style load balancing
-        me = probs.mean(dim=0)
-        chosen = experts.reshape(-1, 1) == torch.arange(e, device=x.device)
-        if count_sum is None:
-            ce = chosen.sum(dim=0).float() / (n * k)
-        else:
-            counts = count_sum(torch.cat([chosen.sum(dim=0).float(), me.new_full((1,), n)]))
-            ce = counts[:e] / (counts[e] * k)
-        aux = e * torch.sum(me * ce)
-
-    plan = moe_dispatch(experts, dims, g)
-    s, cap = n // g, plan["cap"]
-    keep, se, st = plan["keep"], plan["expert"], plan["token"]
-    slot = torch.clamp(plan["pos"], max=cap - 1)
-    gi = torch.arange(g, device=x.device)[:, None].expand(g, s * k)
-    # dispatch buffer (G, E * C + 1, D): each kept choice owns its row, every
-    # dropped one writes to the scratch row E * C, which is then cut off
-    buf = torch.zeros((g, e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[gi, torch.where(keep, se * cap + slot, e * cap)] = x.reshape(g, s, d)[gi, st]
-    buf = buf[:, :e * cap].reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
-    gate = gemm(buf, w_gate).to(x.dtype)
-    up = gemm(buf, w_up).to(x.dtype)
-    y = gemm(F.silu(gate) * up, w_down).to(x.dtype)
-    y = y.reshape(e, g, cap, d).transpose(0, 1)  # (G, E, C, D)
-    # combine: each choice's output back in (token, slot) order
-    tok_out = torch.where(keep[..., None], y[gi, se, slot], 0).float()  # sorted order
-    by_choice = torch.empty_like(tok_out)
-    by_choice[gi, plan["order"]] = tok_out
-    weighted = by_choice.reshape(n, k, d) * gates[..., None]
-    out = weighted[:, 0]
-    for r in range(1, k):
-        out = out + weighted[:, r]
+    ``with_aux``); ``count_sum``: see :func:`moe_aux`."""
+    probs, gates, experts = moe_router(x, router_w, dims.top_k)
+    aux = moe_aux(probs, experts, dims.n_experts, count_sum) if with_aux else None
+    out = moe_experts(x, gates, experts, w_gate, w_up, w_down, dims, n_groups, gemm)
     return out.to(x.dtype), aux

@@ -126,6 +126,9 @@ def _accum_grads(loss_fn, params, batch: dict, n_micro: int):
 _MESH_HINT = ("is a sharding constraint of the reference on activations, which the port "
               "does not shard; to train on a mesh, use "
               "repro_torch.sharding.spmd.make_sharded_train_step")
+_LM_MESH_HINT = ("is a mesh sharding hint of the reference, and this step runs on one device; "
+                 "on a mesh, repro_torch.sharding.spmd.make_sharded_train_step splits the "
+                 "LM's residual stream over the model axis (the reference's act_spec) itself")
 
 
 def loss_for(cfg, attention: str | None = None, count_sum=None):
@@ -150,9 +153,10 @@ def loss_for(cfg, attention: str | None = None, count_sum=None):
 
 def make_lm_train_step(cfg: LMConfig, opt_cfg: OptConfig, n_micro: int = 1,
                        act_spec=None, attention: str | None = None):
-    """``act_spec`` is a mesh sharding hint of the reference, refused here."""
+    """``act_spec`` is a mesh sharding hint of the reference, refused here:
+    the sharded step (``sharding.spmd``) splits the residual stream."""
     if act_spec is not None:
-        raise NotImplementedError(f"act_spec={act_spec!r} {_MESH_HINT}")
+        raise NotImplementedError(f"act_spec={act_spec!r} {_LM_MESH_HINT}")
     loss = loss_for(cfg, attention)
 
     def train_step(state, batch):

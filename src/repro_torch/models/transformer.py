@@ -5,8 +5,8 @@
   as ``nn.Parameter``s of a :class:`Transformer`, so that carrying the
   reference's weights across is a copy (:func:`params_from_reference`);
 * GQA with optional qk-norm (Qwen3), RoPE, SwiGLU; MoE layers through the
-  sort-based capacity dispatch of ``layers.moe_block``; a Python loop over
-  the layers where the reference scans;
+  sort-based capacity dispatch of ``layers.moe_block``'s pieces; a Python
+  loop over the layers where the reference scans;
 * ``forward`` — prefill path, returning the (L, 2, B, T, K, hd) bf16 cache;
 * ``decode_step`` — single-token serve path against that cache, padded by the
   caller; it writes the new token's K/V into the cache **in place** (the
@@ -20,17 +20,32 @@ decode, and ``kernels.moe_gemm`` for the expert products of MoE layers),
 ``"torch"`` the plain path (``models.flash.flash_attention``,
 ``layers.decode_attention``, ``moe_gemm_torch``), ``None`` the kernels for
 CUDA tensors and the plain path for CPU tensors.  ``"kernel"`` on the CPU
-raises.  The MoE layers' mesh sharding hints (``moe_dp_axes``) constrain
-activations, which the port does not shard, and are refused (a mesh trains
-through ``sharding.spmd.make_sharded_train_step``).
+raises.  The MoE layers' mesh sharding hints (``moe_dp_axes``) are refused:
+on a mesh, ``sharding.spmd.make_sharded_train_step`` splits the MoE layers
+over the model axis itself.
 
 ``loss_fn`` — the training loss, through the same layer code with autograd
 on: attention through ``models.flash.FlashAttention`` (the reference's
 custom VJP) over the kernel's forward, which also writes the log-sum-exp,
 or, on the plain path, over the plain forward; the MoE expert products
 through ``MoeGemm`` (forward and both backward products on the kernel) or
-through ``moe_gemm_torch`` under autograd.  The reference's ``remat`` policy
-has no counterpart here: activations are kept.
+through ``moe_gemm_torch`` under autograd.  ``cfg.remat`` is the
+reference's: ``"block"`` (every LM's default) and ``"full"`` wrap each layer
+(:func:`_layer`: norms, q/k/v, attention, ``wo``, the FFN or MoE block with
+its ``count_sum``) in ``torch.utils.checkpoint.checkpoint``, so the backward
+keeps each layer's input and recomputes the rest; ``"none"`` keeps every
+activation.  The recompute repeats the forward bit for bit: every op of a
+layer is deterministic on CUDA but the dispatch buffer's scratch row, which
+several dropped choices write and nothing reads, so the MoE routing of the
+recompute is the forward's.
+
+A layer reads its weights and moves its activations through a *view*
+(:class:`WholeModel` here; ``repro_torch.sharding.lm_split.RankView`` for
+one rank of a mesh): the weights a rank computes with, the gather of the
+residual stream along T before the column-parallel products and the
+reduce-scatter after the row-parallel ones, the rank's attention heads and
+experts.  In the whole view each of those is the identity, so the unsharded
+step and a mesh of one rank run the same operations.
 """
 
 from __future__ import annotations
@@ -40,6 +55,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
 from ..core.device import resolve_device
@@ -47,9 +63,12 @@ from ..kernels.flash_attention.ops import flash_attention_tpu, flash_attention_t
 from ..kernels.flash_decode.ops import flash_decode
 from ..kernels.moe_gemm.ops import MoeGemm, moe_gemm, moe_gemm_torch
 from .flash import FlashAttention, flash_attention
-from .layers import MoEDims, apply_rope, decode_attention, moe_block, rms_norm, swiglu
+from . import layers
+from .layers import (MoEDims, apply_rope, decode_attention, moe_aux, moe_experts, rms_norm,
+                     swiglu)
 
 ATTENTION = ("kernel", "torch")
+REMAT = ("none", "block", "full")
 
 
 def _dtype(cfg: LMConfig) -> torch.dtype:
@@ -90,9 +109,9 @@ class Transformer(nn.Module):
         if cfg.moe_dp_axes is not None:
             raise NotImplementedError(
                 f"{cfg.name}: moe_dp_axes={cfg.moe_dp_axes!r} asks for the reference's mesh "
-                f"sharding constraints on the MoE layers' activations, which the port does "
-                f"not shard; to train on a mesh, use "
-                f"repro_torch.sharding.spmd.make_sharded_train_step")
+                f"sharding constraints on the MoE layers' activations; the port takes no mesh "
+                f"hint here: repro_torch.sharding.spmd.make_sharded_train_step splits the "
+                f"MoE layers over a mesh's model axis (expert-parallel)")
         self.cfg = cfg
         dt = _dtype(cfg)
         empty = lambda *shape: nn.Parameter(  # noqa: E731
@@ -181,42 +200,128 @@ def resolve_attention(attention: str | None, device: torch.device) -> str:
     return attention
 
 
-def _qkv(cfg: LMConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor):
-    b, t, _ = x.shape
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    xn = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (xn @ lp["wq"]).reshape(b, t, h, hd)
-    k = (xn @ lp["wk"]).reshape(b, t, kh, hd)
-    v = (xn @ lp["wv"]).reshape(b, t, kh, hd)
+def _qkv(cfg: LMConfig, lp: dict, xn: torch.Tensor, positions: torch.Tensor, hq: int,
+         hk: int):
+    """q (B, t, hq, hd), k and v (B, t, hk, hd) of the normed input ``xn``,
+    qk-normed and rotated; ``hq`` / ``hk`` the heads that ``lp``'s columns
+    hold (the config's, or a rank's share)."""
+    b, t, _ = xn.shape
+    hd = cfg.head_dim
+    q = (xn @ lp["wq"]).reshape(b, t, hq, hd)
+    k = (xn @ lp["wk"]).reshape(b, t, hk, hd)
+    v = (xn @ lp["wv"]).reshape(b, t, hk, hd)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
-def _ffn(cfg: LMConfig, lp: dict, x: torch.Tensor, att: str, with_aux: bool = True,
-         count_sum=None):
-    """The feed-forward half of a layer: ``(x + ffn(x), MoE aux loss)`` (the
-    loss None without ``with_aux``; ``count_sum`` as ``moe_block``'s)."""
-    xn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    if not cfg.moe:
-        return x + swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
-    b, t, d = x.shape
+class WholeModel:
+    """The unsharded view of a model that :func:`_layer` reads: every weight
+    whole, the residual stream whole (its gather and reduce-scatter along T
+    the identity), every head and expert on this process."""
+
+    def __init__(self, cfg: LMConfig, params: Transformer):
+        self.cfg, self.params = cfg, params
+        self.seq_parts = 1
+        self.heads = (cfg.n_heads, cfg.n_kv_heads, None)
+        self.experts = None
+        self.ffn_split = self.shared_split = True
+
+    def embed(self) -> torch.Tensor:
+        return self.params.embed
+
+    def head(self) -> torch.Tensor:
+        return self.params.head()
+
+    def final_norm(self) -> torch.Tensor:
+        return self.params.final_norm
+
+    def layer(self, i: int) -> dict:
+        return self.params.layer(i)
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    scatter_seq = gather_seq
+
+    def gather_seq_nograd(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def _split_ffn(view, split: bool, xn: torch.Tensor, wg, wu, wd) -> torch.Tensor:
+    """A SwiGLU MLP on the rank's tokens: column- / row-parallel between a
+    gather and a reduce-scatter along T where the view splits its width,
+    else on the rank's own tokens with the whole weights."""
+    if split:
+        return view.scatter_seq(swiglu(view.gather_seq(xn), wg, wu, wd))
+    return swiglu(xn, wg, wu, wd)
+
+
+def _moe(cfg: LMConfig, view, lp: dict, xn: torch.Tensor, att: str, with_aux: bool,
+         count_sum):
+    """The MoE block of the rank's tokens ``xn`` (B, t, D): routed with the
+    whole router; then tokens, gates and expert ids gathered along T over the
+    view's model ranks (the whole token groups, so capacity and drops are
+    the unsharded step's), the rank's experts computed, and each token's
+    float32 sum of its experts' outputs reduce-scattered back along T."""
+    b, t, d = xn.shape
     dims = MoEDims(cfg.moe.n_experts, cfg.moe.top_k)
     gemm = moe_gemm if att == "kernel" else moe_gemm_torch
     if att == "kernel" and torch.is_grad_enabled():
         gemm = MoeGemm.apply  # the kernel forward and backward
-    y, aux = moe_block(xn.reshape(b * t, d), lp["router"], lp["w_gate"], lp["w_up"],
-                       lp["w_down"], dims, n_groups=cfg.moe_groups, gemm=gemm,
-                       with_aux=with_aux, count_sum=count_sum)
-    y = y.reshape(b, t, d)
+    flat = xn.reshape(b * t, d)
+    # through the module, as ``layers.moe_block`` calls it: one name routes every MoE path
+    probs, gates, experts = layers.moe_router(flat, lp["router"], dims.top_k)
+    aux = moe_aux(probs, experts, dims.n_experts, count_sum) if with_aux else None
+    k = dims.top_k
+    group = view.gather_seq(xn).reshape(-1, d)
+    gates = view.gather_seq(gates.reshape(b, t, k)).reshape(-1, k)
+    experts = view.gather_seq_nograd(experts.reshape(b, t, k)).reshape(-1, k)
+    y = moe_experts(group, gates, experts, lp["w_gate"], lp["w_up"], lp["w_down"], dims,
+                    cfg.moe_groups, gemm, view.experts)
+    y = view.scatter_seq(y.reshape(b, -1, d)).to(xn.dtype)
     if cfg.moe.n_shared_experts:
-        y = y + swiglu(xn, lp["ws_gate"], lp["ws_up"], lp["ws_down"])
+        y = y + _split_ffn(view, view.shared_split, xn, lp["ws_gate"], lp["ws_up"],
+                           lp["ws_down"])
+    return y, aux
+
+
+def _ffn(cfg: LMConfig, view, lp: dict, x: torch.Tensor, att: str, with_aux: bool = True,
+         count_sum=None):
+    """The feed-forward half of a layer: ``(x + ffn(x), MoE aux loss)`` (the
+    loss None without ``with_aux``; ``count_sum`` as ``layers.moe_aux``'s)."""
+    xn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    if cfg.moe:
+        y, aux = _moe(cfg, view, lp, xn, att, with_aux, count_sum)
+    else:
+        y, aux = _split_ffn(view, view.ffn_split, xn, lp["w_gate"], lp["w_up"],
+                            lp["w_down"]), 0.0
     return x + y, aux
 
 
-def _logits(cfg: LMConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
-    return rms_norm(x, params.final_norm, cfg.norm_eps) @ params.head()
+def _layer(cfg: LMConfig, view, i: int, x: torch.Tensor, positions: torch.Tensor,
+           att: str, count_sum=None):
+    """Layer ``i`` on the rank's part of the residual stream ``x`` (B, t,
+    D): ``(x, aux, k, v)`` (k, v (B, T, K, hd) for a cache).  The weights
+    come from ``view.layer(i)`` inside this function, so that a view's
+    per-layer gathers run again in a checkpointed layer's recompute and are
+    never saved."""
+    lp = view.layer(i)
+    b = x.shape[0]
+    hq, hk, expand = view.heads
+    xn = view.gather_seq(rms_norm(x, lp["attn_norm"], cfg.norm_eps))
+    t = xn.shape[1]
+    q, k, v = _qkv(cfg, lp, xn, positions, hq, hk)
+    ka, va = (k, v) if expand is None else (k[:, :, expand], v[:, :, expand])
+    o = _attention(q, ka, va, att, t)
+    x = x + view.scatter_seq(o.reshape(b, t, hq * cfg.head_dim) @ lp["wo"])
+    x, aux = _ffn(cfg, view, lp, x, att, count_sum=count_sum)
+    return x, aux, k, v
+
+
+def _logits(cfg: LMConfig, view, x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, view.final_norm(), cfg.norm_eps) @ view.head()
 
 
 @torch.no_grad()
@@ -228,7 +333,8 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
     position (prefill).  ``aux`` is the MoE load-balancing loss summed over
     the layers (0 for a dense model).  Runs without gradients (serving);
     :func:`loss_fn` runs the same layers with them."""
-    return _forward(cfg, params, tokens, return_cache, logits_mode, attention)
+    return _forward(cfg, WholeModel(cfg, params), tokens, return_cache, logits_mode,
+                    attention)
 
 
 def _attention(q, k, v, att: str, t: int):
@@ -242,44 +348,53 @@ def _attention(q, k, v, att: str, t: int):
     return flash_attention(q, k, v, True, min(1024, t))
 
 
-def _forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
-             return_cache: bool = False, logits_mode: str = "all",
-             attention: str | None = None, count_sum=None):
+def _forward(cfg: LMConfig, view, tokens: torch.Tensor, return_cache: bool = False,
+             logits_mode: str = "all", attention: str | None = None, count_sum=None):
+    """The layers over ``view`` on ``tokens`` (B, t), the rank's part of the
+    sequence (its ``view.seq_parts``-th of T); with autograd on, each layer
+    checkpointed as ``cfg.remat`` says."""
+    if cfg.remat not in REMAT:
+        raise ValueError(f"remat={cfg.remat!r}; expected one of {REMAT}")
     att = resolve_attention(attention, tokens.device)
     b, t = tokens.shape
     dev = tokens.device
-    x = params.embed[tokens.long()].to(_dtype(cfg))
-    positions = torch.arange(t, device=dev).expand(b, t)
+    x = view.embed()[tokens.long()].to(_dtype(cfg))
+    whole_t = t * view.seq_parts
+    positions = torch.arange(whole_t, device=dev).expand(b, whole_t)
     cache = None
     if return_cache:
         cache = torch.empty((cfg.n_layers, 2, b, t, cfg.n_kv_heads, cfg.head_dim),
                             dtype=torch.bfloat16, device=dev)
+    remat = torch.is_grad_enabled() and cfg.remat != "none" and not return_cache
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for i in range(cfg.n_layers):
-        lp = params.layer(i)
-        q, k, v = _qkv(cfg, lp, x, positions)
-        o = _attention(q, k, v, att, t)
-        x = x + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ lp["wo"]
-        x, layer_aux = _ffn(cfg, lp, x, att, count_sum=count_sum)
+        if remat:
+            x, layer_aux, _, _ = checkpoint(_layer, cfg, view, i, x, positions, att, count_sum,
+                                            use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, layer_aux, k, v = _layer(cfg, view, i, x, positions, att, count_sum)
+            if cache is not None:
+                cache[i, 0].copy_(k)
+                cache[i, 1].copy_(v)
         aux = aux + layer_aux
-        if cache is not None:
-            cache[i, 0].copy_(k)
-            cache[i, 1].copy_(v)
     if logits_mode == "last":
         x = x[:, -1:]
-    logits = _logits(cfg, params, x)
+    logits = _logits(cfg, view, x)
     if return_cache:
         return logits, aux, cache
     return logits, aux
 
 
-def loss_fn(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
-            targets: torch.Tensor, attention: str | None = None, count_sum=None):
+def loss_fn(cfg: LMConfig, params, tokens: torch.Tensor, targets: torch.Tensor,
+            attention: str | None = None, count_sum=None):
     """Next-token loss with autograd: ``(loss, {"nll", "aux"})``, the logits
     widened to float32, then log-softmax, the mean NLL of ``targets`` and,
     for MoE, ``router_aux_weight * aux`` (``count_sum``: see
-    ``layers.moe_block``)."""
-    logits, aux = _forward(cfg, params, tokens, attention=attention, count_sum=count_sum)
+    ``layers.moe_aux``).  ``params`` is a :class:`Transformer` or a view of
+    one rank's part of it (``sharding.lm_split.RankView``), in which case
+    ``tokens`` and ``targets`` are the rank's part of the batch."""
+    view = WholeModel(cfg, params) if isinstance(params, Transformer) else params
+    logits, aux = _forward(cfg, view, tokens, attention=attention, count_sum=count_sum)
     logp = torch.log_softmax(logits.float(), dim=-1)
     del logits
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
@@ -316,13 +431,15 @@ def decode_step(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
     elif positions.device.type == "cpu" and not bool(inside.all()):  # meta holds none
         raise IndexError(f"positions {positions.tolist()} outside the cache's [0, {s})")
     h, hd = cfg.n_heads, cfg.head_dim
+    view = WholeModel(cfg, params)
     x = params.embed[tokens.long()].to(_dtype(cfg))  # (B, 1, D)
     rows = torch.arange(b, device=tokens.device)
     pos = positions.long()
     pos32 = positions.to(torch.int32)
     for i in range(cfg.n_layers):
         lp = params.layer(i)
-        q, k, v = _qkv(cfg, lp, x, pos[:, None])
+        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["attn_norm"], cfg.norm_eps), pos[:, None],
+                       cfg.n_heads, cfg.n_kv_heads)
         k_cache, v_cache = kv_cache[i, 0], kv_cache[i, 1]
         k_cache[rows, pos] = k[:, 0].to(kv_cache.dtype)
         v_cache[rows, pos] = v[:, 0].to(kv_cache.dtype)
@@ -331,5 +448,5 @@ def decode_step(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
         else:
             o = decode_attention(q, k_cache, v_cache, pos)
         x = x + o.reshape(b, 1, h * hd) @ lp["wo"]
-        x, _ = _ffn(cfg, lp, x, att, with_aux=False)
-    return _logits(cfg, params, x)[:, 0], kv_cache
+        x, _ = _ffn(cfg, view, lp, x, att, with_aux=False)
+    return _logits(cfg, view, x)[:, 0], kv_cache

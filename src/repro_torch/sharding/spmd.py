@@ -6,37 +6,48 @@ A sharded state is ``checkpointer.reshard``'s: the state of
 placed by the reference's specs (:mod:`.specs`), the model as ``{path:
 DTensor}``.  :func:`make_sharded_train_step` returns
 ``train_step(state, batch) -> (state, metrics)``, run by every rank with the
-same whole batch, which on each rank:
+same whole batch.
 
-1. gathers the parameters (``full_tensor``) into a working model of plain
-   tensors on the rank's device, so that no kernel sees a DTensor;
-2. takes the rank's slice of the batch along the axes ``batch_specs`` name;
-3. computes the loss and the gradients with the family's own loss
-   (``steps.loss_for``, the kernels under autograd on a GPU);
-4. sums the float32 gradients over the ranks that hold other slices, each
-   rank's weighted by its share of the loss's normaliser (tokens, rows, or
-   the mask's count where the loss masks), so the result is the whole
-   batch's gradient;
-5. updates its own shards of the parameters and of the optimiser slots in
-   place, with the global norm and the clip scale of the summed gradient;
-   AdamW elementwise on the shards, Adafactor from whole tensors (its
-   factored means reduce over dimensions a spec may shard: the slots,
-   small, are gathered, the update computed whole and sliced).
+**LMs** split their compute over the mesh as the reference's GSPMD does
+(:mod:`.lm_split`): each rank takes its rows of every micro-batch (the data
+axes) and its T / m tokens of them (the model axis), computes its heads,
+its FFN columns and its experts between gathers and reduce-scatters along
+T, gathers each layer's weights over ``"data"`` where the spec shards them
+there (FSDP, inside the checkpointed layer), and never gathers a whole
+stacked weight: ``full_tensor`` is called on no parameter.  Each rank's loss
+is weighted by its share of the tokens before its backward, so the
+collectives' backwards sum the whole batch's gradient; it lands, in float32,
+in the rank's shards (the gathers' backwards reduce-scatter it), and a leaf
+replicated on an axis is then all-reduced over that axis.  Float32
+gradients are held only as those shards plus one layer's transient.
 
-Compute is data-parallel over gathered weights: the model axis stores
-shards but splits no compute, where the reference's GSPMD also splits the
-products along ``"model"``.  A loss that does not split over examples is
-computed whole on every rank, the batch not sliced: a node-level GNN batch
-(one graph) and the two-tower model's in-batch softmax.
+**The other families** keep the gathered step: every rank gathers the
+parameters (``full_tensor``) into a working model of plain tensors on its
+device, computes the loss and the gradients of its slice of the batch
+(a loss that does not split over examples — a node-level GNN batch, the
+two-tower model's in-batch softmax — whole on every rank), and sums the
+float32 gradients over the ranks that hold other slices, each rank's
+weighted by its share of the loss's normaliser (rows, or the mask's count
+where the loss masks); each rank keeps its shards of the sum.
+
+The update is the same for both, on the rank's shards alone: the global
+norm sums each element once (a leaf replicated over ranks counts once, not
+once a replica); AdamW updates the shards of the parameters and of its
+slots elementwise in place; Adafactor's factored means run over dimensions
+a spec may shard, so each is the rank's partial sum all-reduced over the
+ranks that shard that dimension (its slots' specs drop the dimension they
+average over, so their shards line up with the gradient's): no gradient or
+slot is gathered (one kimi-k2 expert leaf's float32 gradient alone is
+1.28 TB).
 
 An MoE model keeps the unsharded step's routing.  Its capacity is per token
 group (``cfg.moe_groups`` contiguous groups of a micro-batch), so each rank
 takes its slice of every micro-batch, which is ``moe_groups / n`` whole
-groups of it for ``n`` batch slices, and dispatches them as such; the
-router's auxiliary loss takes the load fractions of the whole micro-batch
-(its choice counts summed over the ranks in the forward).  ``moe_groups``
-must be a multiple of ``n``, as the reference's dry-run makes it (one group
-a data shard).
+groups of it for ``n`` batch slices, and dispatches them as such (the
+model ranks of a slice gather its tokens); the router's auxiliary loss
+takes the load fractions of the whole micro-batch (its choice counts summed
+over the ranks in the forward).  ``moe_groups`` must be a multiple of ``n``,
+as the reference's dry-run makes it (one group a data shard).
 """
 
 from __future__ import annotations
@@ -46,23 +57,25 @@ import math
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import GNNConfig, LMConfig
 from ..models import steps
 from ..train.optimizer import (
     OptConfig,
     adafactor_decay,
-    adafactor_leaf,
+    adafactor_direction,
     adamw_update,
     clip_scale,
-    global_norm,
     opt_init,
     param_tree,
     schedule,
+    sort_paths,
 )
+from . import tp
 from .compat import (NamedSharding, P, flatten_specs, local_shard, mesh_device,
                      require_device_mesh)
+from .lm_split import LMSplit
 from .specs import opt_state_specs, param_specs_for
 
 
@@ -109,13 +122,15 @@ def make_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, state_specs: dict,
     (LMs) accumulates over the rank's slices of the unsharded step's
     micro-batches; ``shape_name`` picks a GNN's input width.  The loss
     takes the kernels on a card (``steps.loss_for``; ``attention`` names
-    the LMs' route).  ``device`` is the working model's device, the mesh's
+    the LMs' route).  ``device`` is the rank's compute device, the mesh's
     by default; the dry-run passes ``"meta"`` with a ``meta`` state and
-    batch, so that nothing is allocated.  The state and the
-    metrics are those of the unsharded step: the state is updated in place
-    and returned with ``step`` one higher.  ``train_step.grads(state, batch)``
-    runs steps 1-4 alone and returns ``(gradients, metrics)``;
-    ``train_step.work`` is the working model of step 1."""
+    batch, so that nothing is allocated.  The state and the metrics are
+    those of the unsharded step: the state is updated in place and returned
+    with ``step`` one higher.  ``train_step.grads(state, batch)`` returns
+    ``({path: this rank's float32 shard of the whole batch's gradient},
+    metrics)`` without updating; ``train_step.work`` is the gathered
+    working model of the other families (None for an LM, which has none),
+    ``train_step.split`` the LM's :class:`~.lm_split.LMSplit` (else None)."""
     require_device_mesh(mesh, "make_sharded_train_step")
     if n_micro > 1 and not isinstance(cfg, LMConfig):
         raise ValueError(f"n_micro={n_micro}: only the LM step accumulates micro-batches")
@@ -132,58 +147,39 @@ def make_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, state_specs: dict,
                          if not isinstance(x, Replicate)})
     groups = [mesh.get_group(names[m]) for m in batch_dims]
     n_slices = math.prod(mesh.size(m) for m in batch_dims)
+    shapes = {k: tuple(p.shape) for k, p in
+              param_tree(steps.init_model_params(cfg, None, "meta", shape_name)).items()}
+    if set(shapes) != set(param_sh):
+        raise KeyError(f"state specs for {sorted(set(param_sh) ^ set(shapes))[:4]} do "
+                       f"not match the model's parameters")
 
     def _reduce(t: torch.Tensor) -> torch.Tensor:
         for g in groups:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
         return t
 
-    loss_fn = steps.loss_for(cfg, attention)
     moe = isinstance(cfg, LMConfig) and cfg.moe is not None
+    rank_cfg = cfg
     if moe and n_slices > 1:  # see the module docstring
         if cfg.moe_groups % n_slices:
             raise ValueError(f"moe_groups={cfg.moe_groups} is not a multiple of the "
                              f"{n_slices} batch slices: a rank's slice would not hold whole "
                              f"token groups, and its expert capacity would not be the "
                              f"unsharded step's; set moe_groups to the data ranks")
-        loss_fn = steps.loss_for(dataclasses.replace(cfg, moe_groups=cfg.moe_groups // n_slices),
-                                 attention, count_sum=_reduce)
-    work = steps.init_model_params(cfg, None, "meta", shape_name).to_empty(device=dev)
-    work_params = param_tree(work)
-    if set(work_params) != set(param_sh):
-        raise KeyError(f"state specs for {sorted(set(param_sh) ^ set(work_params))[:4]} do "
-                       f"not match the model's parameters")
-
-    def grads(state: dict, batch: dict):
-        """Steps 1-4: ``({path: float32 gradient of the whole batch},
-        metrics)``, the same on every rank."""
-        params = state["params"]
-        with torch.no_grad():  # 1. the whole parameters, on every rank
-            for k, p in work_params.items():
-                p.copy_(params[k].full_tensor())
-        whole = steps._on_device(batch, dev)
-        missing = sorted(set(whole) - set(batch_sh))
-        if missing:
-            raise KeyError(f"batch leaves {missing} have no spec in batch_specs")
-        split = bool(groups) and _loss_count(cfg, whole) is not None
-        local = _slice(whole, n_micro, mesh, batch_sh) if split else whole  # 2.
-        del whole
-        loss, aux, g = steps._accum_grads(loss_fn, work, local, n_micro)  # 3.
-        metrics = {"loss": loss, **aux}
-        with torch.no_grad():  # 4. the whole batch's gradient on every rank
-            if not split:
-                return {k: v.float() for k, v in g.items()}, metrics
-            count = _loss_count(cfg, local)
-            total = _reduce(count.clone())
-            w = torch.clamp(count, min=1.0) / torch.clamp(total, min=1.0)
-            g = {k: _reduce(v.float() * w) for k, v in g.items()}
-            vals = _reduce(torch.stack([v.float() for v in metrics.values()]) * w)
-        return g, dict(zip(metrics, vals.unbind()))
+        rank_cfg = dataclasses.replace(cfg, moe_groups=cfg.moe_groups // n_slices)
+    if isinstance(cfg, LMConfig):
+        grads = _lm_grads(rank_cfg, mesh, param_sh, batch_sh, shapes, n_micro, attention, dev)
+        split, work = grads.split, None
+    else:
+        grads = _gathered_grads(cfg, mesh, param_sh, batch_sh, groups, _reduce, shape_name,
+                                attention, dev)
+        split, work = None, grads.work
 
     def train_step(state: dict, batch: dict):
         g, metrics = grads(state, batch)
         with torch.no_grad():
-            extra = _update(opt_cfg, state, g, global_norm(g), work_params, param_sh, mesh)
+            extra = _update(opt_cfg, state, g, sharded_norm(g, param_sh, mesh), param_sh,
+                            shapes, mesh)
         del g
         step = state["step"]
         new_step = DTensor.from_local(step.to_local() + 1, mesh, step.placements,
@@ -193,7 +189,127 @@ def make_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, state_specs: dict,
 
     train_step.grads = grads
     train_step.work = work
+    train_step.split = split
     return train_step
+
+
+def _gathered_grads(cfg, mesh, param_sh: dict, batch_sh: dict, groups: list, _reduce,
+                    shape_name, attention, dev):
+    """The other families' gradients: gathered weights, the rank's slice of
+    the batch, the float32 gradients summed over the slices and cut to the
+    rank's shards."""
+    loss_fn = steps.loss_for(cfg, attention)
+    work = steps.init_model_params(cfg, None, "meta", shape_name).to_empty(device=dev)
+    work_params = param_tree(work)
+
+    def grads(state: dict, batch: dict):
+        params = state["params"]
+        with torch.no_grad():  # the whole parameters, on every rank
+            for k, p in work_params.items():
+                p.copy_(params[k].full_tensor())
+        whole = _batch_on(batch, batch_sh, dev)
+        split = bool(groups) and _loss_count(cfg, whole) is not None
+        local = _slice(whole, 1, mesh, batch_sh) if split else whole
+        del whole
+        loss, aux, g = steps._accum_grads(loss_fn, work, local, 1)
+        metrics = {"loss": loss, **aux}
+        with torch.no_grad():
+            if split:
+                count = _loss_count(cfg, local)
+                total = _reduce(count.clone())
+                w = torch.clamp(count, min=1.0) / torch.clamp(total, min=1.0)
+                g = {k: _reduce(v.float() * w) for k, v in g.items()}
+                vals = _reduce(torch.stack([v.float() for v in metrics.values()]) * w)
+                metrics = dict(zip(metrics, vals.unbind()))
+            g = {k: local_shard(v.float(), mesh, param_sh[k]) for k, v in g.items()}
+        return g, metrics
+
+    grads.work = work
+    return grads
+
+
+def _batch_on(batch: dict, batch_sh: dict, dev) -> dict:
+    whole = steps._on_device(batch, dev)
+    missing = sorted(set(whole) - set(batch_sh))
+    if missing:
+        raise KeyError(f"batch leaves {missing} have no spec in batch_specs")
+    return whole
+
+
+def _lm_grads(cfg, mesh, param_sh: dict, batch_sh: dict, shapes: dict, n_micro: int,
+              attention, dev):
+    """An LM's gradients, split over the mesh (:mod:`.lm_split`)."""
+    names = tuple(mesh.mesh_dim_names)
+    data_dims = [j for j, a in enumerate(names) if a != "model"]
+    for j in data_dims:
+        for k, pl in batch_sh.items():
+            if not (isinstance(pl[j], Shard) and pl[j].dim == 0):
+                raise ValueError(f"batch leaf {k}'s spec does not split its rows over "
+                                 f"{names[j]!r}: the LM step splits the batch over every "
+                                 f"data axis")
+    split = LMSplit(cfg, mesh, param_sh, shapes)
+    every = [split.groups[a] for a in names]
+    loss_fn = steps.loss_for(cfg, attention,
+                             count_sum=lambda t: tp.sum_into(t, split.count_groups))
+    m, r = split.m, split.r
+
+    def grads(state: dict, batch: dict):
+        params = state["params"]
+        # the leaves in the reference's order, which global_norm's sum follows
+        local = {k: _local(params[k]) for k in sort_paths(param_sh)}
+        sinks = {k: torch.zeros(v.shape, dtype=torch.float32, device=dev)
+                 for k, v in local.items()}
+        anchor = torch.zeros((), device=dev, requires_grad=True)
+        rows = _slice(_batch_on(batch, batch_sh, dev), n_micro, mesh, batch_sh)
+        per = rows["tokens"].shape[0] // n_micro
+        t = rows["tokens"].shape[1]
+        if t % m:
+            raise ValueError(f"{t} tokens a row do not split over {m} model ranks")
+        cols = slice(r * (t // m), (r + 1) * (t // m))
+        loss_acc, aux, w = 0.0, {}, None
+        for i in range(n_micro):
+            micro = {k: v[i * per:(i + 1) * per, cols] for k, v in rows.items()}
+            count = torch.tensor(float(micro["targets"].numel()), device=dev)
+            total = tp.sum_into(count.clone(), every)
+            w = torch.clamp(count, min=1.0) / torch.clamp(total, min=1.0)
+            loss, aux = loss_fn(split.view(local, sinks, anchor), micro)
+            (loss * w).backward()
+            loss_acc = loss_acc + loss.detach()
+            aux = {k: v.detach() for k, v in aux.items()}
+        with torch.no_grad():
+            if n_micro > 1:
+                sinks = {k: g / n_micro for k, g in sinks.items()}
+            for k, g in sinks.items():  # a leaf replicated on an axis: summed over it
+                for j, p in enumerate(param_sh[k]):
+                    if not isinstance(p, Shard):
+                        tp.sum_into(g, [split.groups[names[j]]])
+            metrics = {"loss": loss_acc / n_micro if n_micro > 1 else loss_acc, **aux}
+            vals = tp.sum_into(torch.stack([v.float() for v in metrics.values()]) * w, every)
+        return sinks, dict(zip(metrics, vals.unbind()))
+
+    grads.split = split
+    return grads
+
+
+def sharded_norm(grads: dict, param_sh: dict, mesh) -> torch.Tensor:
+    """The global norm of a gradient held as each rank's shards: each leaf's
+    sum of squares over its shard, counted on one replica of it (the rank at
+    coordinate 0 of every axis the leaf is replicated on), summed over the
+    mesh, then the leaves summed in order as ``optimizer.global_norm`` sums
+    them."""
+    names = tuple(mesh.mesh_dim_names)
+    coords = [mesh.get_local_rank(a) for a in names]
+    sums = []
+    for k, g in grads.items():
+        sq = torch.sum(torch.square(g.float()))
+        if any(c and not isinstance(p, Shard) for c, p in zip(coords, param_sh[k])):
+            sq = torch.zeros_like(sq)
+        sums.append(sq)
+    sums = tp.sum_into(torch.stack(sums), [mesh.get_group(a) for a in names])
+    total = sums[0]
+    for i in range(1, len(sums)):
+        total = total + sums[i]
+    return torch.sqrt(total)
 
 
 def _slice(batch: dict, n_micro: int, mesh, batch_sh: dict) -> dict:
@@ -214,18 +330,36 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _update(opt_cfg: OptConfig, state: dict, grads: dict, gnorm, work_params: dict,
-            param_sh: dict, mesh) -> dict:
-    """5. this rank's shards of the parameters and the slots, in place."""
+def _adafactor_shard(opt_cfg: OptConfig, g32: torch.Tensor, vr: torch.Tensor,
+                     vc: torch.Tensor, decay: torch.Tensor, placements, shape: tuple, mesh):
+    """``optimizer.adafactor_direction`` of one leaf from this rank's shard of
+    its clipped float32 gradient and of its slots (whose specs drop the
+    leaf's last / second-to-last dimension, so their shards line up with
+    the gradient's): each factored mean over a dimension that ranks shard
+    is a local sum all-reduced over them, divided by the whole length."""
+
+    def mean(x, dim: int, leaf_dim: int, keepdim: bool = False):
+        groups = [mesh.get_group(j) for j, p in enumerate(placements)
+                  if isinstance(p, Shard) and p.dim == leaf_dim]
+        if not groups:
+            return torch.mean(x, dim=dim, keepdim=keepdim)
+        return tp.sum_into(torch.sum(x, dim=dim, keepdim=keepdim), groups) / shape[leaf_dim]
+
+    return adafactor_direction(g32, vr, vc, decay, len(shape) >= 2, opt_cfg.eps, mean)
+
+
+def _update(opt_cfg: OptConfig, state: dict, grads: dict, gnorm, param_sh: dict,
+            shapes: dict, mesh) -> dict:
+    """This rank's shards of the parameters and the slots, in place, from its
+    float32 gradient shards ``grads`` (``shapes``: each leaf's whole shape)."""
     params, opt = state["params"], state["opt"]
     step_t = opt["step"]
     if opt_cfg.kind == "adamw":
-        local_grads = {k: local_shard(g, mesh, param_sh[k]) for k, g in grads.items()}
         local_opt = {"m": {k: _local(v) for k, v in opt["m"].items()},
                      "v": {k: _local(v) for k, v in opt["v"].items()},
                      "step": _local(step_t)}
         _, local_opt, extra = adamw_update(opt_cfg, {k: _local(p) for k, p in params.items()},
-                                           local_grads, local_opt, gnorm=gnorm)
+                                           grads, local_opt, gnorm=gnorm)
         _local(step_t).copy_(local_opt["step"])
         return extra
     scale = clip_scale(opt_cfg.clip_norm, gnorm)
@@ -233,17 +367,13 @@ def _update(opt_cfg: OptConfig, state: dict, grads: dict, gnorm, work_params: di
     lr = schedule(opt_cfg, step)
     decay = adafactor_decay(step)
     for k, g in grads.items():
-        vr, vc = opt["vr"][k], opt["vc"][k]
-        whole_vr = vr.full_tensor() if isinstance(vr, DTensor) else vr
-        whole_vc = vc.full_tensor() if isinstance(vc, DTensor) else vc
-        u, new_vr, new_vc = adafactor_leaf(opt_cfg, work_params[k], g * scale, whole_vr,
-                                           whole_vc, decay)
+        vr, vc = _local(opt["vr"][k]), _local(opt["vc"][k])
+        u, new_vr, new_vc = _adafactor_shard(opt_cfg, g * scale, vr, vc, decay, param_sh[k],
+                                             shapes[k], mesh)
         p = _local(params[k])
-        p.copy_((p.float() - lr * local_shard(u, mesh, param_sh[k])).to(p.dtype))
-        for slot, new in ((vr, new_vr), (vc, new_vc)):
-            if isinstance(slot, DTensor):
-                slot.to_local().copy_(local_shard(new, mesh, slot.placements))
-            else:
-                slot.copy_(new)
+        u = u + opt_cfg.weight_decay * p.float()
+        p.copy_((p.float() - lr * u).to(p.dtype))
+        vr.copy_(new_vr)
+        vc.copy_(new_vc)
     _local(step_t).copy_(step.to(step_t.dtype))
     return {"grad_norm": gnorm, "lr": lr}

@@ -163,19 +163,35 @@ def adafactor_decay(step: torch.Tensor) -> torch.Tensor:
     return 1.0 - step.float() ** -0.8
 
 
-def adafactor_leaf(cfg: OptConfig, p: torch.Tensor, g32: torch.Tensor, vr: torch.Tensor,
-                   vc: torch.Tensor, decay: torch.Tensor):
-    """``(u, new_vr, new_vc)`` of one whole leaf: ``g32`` its clipped float32
-    gradient; the factored means run over the leaf's last two dimensions."""
-    if _factored(p):
-        new_vr = decay * vr + (1 - decay) * torch.mean(g32 * g32, dim=-1)
-        new_vc = decay * vc + (1 - decay) * torch.mean(g32 * g32, dim=-2)
-        r = new_vr / torch.clamp(torch.mean(new_vr, dim=-1, keepdim=True), min=1e-30)
-        u = g32 / (torch.sqrt(r)[..., None] * torch.sqrt(new_vc)[..., None, :] + cfg.eps)
+def _mean(x: torch.Tensor, dim: int, leaf_dim: int, keepdim: bool = False) -> torch.Tensor:
+    return torch.mean(x, dim=dim, keepdim=keepdim)
+
+
+def adafactor_direction(g32: torch.Tensor, vr: torch.Tensor, vc: torch.Tensor,
+                        decay: torch.Tensor, factored: bool, eps: float, mean=_mean):
+    """``(u, new_vr, new_vc)`` of one leaf before weight decay: ``g32`` its
+    clipped float32 gradient; the factored means run over the leaf's last
+    two dimensions.  ``mean(x, dim, leaf_dim, keepdim)`` takes the mean of
+    ``x`` over its ``dim``, which is the leaf's dimension ``leaf_dim``: the
+    sharded step passes one that sums a shard and all-reduces the sums."""
+    if factored:
+        nd = g32.dim()
+        new_vr = decay * vr + (1 - decay) * mean(g32 * g32, -1, nd - 1)
+        new_vc = decay * vc + (1 - decay) * mean(g32 * g32, -2, nd - 2)
+        r = new_vr / torch.clamp(mean(new_vr, -1, nd - 2, keepdim=True), min=1e-30)
+        u = g32 / (torch.sqrt(r)[..., None] * torch.sqrt(new_vc)[..., None, :] + eps)
     else:
         new_vr = decay * vr + (1 - decay) * g32 * g32
         new_vc = vc
-        u = g32 / (torch.sqrt(new_vr) + cfg.eps)
+        u = g32 / (torch.sqrt(new_vr) + eps)
+    return u, new_vr, new_vc
+
+
+def adafactor_leaf(cfg: OptConfig, p: torch.Tensor, g32: torch.Tensor, vr: torch.Tensor,
+                   vc: torch.Tensor, decay: torch.Tensor):
+    """``(u, new_vr, new_vc)`` of one whole leaf: :func:`adafactor_direction`
+    plus the weight decay of ``p``."""
+    u, new_vr, new_vc = adafactor_direction(g32, vr, vc, decay, _factored(p), cfg.eps)
     return u + cfg.weight_decay * p.float(), new_vr, new_vc
 
 

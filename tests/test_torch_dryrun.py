@@ -12,12 +12,17 @@ roofline, dryrun}``) against the reference's.
 * on a ``fake`` world of 256 ranks (and of 512 for one cell), in a
   subprocess, ``run_cell`` gives ``status == "ok"`` with the stated keys for
   a dense LM train cell, an MoE train cell, an LM decode cell, a GNN cell
-  and a recsys serve cell, touching no CUDA; the recorded gather and
-  all-reduce bytes equal those computed from the specs;
+  and a recsys serve cell, touching no CUDA; the dense LM train cell's
+  collective bytes by op (the LM's split step) equal those computed from
+  the specs and shapes;
+* a reduced LM train cell on a ``fake`` world of 8 ranks, mesh (2, 4): its
+  memory parts and its collective bytes by op equal those computed from
+  the specs and shapes, and its FLOPs are within 1 % of an analytic count
+  a rank that includes remat's recomputed forward;
 * on a reduced LM and a 1-rank mesh, the port's FLOPs of a train step and
   the reference's ``analyze_hlo`` of its compiled step each equal their
-  analytical count: the reference recomputes the forward in the backward
-  (remat) and the port does not; neither skips the masked causal blocks.
+  analytical count: both recompute the forward in the backward (remat);
+  neither skips the masked causal blocks.
 """
 
 import dataclasses
@@ -32,6 +37,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.launch import hlo_cost as ref_hlo_cost
@@ -195,6 +201,10 @@ FAKE_CELLS = [("llama3.2-3b", "train_4k", False), ("moonshot-v1-16b-a3b", "train
               ("qwen3-8b", "decode_32k", False), ("gin-tu", "molecule", False),
               ("xdeepfm", "serve_p99", False), ("qwen3-8b", "decode_32k", True)]
 
+#: the reduced qwen3-8b of the (2, 4) split cell: 8 heads of 8 on 2 kv heads
+#: (a kv head shared by two model ranks), 2 layers
+SPLIT_CELL = {"n_heads": 8, "n_kv_heads": 2, "head_dim": 8}
+
 FAKE_SCRIPT = r"""
 import json, sys
 import torch
@@ -214,6 +224,18 @@ cell = dryrun.build_cell("qwen3-8b", "train_4k", mesh, False,
 hc, saved = dryrun.count_cell(cell)
 dist.destroy_process_group()
 out["tiny_flops"] = hc.flops
+# a reduced LM train cell split over a (2, 4) mesh of 8 fake ranks
+import dataclasses
+dist.init_process_group("fake", rank=0, world_size=8, store=FakeStore())
+mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
+small = dataclasses.replace(get_config("qwen3-8b").reduced(), **json.loads(sys.argv[2]))
+cell = dryrun.build_cell("qwen3-8b", "train_4k", mesh, False, cfg=small)
+hc, saved = dryrun.count_cell(cell)
+dist.destroy_process_group()
+out["split_cell"] = {"flops": hc.flops, "bytes_by_op": hc.bytes_by_op,
+                     "count_by_op": hc.count_by_op, "state_bytes": cell.state_bytes,
+                     "input_bytes": cell.input_bytes, "grad_bytes": cell.grad_bytes,
+                     "gathered_bytes": cell.gathered_bytes, "saved_bytes": saved}
 out["cuda_initialized"] = torch.cuda.is_initialized()
 out["jax_loaded"] = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 print(json.dumps(out))
@@ -222,7 +244,8 @@ print(json.dumps(out))
 
 @pytest.fixture(scope="module")
 def fake_world():
-    proc = subprocess.run([sys.executable, "-c", FAKE_SCRIPT, json.dumps(FAKE_CELLS)],
+    proc = subprocess.run([sys.executable, "-c", FAKE_SCRIPT, json.dumps(FAKE_CELLS),
+                           json.dumps(SPLIT_CELL)],
                           capture_output=True, text=True, timeout=600, cwd=str(ROOT),
                           env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -257,66 +280,175 @@ def test_fake_world_cell_is_ok(fake_world, cell):
     assert (r["memory"]["saved_activation_bytes"] > 0) == train
 
 
-def _gather_bytes(leaf, spec, mesh: AbstractMesh) -> int:
-    """Result bytes of the gathers that make ``leaf`` whole from its shard
-    under ``spec``: one a sharding mesh axis, the last axis first."""
-    shape = list(leaf.shape)
-    dims = {}
-    for d, entry in enumerate(spec):
-        for a in ((entry,) if isinstance(entry, str) else tuple(entry or ())):
-            dims[a] = d
-            shape[d] //= mesh.shape[a]
-    total = 0
-    for a in reversed(mesh.axis_names):
-        if a in dims:
-            shape[dims[a]] *= mesh.shape[a]
-            total += int(np.prod(shape)) * leaf.element_size()
-    return total
+#: rank 0's (q heads, kv heads) in the split cells, worked out by hand from
+#: the layout (model rank r computes heads ceil(r h / m) to ceil((r + 1) h /
+#: m) - 1 and the kv heads h / kh of them share): 8 heads on 2 kv heads on 4
+#: model ranks, 2 q heads of kv head 0; llama3.2-3b's 24 heads on 8 kv heads
+#: on 16, heads 0 and 1 (1.5 a rank) of kv head 0 (3 q heads a kv head)
+RANK0_HEADS = {(8, 2, 4): ((0, 2), (0, 1)), (24, 8, 16): ((0, 2), (0, 1))}
+
+#: reduce-scatters that a layer's recompute leaves out: the FFN's after
+#: ``w_down``, past the layer's last saved tensor, where
+#: ``torch.utils.checkpoint`` stops recomputing
+#: (``test_checkpoint_recompute_stops_at_the_last_saved_tensor``)
+RECOMPUTE_SKIPS = 1
+
+
+def _split_expectation(cfg, mesh: AbstractMesh, batch: int, seq: int) -> dict:
+    """Rank 0's collectives and memory parts in the LM's split train step
+    (``sharding.lm_split``; dense layers, one micro-batch, remat on), from
+    the reference's specs and the model's shapes alone.
+
+    A weight the rank computes with beyond its shard is gathered in the
+    forward (per layer, twice under remat: the forward and the recompute;
+    the embedding and head once): first over "data" along the dimension
+    the spec shards there (FSDP), then over "model" where the rank's
+    columns (its heads: ``RANK0_HEADS``; the embedding and head: all) are
+    not its shard.  Its float32 gradient is reduce-scattered back in the
+    backward, once.  The residual stream: per layer and pass a gather along
+    T before attention and before the FFN (B / dp, T, D) and a
+    reduce-scatter after each (B / dp, T / m, D), but the
+    ``RECOMPUTE_SKIPS`` last of the recompute's; the backward the
+    transposes.  Then each gradient shard
+    all-reduced over each axis its leaf is replicated on; the token count,
+    the three metrics and the per-leaf squares of the global norm over
+    "data" and "model"."""
+    dp, m = mesh.shape["data"], mesh.shape["model"]
+    elem = 2 if cfg.dtype == "bfloat16" else 4
+    params = param_tree(steps.init_model_params(cfg, None, "meta"))
+    pspecs = specs.lm_param_specs(cfg, mesh, False)
+    hd, L = cfg.head_dim, cfg.n_layers
+    (a, b), (ka, kb) = RANK0_HEADS[(cfg.n_heads, cfg.n_kv_heads, m)]
+    want = {"layers/wq": (a * hd, b * hd), "layers/wk": (ka * hd, kb * hd),
+            "layers/wv": (ka * hd, kb * hd), "layers/wo": (a * hd, b * hd)}
+    ag = rs = ar = 0
+    n_ag = n_rs = n_ar = 0
+    gathered = transient = shards = 0
+    for k, p in params.items():
+        spec = list(pspecs[k]) + [None] * (p.dim() - len(pspecs[k]))
+        layer = k.startswith("layers/")
+        whole = p.numel() // (L if layer else 1)
+        local = whole // (dp if "data" in spec else 1) // (m if "model" in spec else 1)
+        shards += 4 * local * (L if layer else 1)
+        passes = 2 * L if layer else 1
+        steps_ = []  # (result elements of the gather) in order
+        n = local
+        if "data" in spec:
+            n *= dp
+            steps_.append(n)
+        if "model" in spec:
+            cols = want.get(k)
+            aligned = cols is not None and cols == (0, p.shape[spec.index("model")] // m)
+            if cols is None and layer:  # FFN columns: the rank's shard
+                aligned = True
+            if not aligned:
+                n *= m
+                steps_.append(n)
+        for e in steps_:
+            ag += passes * e * elem
+            n_ag += passes
+        # the backward: each gather's float32 reduce-scatter back to its input
+        for e in ([local] + steps_)[:len(steps_)]:
+            rs += 4 * e * (L if layer else 1)
+            n_rs += L if layer else 1
+        if layer:
+            transient += 4 * n
+        if steps_:
+            gathered += n * elem
+        for axis, size in (("data", dp), ("model", m)):
+            if axis not in spec:
+                ar += 4 * local * (L if layer else 1)
+                n_ar += 1
+    bl, t = batch // dp, seq // m
+    full, part = bl * seq * cfg.d_model * elem, bl * t * cfg.d_model * elem
+    # forward and recompute gathers, the backward of the two scatters; the
+    # forward's two scatters, the recompute's but those it skips, the
+    # gathers' backward
+    ag += L * (2 * 2 * full + 2 * full)
+    rs += L * (2 * part + (2 - RECOMPUTE_SKIPS) * part + 2 * part)
+    n_ag += L * 6
+    n_rs += L * (6 - RECOMPUTE_SKIPS)
+    small = 1 + 3 + len(params)  # count, metrics, the norm's per-leaf squares
+    ar += 2 * 4 * small
+    n_ar += 2 * 3
+    return {"bytes": {"all-gather": ag, "reduce-scatter": rs, "all-reduce": ar},
+            "count": {"all-gather": n_ag, "reduce-scatter": n_rs, "all-reduce": n_ar},
+            "gathered": gathered, "grad": shards + transient, "boundary": L * part}
+
+
+def test_checkpoint_recompute_stops_at_the_last_saved_tensor():
+    """``torch.utils.checkpoint`` (non-reentrant) recomputes a block's
+    forward only until the last tensor the backward needs is back: an op
+    after it that saves nothing (a layer's last reduce-scatter) runs once,
+    the ops before it twice.  ``RECOMPUTE_SKIPS`` rests on this."""
+    from torch.utils.checkpoint import checkpoint
+
+    runs = []
+
+    class Mark(torch.autograd.Function):  # saves nothing, as tp.scatter
+        @staticmethod
+        def forward(ctx, x, tag):
+            runs.append(tag)
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    def block(x):
+        return Mark.apply(torch.sin(Mark.apply(x, "first")), "last")
+
+    x = torch.ones(3, requires_grad=True)
+    checkpoint(block, x, use_reentrant=False).sum().backward()
+    assert runs == ["first", "last", "first"]
+    assert runs.count("last") == 2 - RECOMPUTE_SKIPS
 
 
 def test_collective_bytes_equal_the_specs(fake_world):
-    """The dense LM train cell: the gathers make every sharded weight whole
-    (bytes from the reference's specs), and the all-reduce sums each
-    weight's float32 gradient over ``"data"``, plus the loss normaliser and
-    the metrics (a few floats)."""
+    """The dense LM train cell (llama3.2-3b on (16, 16): FSDP, 24 heads and
+    8 kv heads on 16 model ranks, so wq / wo and wk / wv gathered over
+    "model"): its collectives by op, bytes and counts, equal
+    :func:`_split_expectation`'s; the gradient and the gathered weights are
+    the split step's (shards plus one layer's transient; embedding, head
+    and one layer)."""
     r = fake_world["by_cell"][("llama3.2-3b", "train_4k", False)]
     cfg = get_config("llama3.2-3b")
-    mesh = AbstractMesh((16, 16), ("data", "model"))
-    params = param_tree(steps.init_model_params(cfg, None, "meta"))
-    pspecs = specs.param_specs_for(cfg, steps.init_model_params(cfg, None, "meta"), mesh, False)
-    gather = sum(_gather_bytes(p, pspecs[k], mesh) for k, p in params.items())
-    n_gathers = sum(1 for k in params for e in pspecs[k] if e is not None
-                    for _ in ((e,) if isinstance(e, str) else e))
+    want = _split_expectation(cfg, AbstractMesh((16, 16), ("data", "model")), 256, 4096)
     coll = r["collectives"]
-    assert coll["bytes_by_op"]["all-gather"] == gather
-    assert coll["count_by_op"]["all-gather"] == n_gathers
-    grads = 4 * sum(p.numel() for p in params.values())
-    assert coll["count_by_op"]["all-reduce"] == len(params) + 2
-    assert 8 <= coll["bytes_by_op"]["all-reduce"] - grads <= 64
-    assert r["memory"]["grad_bytes"] == grads
-    assert r["memory"]["gathered_weight_bytes"] == sum(
-        p.numel() * p.element_size() for p in params.values())
+    assert coll["bytes_by_op"] == want["bytes"]
+    assert coll["count_by_op"] == want["count"]
+    assert r["memory"]["grad_bytes"] == want["grad"]
+    assert r["memory"]["gathered_weight_bytes"] == want["gathered"]
+
+
+def _flops_expectation(cfg, b: int, t: int, m: int = 1) -> tuple[float, float]:
+    """``(linear FLOPs of the layers, of the logits)`` a rank: every
+    column- and row-parallel product over the B x T rows of its data slice
+    (the gathered stream) at its share of the heads (``RANK0_HEADS``; every
+    head at m = 1) and the FFN; the logits over its T / m tokens."""
+    whole = ((0, cfg.n_heads), (0, cfg.n_kv_heads))
+    (a, bq), (ka, kb) = whole if m == 1 else RANK0_HEADS[(cfg.n_heads, cfg.n_kv_heads, m)]
+    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff // m
+    hq, hk = bq - a, kb - ka
+    per_layer = 2 * (d * hq * hd + 2 * d * hk * hd + hq * hd * d + 3 * d * f)
+    return b * t * cfg.n_layers * per_layer, b * (t // m) * 2 * d * cfg.vocab_size
 
 
 def test_flops_against_reference_hlo(fake_world):
     """Reduced qwen3-8b, 256 x 4,096 tokens, one rank.  Linear FLOPs per
     token L * 2 * (the four projections + the three FFN matrices) + the
     logits; attention per matmul 2 * T^2 * hd a (row, head), over every
-    block (masked causal blocks included, on both sides).  The port: a
-    forward (1 linear, 2 attention units) and a backward (2 linear, 5
-    attention units: dV, dP, dQ, dK and the recomputed scores).  The
-    reference: the same plus the forward recomputed in the backward (remat),
-    its logits excepted."""
+    block (masked causal blocks included, on both sides).  Both the port
+    (``cfg.remat = "block"``: ``torch.utils.checkpoint``) and the reference
+    (``jax.checkpoint``) run a forward (1 linear, 2 attention units), the
+    layers' forward again in the backward (its linear but the logits, 2
+    attention units) and a backward (2 linear, 5 attention units: dV, dP,
+    dQ, dK and the recomputed scores)."""
     cfg = get_config("qwen3-8b").reduced()
     b, t = 256, 4096
-    d, h, kh, hd, f, v, layers = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                                  cfg.d_ff, cfg.vocab_size, cfg.n_layers)
-    per_layer = 2 * (d * h * hd + 2 * d * kh * hd + h * hd * d + 3 * d * f)
-    logits = 2 * d * v
-    linear = b * t * (layers * per_layer + logits)
-    attn_unit = 2 * t * t * hd * h * b * layers
-    port_expect = 3 * linear + 7 * attn_unit
-    ref_expect = 4 * linear - b * t * logits + 9 * attn_unit
+    layers_lin, logits = _flops_expectation(cfg, b, t)
+    attn_unit = 2 * t * t * cfg.head_dim * cfg.n_heads * b * cfg.n_layers
+    expect = 4 * layers_lin + 3 * logits + 9 * attn_unit
 
     ref_cfg = ref_get_config("qwen3-8b").reduced()
     opt = RefOptConfig(kind="adamw")
@@ -327,8 +459,53 @@ def test_flops_against_reference_hlo(fake_world):
         st, ref_cfg.input_specs("train_4k")).compile().as_text()
     ref_flops = ref_hlo_cost.analyze_hlo(hlo).flops
 
-    assert fake_world["tiny_flops"] == pytest.approx(port_expect, rel=0.01)
-    assert ref_flops == pytest.approx(ref_expect, rel=0.02)
+    assert fake_world["tiny_flops"] == pytest.approx(expect, rel=0.01)
+    assert ref_flops == pytest.approx(expect, rel=0.02)
+
+
+def _small_cfg():
+    import dataclasses as dc
+
+    return dc.replace(get_config("qwen3-8b").reduced(), **SPLIT_CELL)
+
+
+def test_split_cell_flops_include_the_recompute(fake_world):
+    """The (2, 4) cell: a rank's 2 of 8 heads, 1 kv head, a quarter of the
+    FFN on its 128 rows x 4,096 gathered tokens, the logits of its 1,024;
+    4 x the layers' linear FLOPs + 3 x the logits' + 9 attention units
+    (remat's recomputed forward included), within 1 %."""
+    cfg = _small_cfg()
+    b, t, m = 256 // 2, 4096, 4
+    layers_lin, logits = _flops_expectation(cfg, b, t, m)
+    attn_unit = 2 * t * t * cfg.head_dim * (cfg.n_heads // m) * b * cfg.n_layers
+    got = fake_world["split_cell"]["flops"]
+    assert got == pytest.approx(4 * layers_lin + 3 * logits + 9 * attn_unit, rel=0.01)
+    assert got < 4 * layers_lin + 4 * logits + 9 * attn_unit  # the logits are not recomputed
+
+
+def test_split_cell_memory_and_collectives_equal_the_specs(fake_world):
+    """The (2, 4) cell's parts: the state is the rank's shards (parameters,
+    AdamW's float32 m and v, its step), the input the whole batch, the
+    gathered weights the embedding and head (vocabulary over "model") and
+    one layer's wk and wv (the kv head of the rank's q heads), the gradient
+    its float32 shards plus one layer's float32 transient, the saved
+    activations hold remat's layer boundaries; the collectives by op equal
+    :func:`_split_expectation`'s."""
+    cfg = _small_cfg()
+    mesh = AbstractMesh((2, 4), ("data", "model"))
+    got = fake_world["split_cell"]
+    want = _split_expectation(cfg, mesh, 256, 4096)
+    params = param_tree(steps.init_model_params(cfg, None, "meta"))
+    pspecs = specs.lm_param_specs(cfg, mesh, False)
+    local = {k: p.numel() // (4 if "model" in pspecs[k] else 1) for k, p in params.items()}
+    assert got["state_bytes"] == sum(4 * n + 2 * 4 * n for n in local.values()) + 4
+    assert got["input_bytes"] == 2 * 256 * 4096 * 4
+    v, d, hd = cfg.vocab_size, cfg.d_model, cfg.head_dim
+    assert got["gathered_bytes"] == want["gathered"] == 4 * (2 * v * d + 2 * d * 2 * hd)
+    assert got["grad_bytes"] == want["grad"]
+    assert got["saved_bytes"] > want["boundary"] == cfg.n_layers * 128 * 1024 * d * 4
+    assert got["bytes_by_op"] == want["bytes"]
+    assert got["count_by_op"] == want["count"]
 
 
 def test_cli_writes_records_and_skips_existing(tmp_path):
