@@ -75,7 +75,12 @@ launch counts set to 0 just before it and read just after:
   state bit-equal to ``make_lm_train_step``'s kernel path (a world of one
   makes every collective the identity), and no ``full_tensor`` on any LM
   parameter (the step splits its compute over the mesh and gathers one
-  layer at a time); ``psum_int8`` / ``psum_topk`` on two
+  layer at a time); ``lm_serve.make_sharded_prefill_step`` /
+  ``make_sharded_decode_step`` on the same two models (4 prompts of 2,048
+  tokens, then 8 greedy decode steps into the cache in the decode spec's
+  layout, row 8's partial mode once a layer a step), logits and caches
+  bit-equal to ``make_lm_prefill_step`` / ``make_lm_decode_step``'s kernel
+  path; ``psum_int8`` / ``psum_topk`` on two
   of its gradients, bit-equal to their formula; a full-size xDeepFM train
   state resharded, saved, restored and placed back, bit for bit.
   ``--only-mesh`` runs it alone;
@@ -88,6 +93,13 @@ launch counts set to 0 just before it and read just after:
   teacher-forced on the kernel run's tokens, must give logits within
   ``LM_LOGIT_TOL`` and the same greedy tokens but where the plain path's
   logit of the kernel's token lies within one bf16 step of its maximum;
+  the ``attention_kernels`` line adds row 8's partial mode
+  (``flash_decode_partial``) on a cache of the path's last decode shape cut
+  into 2, 4 and 16 slices, each slice against its plain version (o within
+  the float32 limit, lse within ``LSE_TOL``) and the slices joined
+  (``decode_split.combine_stacked``) against the whole plain call, with
+  slices that see no row, positions at a slice's first and last row and
+  past S; and the partial launch timed beside the whole call;
 * recsys_serve — xDeepFM at full width (39 fields, 3,008,562 table rows of
   10, CIN 200-200-200, MLP 400-400), random float32 weights drawn on the
   card, serving the registry's ``serve_p99`` (512 rows), ``serve_bulk``
@@ -146,11 +158,12 @@ launch counts set to 0 just before it and read just after:
 * dryrun — ``python -m repro_torch.launch.dryrun`` in a subprocess for
   qwen3-8b ``train_4k`` on the (16, 16) mesh and moonshot-v1-16b-a3b
   ``train_4k`` on the (2, 16, 16) mesh (a fake world of 256 / 512 ranks on
-  ``meta`` tensors): each record ``ok``, no CUDA context in the subprocess,
-  and each LM train cell's memory a rank (the split step: gathered embed /
-  head and one layer, float32 gradient shards and one layer's transient,
-  remat's layer boundaries and one layer's recompute) under the card's
-  74.5 GiB.
+  ``meta`` tensors), and qwen3-8b ``decode_32k`` on the (16, 16) mesh (the
+  split decode on the rank's cache slice): each record ``ok``, no CUDA
+  context in the subprocess, and each LM cell's memory a rank (the split
+  steps: gathered embed / head and one layer; a train step's float32
+  gradient shards and one layer's transient, remat's layer boundaries and
+  one layer's recompute) under the card's 74.5 GiB.
 
 Every answer is compared with the host-only session's, and each kernel is held
 against its plain PyTorch version on the card at edge shapes and at the inputs
@@ -250,6 +263,9 @@ KERNEL_META = {
     "flash_decode": {
         "route": "cuda", "source": "src/repro_torch/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode/kernel.py:84"},
+    "flash_decode_partial": {
+        "route": "cuda", "source": "src/repro_torch/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode/kernel.py:84"},
     "embedding_bag": {
         "route": "cuda", "source": "src/repro_torch/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag/kernel.py:52"},
@@ -276,7 +292,12 @@ INTEGER_KERNELS = ("anchor_probe_sliced", "decode_rows", "probe_rows", "decode_w
 ATTENTION_F32_ABS = 1e-5
 ATTENTION_TOL = {name: {torch.float32: (0.0, ATTENTION_F32_ABS),
                         torch.bfloat16: (2.0 ** -7, ATTENTION_F32_ABS)}
-                 for name in ("flash_attention_tpu", "flash_decode")}
+                 for name in ("flash_attention_tpu", "flash_decode", "flash_decode_partial")}
+#: row 8's partial lse against its plain version: (relative, absolute).  lse
+#: = M + log L of the slice's live rows; M is the largest score, one float32
+#: dot product apart, L a float32 sum in another order, so they differ by a
+#: few 2^-24 of |lse| plus log's own rounding: far inside 1e-6 |lse| + 1e-5
+LSE_TOL = (1e-6, 1e-5)
 #: the fused layout's serving kernels (one launch of each a window), and the
 #: row-given route's, which the fused step must launch no time
 SERVE_KERNELS = ("decode_window", "probe_window")
@@ -2410,6 +2431,128 @@ def attention_at_path(seen: dict, reps: int, on_gpu: bool) -> list[dict]:
     return rows
 
 
+#: row 8's partial mode at the lm_serve path's last decode step of qwen3-8b
+#: (B, S, H, K, hd; bf16 q and cache), cut into these many slices
+PARTIAL_SHAPE = (LM_BATCH, LM_PROMPT + LM_NEW, 32, 8, 128)
+PARTIAL_SLICES = (2, 4, 16)
+
+
+def partial_positions(s: int, m: int) -> list[list[int]]:
+    """Positions of the slice edge cases for m slices of an S-row cache (four
+    rows each): the path's own (the last row), a row that sees slice 0
+    alone (the others have no live row), a slice's first and last row, and
+    a position past S."""
+    w = s // m
+    return [[s - 1] * 4, [0, w, 2 * w - 1, s + 100], [w - 1, s - w, s - 1, w // 2]]
+
+
+def decode_partial_cases(dev, seed: int) -> list[dict]:
+    """``flash_decode_partial`` against its plain version on every slice of a
+    cache cut into ``PARTIAL_SLICES`` (o within ``ATTENTION_TOL`` for
+    float32, lse within ``LSE_TOL``), and the slices' partials joined by
+    ``combine_stacked`` against the whole ``flash_decode_torch`` within
+    ``ATTENTION_TOL`` for bf16 (one rounding, at the end).  Each slice is a
+    view of the cache (the ``vec16`` route); the cases whose slices see no
+    row run again on copies one element off a 16-byte boundary (the
+    ``scalar`` route), so that an empty slice is taken on both."""
+    from repro_torch.kernels.flash_decode.ops import (flash_decode_partial,
+                                                      flash_decode_partial_torch,
+                                                      flash_decode_torch, flash_decode_route)
+    from repro_torch.models.flash import NEG_INF
+    from repro_torch.sharding.decode_split import combine_stacked
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, s, h, kh, hd = PARTIAL_SHAPE
+    q = torch.randn((b, 1, h, hd), generator=g, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn((b, s, kh, hd), generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    rows: list = []
+    for m in PARTIAL_SLICES:
+        w = s // m
+        cases = [(p, False) for p in partial_positions(s, m)]
+        cases.append((partial_positions(s, m)[1], True))
+        for pos_list, scalar in cases:
+            pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+            parts = []
+            for j in range(m):
+                kj, vj = kc[:, j * w:(j + 1) * w], vc[:, j * w:(j + 1) * w]
+                if scalar:
+                    kj, vj = misaligned(kj.contiguous()), misaligned(vj.contiguous())
+                o, lse = flash_decode_partial(q, kj, vj, pos, j * w)
+                po, plse = flash_decode_partial_torch(q, kj, vj, pos, j * w)
+                shape = {"B": b, "S": w, "H": h, "K": kh, "hd": hd, "slices": m, "slice": j,
+                         "positions": pos_list}
+                _attention_row(rows, "flash_decode_partial", shape, o, po,
+                               flash_decode_route(kj, vj))
+                diff = (lse - plse).abs()
+                used = float((diff / (LSE_TOL[0] * plse.abs() + LSE_TOL[1])).max())
+                same_empty = bool(torch.equal(lse <= NEG_INF, plse <= NEG_INF))
+                rows[-1].update(lse_max_abs_err=float(diff.max()), lse_limit_used=used,
+                                within_tolerance=rows[-1]["within_tolerance"] and used <= 1.0
+                                and same_empty)
+                parts.append((o, lse))
+            got, _ = combine_stacked(torch.stack([p[0] for p in parts]),
+                                     torch.stack([p[1] for p in parts]), q.dtype)
+            _attention_row(rows, "flash_decode_partial",
+                           {"B": b, "S": s, "H": h, "K": kh, "hd": hd, "combined": m,
+                            "positions": pos_list},
+                           got, flash_decode_torch(q, kc, vc, pos))
+    return rows
+
+
+def flash_decode_partial_timed(dev, seed: int, reps: int, on_gpu: bool) -> dict:
+    """``flash_decode_partial`` on the whole cache of ``PARTIAL_SHAPE`` (start
+    0, the path's last step: every row sees all S rows), timed beside the
+    whole call ``flash_decode`` at the same inputs, its plain version, and
+    ``scaled_dot_product_attention`` with the length mask (o alone: no
+    PyTorch call returns the lse beside it for GQA inputs, so
+    ``library_ms`` is null); the bound: the live k and v rows, q, o and lse
+    once each over the card's memory rate."""
+    from repro_torch.kernels.flash_decode.ops import (flash_decode, flash_decode_partial,
+                                                      flash_decode_partial_torch,
+                                                      flash_decode_route)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    b, s, h, kh, hd = PARTIAL_SHAPE
+    q = torch.randn((b, 1, h, hd), generator=g, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn((b, s, kh, hd), generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    o, lse = flash_decode_partial(q, kc, vc, pos, 0)
+    po, plse = flash_decode_partial_torch(q, kc, vc, pos, 0)
+    size = lambda x: x.numel() * x.element_size()  # noqa: E731
+    live = int((pos.long() + 1).clamp(0, s).sum())
+    b_ms, b_by = bound(2 * live * kh * hd * kc.element_size() + size(q) + size(o) + size(lse),
+                       4 * live * h * hd)
+    shape = {"B": b, "S": s, "H": h, "K": kh, "hd": hd, "positions": pos.tolist()}
+    row = {"kernel": "flash_decode_partial", "shape": shape,
+           "at": "mesh/split decode at lm_serve's last step, one rank's whole slice",
+           "route": flash_decode_route(kc, vc),
+           "max_abs_err": float((o - po).abs().max()),
+           "lse_max_abs_err": float((lse - plse).abs().max()),
+           "whole_call_max_abs_err": float((o.to(q.dtype).float()
+                                            - flash_decode(q, kc, vc, pos).float()).abs().max()),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "library": None, "sdpa_o_only": "scaled_dot_product_attention(attn_mask=length "
+                                          "mask, enable_gqa): o without lse"}
+    if on_gpu:
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
+        mask = (torch.arange(s, device=dev)[None, :] <= pos.long()[:, None])[:, None, None, :]
+        row.update(ms=time_ms(lambda: flash_decode_partial(q, kc, vc, pos, 0), reps),
+                   call_ms=time_ms(lambda: flash_decode_partial(q, kc, vc, pos, 0), reps,
+                                   preload=False),
+                   whole_call_ms=time_ms(lambda: flash_decode(q, kc, vc, pos), reps),
+                   plain_ms=time_ms(lambda: flash_decode_partial_torch(q, kc, vc, pos, 0),
+                                    reps),
+                   sdpa_o_only_ms=time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                                       enable_gqa=True), reps))
+    else:
+        row.update(ms=None, call_ms=None, whole_call_ms=None, plain_ms=None,
+                   sdpa_o_only_ms=None)
+    return row
+
+
 # ----------------------------------------------------------------------
 # model-side kernels: embedding_bag, cin_layer, moe_gemm
 # ----------------------------------------------------------------------
@@ -3014,7 +3157,7 @@ def _wrappers() -> dict:
         anchor_probe, anchor_probe_sliced, dense_probe_window)
     from repro_torch.kernels.dgap_decode.ops import dgap_decode
     from repro_torch.kernels.flash_attention.ops import flash_attention_tpu
-    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ops import flash_decode, flash_decode_partial
     from repro_torch.kernels.fused_decode.ops import (
         decode_rows, decode_window, probe_rows, probe_window)
     from repro_torch.kernels.minhash_sig.ops import minhash_rows
@@ -3027,6 +3170,7 @@ def _wrappers() -> dict:
             "minhash_rows": minhash_rows,
             "anchor_probe": anchor_probe, "dgap_decode": dgap_decode,
             "flash_attention_tpu": flash_attention_tpu, "flash_decode": flash_decode,
+            "flash_decode_partial": flash_decode_partial,
             "embedding_bag": embedding_bag, "cin_layer": cin_layer, "moe_gemm": moe_gemm}
 
 
@@ -3051,8 +3195,8 @@ def launch_counts() -> dict:
 
 
 #: the kernels whose wrappers pick a route before each launch
-ROUTED_KERNELS = ("dgap_decode", "flash_attention_tpu", "flash_decode", "moe_gemm",
-                  "embedding_bag", "minhash_rows", "anchor_probe")
+ROUTED_KERNELS = ("dgap_decode", "flash_attention_tpu", "flash_decode", "flash_decode_partial",
+                  "moe_gemm", "embedding_bag", "minhash_rows", "anchor_probe")
 
 
 def route_counts() -> dict:
@@ -5073,6 +5217,9 @@ MESH_PSUM_LEAVES = ("layers/wq", "final_norm")  # a large leaf and a 1-D leaf
 MESH_TOPK_FRAC = 0.01
 MESH_STATE = RECSYS_CONFIG  # the reshard / restore state: restores in seconds
 MESH_CKPT_DIR = ROOT / "build" / "mesh_ckpt"
+#: the split prefill and decode (at the train phase's depth, full width): rows,
+#: prompt tokens, greedy decode steps into a cache of the prompt plus those
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_NEW = 4, 2048, 8
 
 
 @contextlib.contextmanager
@@ -5301,6 +5448,125 @@ def mesh_train_lm(name: str, mesh, args, dev) -> tuple[dict, dict]:
             "setup_s": setup_s, "seconds": time.perf_counter() - t0}, keep
 
 
+def mesh_serve_lm(name: str, mesh, args, dev) -> dict:
+    """``lm_serve.make_sharded_prefill_step`` and ``make_sharded_decode_step``
+    for ``name`` at full width with the train phase's depth, against
+    ``steps.make_lm_prefill_step`` / ``make_lm_decode_step``'s kernel path
+    from the same weights: the prefill's logits and cache, then
+    ``MESH_SERVE_NEW`` greedy decode steps (the unsharded path's tokens fed
+    to both) into a cache of the prompt plus those rows, each step's logits
+    and the cache after them.  On the card, a world of one makes every
+    collective the identity and row 8's partial over the one slice is the
+    whole call's arithmetic, so all of it is bit-equal; a CPU rehearsal
+    (the plain versions: one softmax against the partial's, whose last
+    float32 bits may round a new bf16 cache row to its neighbour) is held
+    to 2^-7 of each result's norm.  Launch counts are read around the split
+    steps alone."""
+    from repro_torch.checkpoint.checkpointer import reshard
+    from repro_torch.configs import get_config
+    from repro_torch.models import steps
+    from repro_torch.sharding import lm_serve
+    from repro_torch.sharding.specs import input_specs_sharding_for, lm_param_specs
+
+    cfg = dataclasses.replace(get_config(name), n_layers=TRAIN_LM_LAYERS)
+    on_gpu = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_gpu else (lambda: None)
+    t0 = time.perf_counter()
+    params = steps.init_model_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    pspecs = lm_param_specs(cfg, mesh, False)
+    placed = reshard(params, mesh, pspecs)
+    b, t, new = MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_NEW
+    rng = np.random.default_rng(args.seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t)).astype(np.int32)).to(dev)
+    prefill = lm_serve.make_sharded_prefill_step(
+        cfg, mesh, pspecs, input_specs_sharding_for(cfg, "prefill_32k", mesh, False))
+    decode = lm_serve.make_sharded_decode_step(
+        cfg, mesh, pspecs, input_specs_sharding_for(cfg, "decode_32k", mesh, False))
+
+    def same(got, want) -> bool:
+        if on_gpu:
+            return bool(torch.equal(got, want))
+        d = float(torch.linalg.vector_norm((got.float() - want.float()).double()))
+        return d <= 2.0 ** -7 * float(torch.linalg.vector_norm(want.float().double()))
+
+    sync()
+    t1 = time.perf_counter()
+    want_logits, want_cache = steps.make_lm_prefill_step(cfg)(params, tokens)
+    sync()
+    unsharded_prefill_ms = (time.perf_counter() - t1) * 1e3
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    with counted_full_tensor() as full_calls:
+        got_logits, got_cache = prefill(placed, tokens)
+    sync()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    launches = {"prefill": launch_counts()}
+    bad = [what for what, ok in (("prefill logits", same(got_logits, want_logits)),
+                                 ("prefill cache", same(got_cache, want_cache))) if not ok]
+    whole = torch.zeros(got_cache.shape[:3] + (t + new,) + got_cache.shape[4:],
+                        dtype=want_cache.dtype, device=dev)
+    whole[:, :, :, :t] = want_cache
+    mine = whole.clone()
+    mine[:, :, :, :t] = got_cache
+    del want_cache, got_cache
+    _free(dev)
+    unsharded = steps.make_lm_decode_step(cfg)
+    tok = want_logits.argmax(-1)[:, None].to(torch.int32)
+    decode_launches = dict.fromkeys(launches["prefill"], 0)
+    decode_ms, unsharded_ms = [], []
+    for i in range(new):
+        pos = torch.full((b,), t + i, dtype=torch.int32, device=dev)
+        sync()
+        t1 = time.perf_counter()
+        want, _ = unsharded(params, tok, pos, whole)
+        sync()
+        unsharded_ms.append((time.perf_counter() - t1) * 1e3)
+        before = launch_counts()
+        t1 = time.perf_counter()
+        with counted_full_tensor() as step_full:
+            got, _ = decode(placed, tok, pos, mine)
+        sync()
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+        for k, n in launch_counts().items():
+            decode_launches[k] += n - before[k]
+        full_calls["n"] += step_full["n"]
+        if not same(got, want):
+            bad.append(f"decode step {i} logits")
+        tok = want.argmax(-1)[:, None].to(torch.int32)
+    if not same(mine, whole):
+        bad.append("decode cache")
+    launches["decode"] = decode_launches
+    routes = route_counts()["flash_decode_partial"]
+    del params, placed, whole, mine
+    _free(dev)
+    require(not bad, f"mesh serve {name}: the split steps differ from the unsharded kernel "
+            f"path in {bad}")
+    require(full_calls["n"] == 0, f"mesh serve {name}: full_tensor called {full_calls['n']} "
+            f"times")
+    if on_gpu:
+        want_pre = {k: 0 for k in launches["prefill"]}
+        want_pre.update(flash_attention_tpu=cfg.n_layers,
+                        moe_gemm=3 * cfg.n_layers if cfg.moe else 0)
+        want_dec = {k: 0 for k in decode_launches}
+        want_dec.update(flash_decode_partial=cfg.n_layers * new,
+                        moe_gemm=3 * cfg.n_layers * new if cfg.moe else 0)
+        require(launches["prefill"] == want_pre and decode_launches == want_dec,
+                f"mesh serve {name}: launches {launches}, expected prefill {want_pre}, "
+                f"decode {want_dec}")
+    return {"model": name, "layers": cfg.n_layers, "dtype": cfg.dtype, "batch": b,
+            "prompt": t, "decode_steps": new, "cache_rows": t + new,
+            "bit_equal" if on_gpu else "within_2^-7": {"prefill_logits": True,
+                                                       "prefill_cache": True,
+                                                       "decode_logits": True,
+                                                       "decode_cache": True},
+            "full_tensor_calls": full_calls["n"],
+            "launches": {k: {n: c for n, c in v.items() if c} for k, v in launches.items()},
+            "flash_decode_partial_by_route": routes,
+            "split_prefill_wall_ms": prefill_ms, "unsharded_prefill_wall_ms": unsharded_prefill_ms,
+            "split_decode_step_wall_ms": decode_ms, "unsharded_decode_step_wall_ms": unsharded_ms,
+            "seconds": time.perf_counter() - t0}
+
+
 def mesh_compression(mesh, grads: dict, reps: int) -> dict:
     """``psum_int8`` and ``psum_topk`` over the data axis on the sharded
     step's float32 gradients: bit-equal to the port's formula on the same
@@ -5386,7 +5652,8 @@ def mesh_checkpoint(mesh, args, dev) -> dict:
 def mesh_phase(args, dev, built: dict, cut: dict | None) -> dict:
     """The mesh tier on the card over NCCL with a world of one (see the
     module docstring): the partitioned server, the sharded LM / MoE train
-    steps, the compressed all-reduce, reshard and restore."""
+    steps, the split prefill and decode, the compressed all-reduce, reshard
+    and restore."""
     t0 = time.perf_counter()
     if cut is None:
         cut = mesh_cut(built, args, dev.type)
@@ -5407,6 +5674,8 @@ def mesh_phase(args, dev, built: dict, cut: dict | None) -> dict:
             lms.append(r)
             psum_grads = psum_grads or keep
         t3 = time.perf_counter()
+        serving = [mesh_serve_lm(name, mesh, args, dev) for name in MESH_LMS]
+        t4 = time.perf_counter()
         compression = mesh_compression(mesh, psum_grads, args.reps)
         del psum_grads
         _free(dev)
@@ -5414,14 +5683,18 @@ def mesh_phase(args, dev, built: dict, cut: dict | None) -> dict:
         mesh_desc = {"shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names),
                      "device_type": mesh.device_type}
     _free(dev)
+    served = lambda k: sum(r["launches"][p].get(k, 0) for r in serving  # noqa: E731
+                           for p in ("prefill", "decode"))
     launches = {"dense_probe_window": part["launches"]["dense_probe_window"],
-                "flash_attention_tpu": sum(r["launches"]["flash_attention_tpu"] for r in lms),
-                "moe_gemm": sum(r["launches"]["moe_gemm"] for r in lms)}
+                "flash_attention_tpu": sum(r["launches"]["flash_attention_tpu"] for r in lms)
+                + served("flash_attention_tpu"),
+                "moe_gemm": sum(r["launches"]["moe_gemm"] for r in lms) + served("moe_gemm"),
+                "flash_decode_partial": served("flash_decode_partial")}
     return {"backend": backend, "world_size": 1, "mesh": mesh_desc,
-            "partitioned": part, "train": lms, "compression": compression,
+            "partitioned": part, "train": lms, "serve": serving, "compression": compression,
             "checkpoint": ckpt, "launches": launches,
             "queries_s": t1 - t0, "partitioned_s": t2 - t1, "train_s": t3 - t2,
-            "phase_s": time.perf_counter() - t1}
+            "serve_s": t4 - t3, "phase_s": time.perf_counter() - t1}
 
 
 DRIVERS_DIR = ROOT / "build" / "drivers"
@@ -5518,7 +5791,8 @@ def drivers_phase(dev) -> dict:
     return out
 
 
-DRYRUN_CELLS = (("qwen3-8b", "train_4k", False), ("moonshot-v1-16b-a3b", "train_4k", True))
+DRYRUN_CELLS = (("qwen3-8b", "train_4k", False), ("moonshot-v1-16b-a3b", "train_4k", True),
+                ("qwen3-8b", "decode_32k", False))
 DRYRUN_SCRIPT = """
 import json, runpy, sys
 import torch
@@ -5789,8 +6063,10 @@ def main() -> int:
     lm, seen = lm_serve_path(args, dev, LM_CONFIG, args.lm_layers)
     emit("lm_serve", card=card, **lm)
     routes_before = route_counts()
-    attn_edges = attention_edge_cases(dev, args.seed) + attention_at_path_f32(seen)
+    attn_edges = (attention_edge_cases(dev, args.seed) + attention_at_path_f32(seen)
+                  + decode_partial_cases(dev, args.seed))
     attn_path = attention_at_path(seen, args.reps, True)
+    partial_timed = flash_decode_partial_timed(dev, args.seed, args.reps, True)
     del seen
     torch.cuda.empty_cache()
     bad = [r for r in attn_edges + attn_path if not r["within_tolerance"]]
@@ -5804,7 +6080,15 @@ def main() -> int:
          by_route=by_route(attn_edges + attn_path, ("limit_used", "limit_used_vs_split",
                                                     "split_limit_used", "two_term_split_limit_used",
                                                     "design_limit_used")),
-         widened_path=attn_edges[-3:], at_path=attn_path,
+         widened_path=[r for r in attn_edges if r["kernel"] != "flash_decode_partial"][-3:],
+         at_path=attn_path,
+         flash_decode_partial={
+             "cases": sum(r["kernel"] == "flash_decode_partial" for r in attn_edges),
+             "slices": PARTIAL_SLICES, "lse_tolerance": {"rel": LSE_TOL[0], "abs": LSE_TOL[1]},
+             "lse_limit_used": max(r.get("lse_limit_used", 0.0) for r in attn_edges),
+             "combined_limit_used": max(r["limit_used"] for r in attn_edges
+                                        if "combined" in r["shape"]),
+             "timed": partial_timed},
          flash_decode={"launches_by_route": route_diff(route_counts(),
                                                        routes_before)["flash_decode"],
                        "kernels_per_call": attn_path[-1]["kernels_per_call"],
@@ -5930,6 +6214,20 @@ def main() -> int:
         if name in ROUTED_KERNELS:
             kernels[-1].update(kernel_route=r["route"], launches_by_route={
                 phase: by[name] for phase, by in lm["launches_by_route"].items()})
+    # row 8's partial mode: launched by the mesh phase's split decode
+    kernels.append({"name": "flash_decode_partial", **KERNEL_META["flash_decode_partial"],
+                    "launches": mesh["launches"]["flash_decode_partial"],
+                    "launches_on": "mesh (the split decode steps)",
+                    "max_abs_err": max(x["max_abs_err"] for x in attn_edges + [partial_timed]
+                                       if x["kernel"] == "flash_decode_partial"),
+                    "tolerance": _tolerance("flash_decode_partial"),
+                    **{k: partial_timed[k] for k in timing_keys if k in partial_timed},
+                    "call_ms": partial_timed["call_ms"], "shape": partial_timed["shape"],
+                    "whole_call_ms": partial_timed["whole_call_ms"],
+                    "sdpa_o_only_ms": partial_timed["sdpa_o_only_ms"],
+                    "at": partial_timed["at"], "kernel_route": partial_timed["route"],
+                    "launches_by_route": {r["model"]: r["flash_decode_partial_by_route"]
+                                          for r in mesh["serve"]}})
     for name, at in (("embedding_bag", "recsys_serve/serve_bulk/x0 lookup"),
                      ("cin_layer", "recsys_serve/serve_bulk/CIN layer 2"),
                      ("moe_gemm", "moe_serve/prefill, layer 0, w_gate")):

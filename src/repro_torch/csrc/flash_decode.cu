@@ -14,6 +14,15 @@
 //   scores set to it and their p to 0; out (B, 1, H, hd) in q's dtype =
 //   acc / max(l, 1e-30), rounded to nearest even when bf16.
 //
+// The partial mode (`flash_decode_partial_launch`) takes one rank's slice
+// [start, start + S) of a cache split over T: row b sees the slice's rows s
+// with start + s <= positions[b] (a position below start sees none), and the
+// combine pass writes out in f32 (never rounded to q's dtype: the cross-rank
+// combine rounds once, at the end) and lse (B, H) f32 = M + log L of the
+// slice's live rows, kNegInf (and out 0) where the slice has none.  The same
+// two launches; the whole call is the partial mode at start 0 with out in
+// q's dtype and no lse.
+//
 // The Pallas kernel walks (batch*kv_head, cache block) in grid order with
 // (m, l, acc) in VMEM across the cache axis.  A card runs its blocks in
 // parallel and carries nothing from one to the next, so here the cache axis
@@ -93,6 +102,7 @@ struct FdArgs {
   int sets, per_set;  // head sets (1, 2 or 4) and heads a set (at most 4)
   int vec16;
   float scale;
+  long long start;          // the slice's first row in the whole cache (0: the whole)
   long long qsb, qsh;       // element strides of q over batch, head
   long long ksb, kss, ksh;  // of the k cache over batch, row, head
   long long vsb, vss, vsh;
@@ -193,8 +203,10 @@ __global__ void __launch_bounds__(kFdThreads, GW == 1 ? 4 : 3) flash_decode_spli
       qr[g][e] = live ? to_f32(qg[(g0 + g) * a.qsh + col + e]) * a.scale : 0.f;
     }
   }
-  const int pos = a.positions[b];
-  const int end = pos >= a.s ? a.s : pos + 1;  // live cache rows: s < end
+  // live cache rows of the slice: s < end (none where the position lies
+  // before the slice)
+  const long long pos = static_cast<long long>(a.positions[b]) - a.start;
+  const int end = pos >= a.s ? a.s : pos < 0 ? 0 : static_cast<int>(pos + 1);
   const int start = z * a.chunk;
   const int stop = min(start + a.chunk, end);
   const long long pbase = (static_cast<long long>(row) * a.n_splits + z) * a.g;
@@ -408,10 +420,12 @@ constexpr int kCombineThreads = 128;  // at least the largest head dim
 constexpr int kCombineBatch = 16;
 constexpr int kMaxSplits = 4096;  // shared memory of the combine: 2 floats a split
 
+// lse (partial mode, else null): M + log L of each (batch, query head), kNegInf
+// where no row was live
 template <typename OutT>
 __global__ void __launch_bounds__(kCombineThreads) flash_decode_combine_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml, OutT* __restrict__ out,
-    int g, int n_splits, int hd) {
+    float* __restrict__ lse, int g, int n_splits, int hd) {
   extern __shared__ float cs[];  // [n_splits] m_z, then e^(m_z - M); [n_splits] l_z
   float* wz = cs;
   float* lz = cs + n_splits;
@@ -447,6 +461,7 @@ __global__ void __launch_bounds__(kCombineThreads) flash_decode_combine_kernel(
 #pragma unroll 8
   for (int z = kCombineBatch; z < n_splits; ++z) asum = fmaf(wz[z], src[z * zstride], asum);
   if (live) out[bh * hd + d] = from_f32<OutT>(asum / fmaxf(lsum, 1e-30f));
+  if (lse != nullptr && d == 0) lse[bh] = lsum > 0.f ? mx + logf(lsum) : kNegInf;
 }
 
 template <typename QElem, typename KVElem, int HD, int GW>
@@ -479,7 +494,8 @@ int launch_hd(const FdArgs& a, int hd, int rows, cudaStream_t stream) {
 // launched as a programmatic dependent of the split pass: its blocks are
 // resident as the split pass drains, so no launch gap sits between the two
 template <typename OutT>
-int launch_combine(const FdArgs& a, void* out, int b, int h, int hd, cudaStream_t stream) {
+int launch_combine(const FdArgs& a, void* out, float* lse, int b, int h, int hd,
+                   cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned int>(b) * static_cast<unsigned int>(h));
   cfg.blockDim = dim3(kCombineThreads);
@@ -493,7 +509,8 @@ int launch_combine(const FdArgs& a, void* out, int b, int h, int hd, cudaStream_
   return static_cast<int>(cudaLaunchKernelEx(&cfg, flash_decode_combine_kernel<OutT>,
                                              static_cast<const float*>(a.part_acc),
                                              static_cast<const float*>(a.part_ml),
-                                             static_cast<OutT*>(out), a.g, a.n_splits, hd));
+                                             static_cast<OutT*>(out), lse, a.g, a.n_splits,
+                                             hd));
 }
 
 bool aligned16(const void* p, long long sb, long long ss, long long sh, int elem) {
@@ -502,24 +519,19 @@ bool aligned16(const void* p, long long sb, long long ss, long long sh, int elem
          sh % unit == 0;
 }
 
-}  // namespace
-
-// (q, k, v, positions, part, out, B, S, H, K, hd, q dtype, kv dtype, scale,
-//  chunk, n_splits, route, q strides b/h, k strides b/s/k, v strides b/s/k,
-//  stream); part holds B*K*n_splits*G*(hd + 2) floats; route 1 (vec16) needs
-// 16-byte aligned caches and strides, 0 (scalar) takes any
-extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
-                                   const int* positions, float* part, void* out, int b, int s,
-                                   int h, int kh, int hd, int q_dtype, int kv_dtype, float scale,
-                                   int chunk, int n_splits, int route, long long qsb,
-                                   long long qsh, long long ksb, long long kss, long long ksh,
-                                   long long vsb, long long vss, long long vsh,
-                                   cudaStream_t stream) {
+// both modes: out in q's dtype and lse null (the whole cache, start 0), or
+// out in f32 and lse written (a slice starting at `start`)
+int launch_decode(const void* q, const void* k, const void* v, const int* positions,
+                  long long start, float* part, void* out, float* lse, int b, int s, int h,
+                  int kh, int hd, int q_dtype, int kv_dtype, float scale, int chunk,
+                  int n_splits, int route, long long qsb, long long qsh, long long ksb,
+                  long long kss, long long ksh, long long vsb, long long vss, long long vsh,
+                  cudaStream_t stream) {
   if (b <= 0 || h <= 0) return 0;
   if (s <= 0 || kh <= 0 || h % kh != 0 || h / kh > kMaxGroup || chunk <= 0 || n_splits <= 0 ||
       static_cast<long long>(chunk) * n_splits < s ||
       static_cast<long long>(chunk) * (n_splits - 1) >= s || n_splits > kMaxSplits ||
-      (route != 0 && route != 1)) {
+      (route != 0 && route != 1) || start < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool q16 = q_dtype == kBF16;
@@ -539,7 +551,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
   const int rows = b * kh;
   const long long n_part = static_cast<long long>(rows) * n_splits * g;
   const FdArgs a{q, k, v, positions, part, part + n_part * hd, s, kh, g, chunk, n_splits,
-                 sets, per_set, route, scale, qsb, qsh, ksb, kss, ksh, vsb, vss, vsh};
+                 sets, per_set, route, scale, start, qsb, qsh, ksb, kss, ksh, vsb, vss, vsh};
   int err;
   if (q16) {
     err = kv16 ? launch_hd<__nv_bfloat16, __nv_bfloat16>(a, hd, rows, stream)
@@ -549,6 +561,40 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                : launch_hd<float, float>(a, hd, rows, stream);
   }
   if (err != 0) return err;
-  return q16 ? launch_combine<__nv_bfloat16>(a, out, b, h, hd, stream)
-             : launch_combine<float>(a, out, b, h, hd, stream);
+  if (lse != nullptr || !q16) return launch_combine<float>(a, out, lse, b, h, hd, stream);
+  return launch_combine<__nv_bfloat16>(a, out, nullptr, b, h, hd, stream);
+}
+
+}  // namespace
+
+// (q, k, v, positions, part, out, B, S, H, K, hd, q dtype, kv dtype, scale,
+//  chunk, n_splits, route, q strides b/h, k strides b/s/k, v strides b/s/k,
+//  stream); part holds B*K*n_splits*G*(hd + 2) floats; route 1 (vec16) needs
+// 16-byte aligned caches and strides, 0 (scalar) takes any
+extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
+                                   const int* positions, float* part, void* out, int b, int s,
+                                   int h, int kh, int hd, int q_dtype, int kv_dtype, float scale,
+                                   int chunk, int n_splits, int route, long long qsb,
+                                   long long qsh, long long ksb, long long kss, long long ksh,
+                                   long long vsb, long long vss, long long vsh,
+                                   cudaStream_t stream) {
+  return launch_decode(q, k, v, positions, 0, part, out, nullptr, b, s, h, kh, hd, q_dtype,
+                       kv_dtype, scale, chunk, n_splits, route, qsb, qsh, ksb, kss, ksh, vsb,
+                       vss, vsh, stream);
+}
+
+// the partial mode: (q, k, v, positions, start, part, out (f32), lse (f32),
+// then as flash_decode_launch from B on); S is the slice's row count
+extern "C" int flash_decode_partial_launch(const void* q, const void* k, const void* v,
+                                           const int* positions, long long start, float* part,
+                                           float* out, float* lse, int b, int s, int h, int kh,
+                                           int hd, int q_dtype, int kv_dtype, float scale,
+                                           int chunk, int n_splits, int route, long long qsb,
+                                           long long qsh, long long ksb, long long kss,
+                                           long long ksh, long long vsb, long long vss,
+                                           long long vsh, cudaStream_t stream) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_decode(q, k, v, positions, start, part, out, lse, b, s, h, kh, hd, q_dtype,
+                       kv_dtype, scale, chunk, n_splits, route, qsb, qsh, ksb, kss, ksh, vsb,
+                       vss, vsh, stream);
 }

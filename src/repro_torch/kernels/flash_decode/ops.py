@@ -17,6 +17,16 @@ the float32 result ``acc / max(l, 1e-30)`` is rounded to q's dtype.
 ``flash_decode_split_torch`` repeats the split and combine arithmetic in
 plain PyTorch; tests and ``chip_smoke.py`` hold it against the reference,
 the model never calls it.
+
+``flash_decode_partial`` is the same two launches on one rank's slice
+``[start, start + S)`` of a cache split over T (the decode on a mesh,
+``repro_torch.sharding.decode_split``): row ``b`` sees the slice's rows
+``s`` with ``start + s <= positions[b]``, and the call returns the slice's
+partial ``(o, lse)`` in float32 — ``o`` normalised over the slice's live
+rows, ``lse`` the natural log of the sum of their ``e^score`` (scores
+scaled by ``1/sqrt(hd)``), ``NEG_INF`` with ``o = 0`` where the slice has
+none — so that the ranks' partials combine with one rounding at the end.
+``flash_decode_partial_torch`` is its plain version.
 """
 
 from __future__ import annotations
@@ -80,6 +90,35 @@ def flash_decode_torch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
     l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float()) / l
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def _partial_live(positions: torch.Tensor, s: int, start: int) -> torch.Tensor:
+    """(B, S) bool: row ``s`` of the slice starting at ``start`` is seen by
+    row ``b`` (``start + s <= positions[b]``)."""
+    return ((torch.arange(s, device=positions.device) + start)[None, :]
+            <= positions.long()[:, None])
+
+
+def flash_decode_partial_torch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                               positions: torch.Tensor, start: int):
+    """Plain PyTorch version of :func:`flash_decode_partial`: one softmax over
+    the slice's (B, K, G, S) scores in float32; ``(o (B, 1, H, hd), lse (B,
+    H))``, both float32."""
+    _check_shapes(q, k_cache, v_cache, positions)
+    if start < 0:
+        raise ValueError(f"a slice cannot start at {start} < 0")
+    b, _, h, hd = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    qg = q[:, 0].float().reshape(b, kh, h // kh, hd) * (1.0 / math.sqrt(hd))
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    live = _partial_live(positions, s, start)[:, None, None, :]
+    scores = scores.masked_fill(~live, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m).masked_fill(~live, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float()) / l.clamp(min=1e-30)
+    lse = torch.where(l > 0, m + torch.log(l.clamp(min=1e-30)), torch.full_like(l, NEG_INF))
+    return o.reshape(b, 1, h, hd), lse.reshape(b, h)
 
 
 def flash_decode_split_torch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -149,6 +188,29 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _launch_checks(q, k_cache, v_cache, positions) -> tuple[int, int]:
+    """The kernel's refusals (dtypes, devices, shapes, head dims, group);
+    ``(q dtype code, cache dtype code)``."""
+    q_dtype = cuda_build.require_float("q", q, 4)
+    kv_dtype = cuda_build.require_float("k_cache", k_cache, 4)
+    if cuda_build.require_float("v_cache", v_cache, 4) != kv_dtype:
+        raise TypeError(f"v_cache is {v_cache.dtype}, k_cache {k_cache.dtype}: the kernel "
+                        f"takes one cache dtype")
+    cuda_build.require_int32("positions", positions)
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache), ("positions", positions)):
+        if t.device != q.device:
+            raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
+    _check_shapes(q, k_cache, v_cache, positions)
+    h, hd, kh = q.shape[2], q.shape[3], k_cache.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd}: the kernel is built for {HEAD_DIMS}")
+    if h // kh > MAX_GROUP:
+        raise ValueError(f"{h // kh} query heads per KV head; the kernel holds at most "
+                         f"{MAX_GROUP}")
+    cuda_build.require_cuda("q", q)
+    return q_dtype, kv_dtype
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     """q (B, 1, H, hd); caches (B, S, K, hd); positions (B,) int32, the
@@ -163,24 +225,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     """
     if q.device.type == "cpu":
         return flash_decode_torch(q, k_cache, v_cache, positions)
-    q_dtype = cuda_build.require_float("q", q, 4)
-    kv_dtype = cuda_build.require_float("k_cache", k_cache, 4)
-    if cuda_build.require_float("v_cache", v_cache, 4) != kv_dtype:
-        raise TypeError(f"v_cache is {v_cache.dtype}, k_cache {k_cache.dtype}: the kernel "
-                        f"takes one cache dtype")
-    cuda_build.require_int32("positions", positions)
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache), ("positions", positions)):
-        if t.device != q.device:
-            raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
-    _check_shapes(q, k_cache, v_cache, positions)
+    q_dtype, kv_dtype = _launch_checks(q, k_cache, v_cache, positions)
     b, _, h, hd = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd}: the kernel is built for {HEAD_DIMS}")
-    if h // kh > MAX_GROUP:
-        raise ValueError(f"{h // kh} query heads per KV head; the kernel holds at most "
-                         f"{MAX_GROUP}")
-    cuda_build.require_cuda("q", q)
     out = torch.empty((b, 1, h, hd), dtype=q.dtype, device=q.device)
     if b == 0 or h == 0:
         return out
@@ -202,6 +249,45 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     return out
 
 
+def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         positions: torch.Tensor, start: int):
+    """One rank's partial of :func:`flash_decode` over its slice ``[start,
+    start + S)`` of a cache split over T: caches (B, S, K, hd) the slice,
+    positions (B,) int32 in the whole cache (row ``b`` sees the slice's rows
+    ``s`` with ``start + s <= positions[b]``; a position before ``start``
+    sees none).  Returns ``(o (B, 1, H, hd), lse (B, H))``, both float32 (see
+    the module docstring); q, caches, routes and plan as :func:`flash_decode`
+    takes them.  ``sharding.decode_split.combine_partials`` joins the ranks'
+    partials."""
+    if q.device.type == "cpu":
+        return flash_decode_partial_torch(q, k_cache, v_cache, positions, start)
+    q_dtype, kv_dtype = _launch_checks(q, k_cache, v_cache, positions)
+    if start < 0:
+        raise ValueError(f"a slice cannot start at {start} < 0")
+    b, _, h, hd = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty((b, 1, h, hd), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    if b == 0 or h == 0:
+        return out, lse
+    chunk, n_splits = flash_decode_plan(b, kh, s, _sm_count(q.device))
+    part = torch.empty(b * h * n_splits * (hd + 2), dtype=torch.float32, device=q.device)
+    route = flash_decode_route(k_cache, v_cache)
+    lib = cuda_build.load()
+    with torch.cuda.device(q.device):
+        code = lib.flash_decode_partial_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), positions.data_ptr(),
+            int(start), part.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s, h, kh, hd,
+            q_dtype, kv_dtype, 1.0 / math.sqrt(hd), chunk, n_splits, ROUTE_CODES[route],
+            q.stride(0), q.stride(2), k_cache.stride(0), k_cache.stride(1),
+            k_cache.stride(2), v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+            cuda_build.stream_ptr())
+    cuda_build.check(code, f"flash_decode_partial ({route})")
+    flash_decode_partial.launches += 1
+    flash_decode_partial.launches_by_route[route] += 1
+    return out, lse
+
+
 #: wrapper calls that launched the kernels (each call is two launches: the
 #: split and the combine pass), in all and by load route; never raised by the
 #: plain version
@@ -209,3 +295,7 @@ flash_decode.launches = 0
 flash_decode.launches_by_route = dict.fromkeys(ROUTE_CODES, 0)
 #: kernel launches one call makes (split pass, combine pass)
 KERNELS_PER_CALL = 2
+#: the partial mode's calls that launched the kernels (two launches each, as
+#: ``flash_decode``'s), in all and by load route
+flash_decode_partial.launches = 0
+flash_decode_partial.launches_by_route = dict.fromkeys(ROUTE_CODES, 0)

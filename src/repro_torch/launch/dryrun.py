@@ -21,10 +21,18 @@ tensors placed as DTensors by the reference's partition specs
 * the other train cells: the same factory's gathered step (gather the
   weights, slice the batch, loss and gradients, the float32 gradient
   all-reduce, the update of the rank's shards);
-* prefill / decode / serve cells: the port's serving step on whole
-  gathered weights and the rank's rows of the inputs (every other sharded
-  dimension of an input gathered): serving stays data-parallel over
-  gathered weights.
+* LM prefill / decode cells: :mod:`repro_torch.sharding.lm_serve`'s split
+  steps (the train step's plan, without autograd): the prefill on the
+  rank's rows and T / m tokens, its heads, FFN columns and experts, the
+  weights gathered per layer, its cache written in the decode spec's layout
+  (one all-to-all a layer); the decode on the rank's slice of the cache
+  (``decode_32k``: its rows and T / m rows; ``long_500k``: its T slice of
+  the one row), which is never gathered, every head's partial attention
+  joined over the axes that split T;
+* the other serve cells: the port's serving step on whole gathered weights
+  and the rank's rows of the inputs (every other sharded dimension of an
+  input gathered): recsys serving stays data-parallel over gathered
+  weights.
 
 Every model op runs the plain PyTorch route, named in the call
 (``attention="torch"`` for the LMs and their MoE products; the recsys
@@ -46,9 +54,12 @@ What a record holds, against the reference's:
 * ``memory``: the port's own model of a rank's bytes, in parts:
   ``state_bytes`` (its shards of the parameters and the optimiser state),
   ``input_bytes`` (the batch, or its shards of the serving inputs),
-  ``gathered_weight_bytes`` (the weights gathered whole; for the LM train
-  step the largest set gathered at once: the embedding and head and one
-  layer's gathered weights, :func:`lm_train_parts`), ``grad_bytes`` (a
+  ``gathered_weight_bytes`` (the weights gathered whole; for the LM split
+  steps the largest set gathered at once: the embedding and head and one
+  layer's gathered weights, :func:`lm_train_parts`), ``output_bytes``
+  (what the step returns beside its inputs: the LM prefill's logits and
+  cache, a decode's logits; 0 for a train step, which updates its state in
+  place), ``grad_bytes`` (a
   train step's float32 gradient: whole for the gathered step, the rank's
   shards plus one layer's float32 transient for the LM step),
   ``saved_activation_bytes`` (what autograd saves for the backward,
@@ -94,7 +105,7 @@ from ..kernels.cin_interaction.ops import cin_layer_torch
 from ..kernels.embedding_bag.ops import embedding_bag_torch
 from ..models import recsys
 from ..models import steps as steps_mod
-from ..sharding import spmd, tp
+from ..sharding import lm_serve, spmd, tp
 from ..sharding.compat import NamedSharding, P, place
 from ..sharding.specs import best_div_axes, input_specs_sharding_for, param_specs_for
 from ..train.optimizer import OptConfig, param_tree
@@ -297,6 +308,11 @@ class Cell:
     #: (outside the layers): ``saved(outside) -> bytes``, the layer
     #: boundaries that remat keeps and one layer's recompute added
     saved: object = None
+    #: the bytes of the step's outputs that are not its inputs:
+    #: ``outputs(result) -> bytes`` (None: none), counted into
+    #: ``output_bytes`` by :func:`count_cell`
+    outputs: object = None
+    output_bytes: int = 0
 
 
 def _named(mesh, spec_tree):
@@ -352,17 +368,6 @@ def _moe_groups(cfg, shape_name: str, mesh, multi_pod: bool):
     return dataclasses.replace(cfg, moe_groups=groups)
 
 
-def _rank_groups(cfg, mesh, rows_spec: P):
-    """A serving rank's MoE config: the whole groups of its rows (the
-    sharded train step divides ``moe_groups`` the same way)."""
-    axes = rows_spec[0] if len(rows_spec) else None
-    axes = () if axes is None else ((axes,) if isinstance(axes, str) else tuple(axes))
-    n = _mesh_size(mesh, axes)
-    if cfg.moe_groups % n:
-        raise ValueError(f"moe_groups={cfg.moe_groups} over {n} row slices")
-    return dataclasses.replace(cfg, moe_groups=cfg.moe_groups // n)
-
-
 def build_cell(arch: str, shape_name: str, mesh, multi_pod: bool, cfg=None) -> Cell:
     """Rank 0's step of ``arch`` x ``shape_name`` on ``mesh``; ``cfg``
     replaces the registry's config of ``arch`` (a reduced one, say)."""
@@ -379,6 +384,8 @@ def build_cell(arch: str, shape_name: str, mesh, multi_pod: bool, cfg=None) -> C
 
     if kind == "train" and isinstance(cfg, LMConfig):
         return _lm_train_cell(cfg, shape_name, mesh, multi_pod, in_specs, inputs)
+    if isinstance(cfg, LMConfig):
+        return _lm_serve_cell(cfg, shape_name, mesh, multi_pod, in_specs, inputs)
     if kind == "train" or isinstance(cfg, GNNConfig):
         opt_cfg = opt_config_for(cfg)
         state = spmd.meta_state(cfg, opt_cfg, shape_name)
@@ -405,32 +412,15 @@ def build_cell(arch: str, shape_name: str, mesh, multi_pod: bool, cfg=None) -> C
     pspecs = param_specs_for(cfg, params, mesh, multi_pod)
     placed = place(params, _named(mesh, pspecs))
     placed_in = {k: _place_leaf(v, mesh, in_specs[k]) for k, v in inputs.items()}
-    row_dim = {k: (2 if k == "kv_cache" else 0) for k in inputs}
     work_params, gather = _gathered_model(cfg, shape_name, placed)
+    retrieval = kind == "retrieval"
+    serve = steps_mod.make_recsys_serve_step(
+        cfg, retrieval=retrieval, serve_dtype=torch.bfloat16 if retrieval else None)
 
-    def operands():
-        return {k: _rank_rows(v, row_dim[k]) for k, v in placed_in.items()}
+    def run():
+        with plain_recsys_route():
+            return serve(gather(), **{k: _rank_rows(v, 0) for k, v in placed_in.items()})
 
-    if isinstance(cfg, LMConfig):
-        if cfg.moe is not None:
-            cfg = _rank_groups(cfg, mesh, in_specs["tokens"])
-        if kind == "prefill":
-            fn = steps_mod.make_lm_prefill_step(cfg, attention=attention)
-            run = lambda: fn(gather(), operands()["tokens"])  # noqa: E731
-        else:
-            fn = steps_mod.make_lm_decode_step(cfg, attention=attention)
-
-            def run():
-                ops = operands()
-                return fn(gather(), ops["tokens"], ops["positions"], ops["kv_cache"])
-    else:
-        retrieval = kind == "retrieval"
-        serve = steps_mod.make_recsys_serve_step(
-            cfg, retrieval=retrieval, serve_dtype=torch.bfloat16 if retrieval else None)
-
-        def run():
-            with plain_recsys_route():
-                return serve(gather(), **operands())
     return Cell(run=run, work_params=work_params, state_bytes=_local_bytes(placed),
                 input_bytes=_local_bytes(placed_in), grad_bytes=0, notes=notes)
 
@@ -465,6 +455,41 @@ def _lm_train_cell(cfg, shape_name: str, mesh, multi_pod: bool, in_specs: dict,
                 input_bytes=_nbytes(inputs), grad_bytes=parts["grad_bytes"], notes=notes,
                 gathered_bytes=parts["gathered_weight_bytes"], split=step.split,
                 saved=saved if cfg.remat != "none" else None)
+
+
+def _lm_serve_cell(cfg, shape_name: str, mesh, multi_pod: bool, in_specs: dict,
+                   inputs: dict) -> Cell:
+    """An LM's split prefill or decode (``sharding.lm_serve``): the whole
+    tokens (and positions) as every rank gets them, the decode's cache as
+    the rank's slice; the gathered weights from the plan."""
+    params = steps_mod.init_model_params(cfg, None, "meta", shape_name)
+    pspecs = param_specs_for(cfg, params, mesh, multi_pod)
+    placed = place(params, _named(mesh, pspecs))
+    placed_in = {k: _place_leaf(v, mesh, in_specs[k]) for k, v in inputs.items()}
+    kw = dict(attention="torch", device="meta")
+    if cfg.shapes[shape_name].kind == "prefill":
+        step = lm_serve.make_sharded_prefill_step(cfg, mesh, pspecs, in_specs, **kw)
+        run = lambda: step(placed, inputs["tokens"])  # noqa: E731
+        outputs = _nbytes
+        what = f"{inputs['tokens'].shape[1] // step.split.m} tokens a row a rank"
+    else:
+        step = lm_serve.make_sharded_decode_step(cfg, mesh, pspecs, in_specs, **kw)
+        cache = placed_in["kv_cache"].to_local()
+
+        def run():
+            return step(placed, inputs["tokens"], inputs["positions"], cache)
+
+        outputs = lambda out: _nbytes(out[0])  # noqa: E731  (the cache is updated in place)
+        what = (f"a cache slice of {cache.shape[3]} of {inputs['kv_cache'].shape[3]} rows, "
+                f"{cache.shape[2]} of {inputs['kv_cache'].shape[2]} sequences")
+    split = step.split
+    parts = lm_train_parts(cfg, split, placed, inputs["tokens"].shape)
+    notes = [f"split: {split.heads[0]} q heads, {split.heads[1]} kv heads"
+             + (f", experts {split.expert_range}" if cfg.moe else "") + f"; {what}"]
+    return Cell(run=run, work_params={}, state_bytes=_local_bytes(placed),
+                input_bytes=_local_bytes(placed_in), grad_bytes=0, notes=notes,
+                gathered_bytes=parts["gathered_weight_bytes"], split=split,
+                outputs=outputs)
 
 
 def lm_train_parts(cfg, split, placed_params: dict, batch_shape) -> dict:
@@ -550,12 +575,13 @@ def _world(multi_pod: bool):
 
 def count_cell(cell: Cell) -> tuple[HLOCost, int]:
     """Runs ``cell`` once under the counters: ``(cost, saved activation
-    bytes)``."""
+    bytes)``; sets the cell's ``output_bytes``."""
     cost_mode = CostMode()
     saved = SavedBytes(cell.work_params.values())
     splits = () if cell.split is None else (cell.split,)
     with FlopCounterMode(display=False) as flop_mode, cost_mode, saved.hooks(*splits):
-        cell.run()
+        out = cell.run()
+    cell.output_bytes = 0 if cell.outputs is None else cell.outputs(out)
     hc = HLOCost(flops=float(flop_mode.get_total_flops()), hbm_bytes=float(cost_mode.hbm_bytes),
                  collective_bytes=float(sum(cost_mode.bytes_by_op.values())),
                  bytes_by_op=dict(cost_mode.bytes_by_op),
@@ -586,8 +612,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str | None = 
         gathered = (_nbytes(list(cell.work_params.values())) if cell.gathered_bytes is None
                      else cell.gathered_bytes)
         parts = {"state_bytes": cell.state_bytes, "input_bytes": cell.input_bytes,
-                 "gathered_weight_bytes": gathered, "grad_bytes": cell.grad_bytes,
-                 "saved_activation_bytes": saved}
+                 "gathered_weight_bytes": gathered, "output_bytes": cell.output_bytes,
+                 "grad_bytes": cell.grad_bytes, "saved_activation_bytes": saved}
         mf = model_flops_for(cfg, shape_name)
         roof = roofline_terms({"flops": hc.flops, "bytes accessed": hc.hbm_bytes},
                               _CollProxy(hc.collective_bytes), n_chips, model_flops=mf)

@@ -248,6 +248,27 @@ class WholeModel:
     def gather_seq_nograd(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
+    #: the whole sequence is here, its last position too
+    holds_last = True
+
+    def cache_rows(self, k: torch.Tensor, v: torch.Tensor):
+        return k, v
+
+    def decode_heads(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        return q, k, v
+
+    def own_heads(self, o: torch.Tensor) -> torch.Tensor:
+        return o
+
+    def decode_write(self, cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
+                     new: torch.Tensor) -> None:
+        cache[rows, pos] = new
+
+    def decode_attend(self, q, k_cache, v_cache, pos32, pos, att: str) -> torch.Tensor:
+        if att == "kernel":
+            return flash_decode(q, k_cache, v_cache, pos32)
+        return decode_attention(q, k_cache, v_cache, pos)
+
 
 def _split_ffn(view, split: bool, xn: torch.Tensor, wg, wu, wd) -> torch.Tensor:
     """A SwiGLU MLP on the rank's tokens: column- / row-parallel between a
@@ -352,7 +373,10 @@ def _forward(cfg: LMConfig, view, tokens: torch.Tensor, return_cache: bool = Fal
              logits_mode: str = "all", attention: str | None = None, count_sum=None):
     """The layers over ``view`` on ``tokens`` (B, t), the rank's part of the
     sequence (its ``view.seq_parts``-th of T); with autograd on, each layer
-    checkpointed as ``cfg.remat`` says."""
+    checkpointed as ``cfg.remat`` says.  The cache holds, for each layer,
+    ``view.cache_rows`` of its k and v (the rank's T rows of every kv head);
+    the logits are None on a rank that does not hold the last position
+    (``view.holds_last``) under ``logits_mode="last"``."""
     if cfg.remat not in REMAT:
         raise ValueError(f"remat={cfg.remat!r}; expected one of {REMAT}")
     att = resolve_attention(attention, tokens.device)
@@ -374,12 +398,17 @@ def _forward(cfg: LMConfig, view, tokens: torch.Tensor, return_cache: bool = Fal
         else:
             x, layer_aux, k, v = _layer(cfg, view, i, x, positions, att, count_sum)
             if cache is not None:
+                k, v = view.cache_rows(k.to(cache.dtype), v.to(cache.dtype))
                 cache[i, 0].copy_(k)
                 cache[i, 1].copy_(v)
         aux = aux + layer_aux
     if logits_mode == "last":
         x = x[:, -1:]
-    logits = _logits(cfg, view, x)
+    if logits_mode != "last" or view.holds_last:
+        logits = _logits(cfg, view, x)
+    else:  # the last position lies on another rank: its weights' gathers alone
+        view.final_norm(), view.head()
+        logits = None
     if return_cache:
         return logits, aux, cache
     return logits, aux
@@ -423,30 +452,44 @@ def decode_step(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
     next synchronisation.
     """
     att = resolve_attention(attention, tokens.device)
-    b = tokens.shape[0]
-    s = kv_cache.shape[3]
+    check_positions(positions, kv_cache.shape[3])
+    return _decode(cfg, WholeModel(cfg, params), tokens, positions, kv_cache, att), kv_cache
+
+
+def check_positions(positions: torch.Tensor, s: int) -> None:
+    """Every position in ``[0, s)``: checked at once on the CPU
+    (``IndexError``), as a device-side assertion on the card (the host waits
+    for nothing)."""
     inside = (positions >= 0) & (positions < s)
     if positions.device.type == "cuda":
         torch._assert_async(inside.all(), f"decode_step: a position outside the cache's [0, {s})")
     elif positions.device.type == "cpu" and not bool(inside.all()):  # meta holds none
         raise IndexError(f"positions {positions.tolist()} outside the cache's [0, {s})")
-    h, hd = cfg.n_heads, cfg.head_dim
-    view = WholeModel(cfg, params)
-    x = params.embed[tokens.long()].to(_dtype(cfg))  # (B, 1, D)
+
+
+def _decode(cfg: LMConfig, view, tokens: torch.Tensor, positions: torch.Tensor,
+            kv_cache: torch.Tensor, att: str) -> torch.Tensor:
+    """The layers of one decode step over ``view`` (``WholeModel``, or one
+    rank's ``sharding.lm_split.DecodeView``): q, k and v of the view's heads
+    made whole (``view.decode_heads``), the new k and v written into the
+    cache (``view.decode_write``), attention over it (``view.decode_attend``),
+    the view's heads through ``wo`` (``view.own_heads``, ``view.scatter_seq``)
+    and the FFN; returns the logits (B, V)."""
+    b = tokens.shape[0]
+    hq, hk, _ = view.heads
+    x = view.embed()[tokens.long()].to(_dtype(cfg))  # (B, 1, D)
     rows = torch.arange(b, device=tokens.device)
     pos = positions.long()
     pos32 = positions.to(torch.int32)
     for i in range(cfg.n_layers):
-        lp = params.layer(i)
-        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["attn_norm"], cfg.norm_eps), pos[:, None],
-                       cfg.n_heads, cfg.n_kv_heads)
+        lp = view.layer(i)
+        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["attn_norm"], cfg.norm_eps), pos[:, None], hq,
+                       hk)
+        q, k, v = view.decode_heads(q, k, v)
         k_cache, v_cache = kv_cache[i, 0], kv_cache[i, 1]
-        k_cache[rows, pos] = k[:, 0].to(kv_cache.dtype)
-        v_cache[rows, pos] = v[:, 0].to(kv_cache.dtype)
-        if att == "kernel":
-            o = flash_decode(q, k_cache, v_cache, pos32)
-        else:
-            o = decode_attention(q, k_cache, v_cache, pos)
-        x = x + o.reshape(b, 1, h * hd) @ lp["wo"]
+        view.decode_write(k_cache, rows, pos, k[:, 0].to(kv_cache.dtype))
+        view.decode_write(v_cache, rows, pos, v[:, 0].to(kv_cache.dtype))
+        o = view.own_heads(view.decode_attend(q, k_cache, v_cache, pos32, pos, att))
+        x = x + view.scatter_seq(o.reshape(b, 1, hq * cfg.head_dim) @ lp["wo"])
         x, _ = _ffn(cfg, view, lp, x, att, with_aux=False)
-    return _logits(cfg, view, x)[:, 0], kv_cache
+    return _logits(cfg, view, x)[:, 0]

@@ -44,6 +44,27 @@ specs, :mod:`.specs`); the compute follows it:
 Every weight reaches the layers through ``tp.fetch``: the gradients land in
 float32 shards (``sinks``), never in the parameters' ``.grad``.  The split
 needs at least one head and one expert a model rank and T divisible by m.
+
+Serving (``sharding.lm_serve``) reads the same plan through views without
+gradient sinks (``tp.fetch_nograd``: the same per-layer gathers):
+
+* **prefill** — :class:`RankView` with ``sinks=None``: the train step's
+  layout, then each layer's k and v (the rank's kv heads over the gathered
+  T) go through one all-to-all over ``"model"`` into the decode's cache
+  layout, every kv head over the rank's T / m rows
+  (:meth:`RankView.cache_rows`); a kv head that several ranks hold (fewer
+  kv heads than model ranks) is sent by the first of them alone.  Only the
+  last model rank holds the last position, so only it computes a logit;
+* **decode** — :class:`DecodeView`: a row's token is whole on every model
+  rank of its data rows (one token cannot be split along T); q, k and v of
+  the rank's heads are gathered whole over ``"model"``
+  (:meth:`DecodeView.decode_heads`), every rank attends over its own T
+  slice of the cache for every head (``flash_decode_partial``), the ranks'
+  partials are joined (``decode_split.combine_partials``), the rank's heads
+  of the result go through its rows of ``wo``, and the row-parallel
+  products (``wo``, ``w_down``, the experts) are all-reduced over
+  ``"model"`` where the train step reduce-scatters them.  Only the rank
+  whose slice holds a row's position writes that row's new k and v.
 """
 
 from __future__ import annotations
@@ -52,7 +73,8 @@ import torch
 from torch.distributed.tensor import Shard
 
 from ..configs.base import LMConfig
-from . import tp
+from ..kernels.flash_decode import ops as fd_ops
+from . import decode_split, tp
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -75,6 +97,14 @@ def head_plan(h: int, kh: int, m: int, r: int):
     counts = {sum(1 for q in range(a, b) if q // g == j) for j in range(ka, kb)}
     expand = None if len(counts) == 1 else [q // g - ka for q in range(a, b)]
     return (a, b), (ka, kb), expand
+
+
+def _whole_head_plan(ranges: list, owned: list) -> tuple[int, list]:
+    """``(width, index)``: the widest rank's piece, and where head j lies in
+    the gathered pieces (from the rank in ``owned`` that holds it)."""
+    width = max(b - a for a, b in ranges)
+    return width, [j * width + h - ranges[j][0] for j, (a, b) in enumerate(owned)
+                   for h in range(a, b)]
 
 
 class LMSplit:
@@ -103,6 +133,21 @@ class LMSplit:
                              f"head a rank")
         (a, b), (ka, kb), expand = head_plan(h, kh, m, r)
         self.heads = (b - a, kb - ka, expand)
+        plans = [head_plan(h, kh, m, j) for j in range(m)]
+        #: every model rank's q heads and kv heads, and the kv heads each sends
+        #: in the prefill's all-to-all (the first rank that holds a kv head)
+        self.q_ranges = [p[0] for p in plans]
+        self.kv_ranges = [p[1] for p in plans]
+        self.kv_owned, first = [], 0
+        for ka_j, kb_j in self.kv_ranges:
+            self.kv_owned.append((max(ka_j, first), max(kb_j, first)))
+            first = max(first, kb_j)
+        #: the decode's gather of whole heads: each rank's piece padded to
+        #: ``width``, then head j taken from its owner's piece at ``index``
+        self.whole_heads = {name: _whole_head_plan(ranges, owned) for name, ranges, owned in
+                            (("q", self.q_ranges, self.q_ranges),
+                             ("kv", self.kv_ranges, self.kv_owned))}
+        self._index_on = {}
         want = {"wq": (1, a * hd, b * hd), "wk": (1, ka * hd, kb * hd),
                 "wv": (1, ka * hd, kb * hd), "wo": (0, a * hd, b * hd)}
         self.experts = None
@@ -167,16 +212,26 @@ class LMSplit:
             return tuple(gathers), None
         return tuple(gathers), (dim, lo, hi - lo)
 
-    def view(self, local: dict, sinks: dict, anchor: torch.Tensor) -> "RankView":
+    def view(self, local: dict, sinks: dict | None = None,
+             anchor: torch.Tensor | None = None) -> "RankView":
+        """The train step's view (``sinks`` and ``anchor``), or, without
+        them, the prefill's (no autograd)."""
         return RankView(self, local, sinks, anchor)
+
+    def decode_view(self, local: dict, t_groups: list, t_index: int) -> "DecodeView":
+        """The decode's view: ``t_groups`` the groups of the axes that split
+        the cache's T, ``t_index`` the rank's slice among them."""
+        return DecodeView(self, local, t_groups, t_index)
 
 
 class RankView:
     """The view ``models.transformer`` reads (see ``WholeModel``) for one
     rank of one micro-batch: ``local`` its parameter shards, ``sinks`` their
-    float32 gradients, ``anchor`` a scalar that requires grad."""
+    float32 gradients, ``anchor`` a scalar that requires grad; ``sinks``
+    None for the prefill (no autograd)."""
 
-    def __init__(self, split: LMSplit, local: dict, sinks: dict, anchor: torch.Tensor):
+    def __init__(self, split: LMSplit, local: dict, sinks: dict | None,
+                 anchor: torch.Tensor | None):
         self.split, self.local, self.sinks, self.anchor = split, local, sinks, anchor
         self.seq_parts = split.m
         self.heads = split.heads
@@ -184,13 +239,17 @@ class RankView:
         self.ffn_split, self.shared_split = split.ffn_split, split.shared_split
         self._embed = None
         self.model_group = split.groups["model"]
+        #: the last position of the sequence lies on the last model rank
+        self.holds_last = split.r == split.m - 1
 
     def _fetch(self, path: str, i: int | None = None) -> torch.Tensor:
         gathers, narrow = self.split.plans[path]
-        shard, sink = self.local[path], self.sinks[path]
-        if i is not None:
-            shard, sink = shard[i], sink[i]
-        w = tp.fetch(self.anchor, shard, sink, gathers)
+        shard = self.local[path] if i is None else self.local[path][i]
+        if self.sinks is None:
+            w = tp.fetch_nograd(shard, gathers)
+        else:
+            sink = self.sinks[path] if i is None else self.sinks[path][i]
+            w = tp.fetch(self.anchor, shard, sink, gathers)
         if self.split.on_fetch is not None:
             self.split.on_fetch(w)
         return w if narrow is None else w.narrow(*narrow)
@@ -218,4 +277,90 @@ class RankView:
 
     def gather_seq_nograd(self, x: torch.Tensor) -> torch.Tensor:
         return tp.gather_nograd(x, 1, self.model_group)
+
+    def cache_rows(self, k: torch.Tensor, v: torch.Tensor):
+        """A layer's k and v (B, T, kv heads of the rank, hd) over the gathered
+        T, in the cache's dtype -> the rank's rows of the decode's cache (B, T
+        / m, K, hd) each: one all-to-all over ``"model"``, in which each rank
+        sends its owned kv heads' T slice j to model rank j."""
+        sp = self.split
+        if sp.m == 1:
+            return k, v
+        b, t, _, hd = k.shape
+        m, tr = sp.m, t // sp.m
+        ka = sp.kv_ranges[sp.r][0]
+        oa, ob = sp.kv_owned[sp.r]
+        mine = torch.stack([k[:, :, oa - ka:ob - ka], v[:, :, oa - ka:ob - ka]])
+        send = mine.reshape(2, b, m, tr, ob - oa, hd).permute(2, 0, 1, 3, 4, 5).reshape(-1)
+        unit = 2 * b * tr * hd
+        counts = [hb - ha for ha, hb in sp.kv_owned]
+        got = tp.all_to_all(send, [unit * n for n in counts], [unit * (ob - oa)] * m,
+                            self.model_group)
+        whole = torch.cat([piece.reshape(2, b, tr, n, hd) for piece, n in
+                           zip(got.split([unit * n for n in counts]), counts)], dim=3)
+        return whole[0], whole[1]
+
+
+class DecodeView(RankView):
+    """One rank's decode step (see the module docstring): its rows' tokens
+    whole on every model rank, its slice ``t_index`` of the cache's T among
+    the ranks of ``t_groups``."""
+
+    def __init__(self, split: LMSplit, local: dict, t_groups: list, t_index: int):
+        super().__init__(split, local, None, None)
+        self.seq_parts = 1
+        self.t_groups, self.t_index = t_groups, t_index
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    gather_seq_nograd = gather_seq
+
+    def scatter_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """The model ranks' partial sums of a row-parallel product, summed."""
+        return tp.all_reduce(x, self.model_group)
+
+    def _whole_heads(self, x: torch.Tensor, which: str) -> torch.Tensor:
+        """``x`` (B, 1, heads of the rank, hd) gathered over ``"model"`` into
+        every head (B, 1, n, hd) by the plan's ``whole_heads[which]``."""
+        sp = self.split
+        if sp.m == 1:
+            return x
+        width, index = sp.whole_heads[which]
+        if x.shape[2] < width:
+            x = torch.nn.functional.pad(x, (0, 0, 0, width - x.shape[2]))
+        every = tp.gather_nograd(x, 2, self.model_group)
+        key = (which, x.device)
+        if key not in sp._index_on:  # once a plan and device: no copy to the card a step
+            sp._index_on[key] = torch.tensor(index, device=x.device)
+        return every[:, :, sp._index_on[key]]
+
+    def decode_heads(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        """q, k and v of the rank's heads -> of every head."""
+        return (self._whole_heads(q, "q"), self._whole_heads(k, "kv"),
+                self._whole_heads(v, "kv"))
+
+    def own_heads(self, o: torch.Tensor) -> torch.Tensor:
+        a, b = self.split.q_ranges[self.split.r]
+        return o[:, :, a:b]
+
+    def decode_write(self, cache: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
+                     new: torch.Tensor) -> None:
+        """Row b's ``new`` (B, K, hd) into the rank's slice of a layer's cache
+        (B, S / n, K, hd) at ``pos[b]``, on the rank whose slice holds it
+        alone (no host sync: the other ranks write back what they hold)."""
+        s = cache.shape[1]
+        local = pos - self.t_index * s
+        own = (local >= 0) & (local < s)
+        at = local.clamp(0, s - 1)
+        cache[rows, at] = torch.where(own[:, None, None], new, cache[rows, at])
+
+    def decode_attend(self, q, k_cache, v_cache, pos32, pos, att: str) -> torch.Tensor:
+        """Every head's attention over the whole cache: the rank's partial
+        over its slice, joined over the T ranks, in q's dtype."""
+        start = self.t_index * k_cache.shape[1]
+        fn = (fd_ops.flash_decode_partial if att == "kernel"
+              else fd_ops.flash_decode_partial_torch)
+        o, lse = fn(q, k_cache, v_cache, pos32, start)
+        return decode_split.combine_partials(o, lse, self.t_groups, q.dtype)[0]
 

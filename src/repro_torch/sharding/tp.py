@@ -19,6 +19,10 @@ loss (each rank runs ``backward`` on its own part):
   bf16 model's gradients are summed across layers, ranks and micro-batches
   in float32 (autograd would cast them back to the weight's dtype).
 
+Outside autograd (serving): :func:`fetch_nograd` (a weight's gathers
+without a gradient sink), :func:`max_into` / :func:`sum_into` (in-place
+all-reduces) and :func:`all_to_all` (the prefill's cache from heads to T).
+
 A group of one rank is the identity: no collective is issued, so a world of
 one computes what the unsharded step computes, bit for bit.  The
 collectives are ``torch.ops._c10d_functional``'s (gloo on the CPU, NCCL on
@@ -74,6 +78,38 @@ def _all_reduce_raw(x: torch.Tensor, group) -> torch.Tensor:
         return x
     ops = _c10d()
     return ops.wait_tensor(ops.all_reduce(x.contiguous(), "sum", group.group_name))
+
+
+def max_into(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x``'s elementwise maximum over each group in turn, outside autograd,
+    in place."""
+    for g in groups:
+        if group_size(g) > 1:
+            ops = _c10d()
+            x.copy_(ops.wait_tensor(ops.all_reduce(x.contiguous(), "max", g.group_name)))
+    return x
+
+
+def all_to_all(x: torch.Tensor, out_splits: list[int], in_splits: list[int],
+               group) -> torch.Tensor:
+    """All-to-all of the flat ``x`` over ``group``, outside autograd: rank
+    j receives the ``in_splits[j]`` elements of ``x`` that follow the
+    pieces for ranks before it, and the result holds, in rank order, the
+    ``out_splits[s]`` elements that rank s sent here."""
+    if group_size(group) == 1:
+        return x
+    ops = _c10d()
+    return ops.wait_tensor(ops.all_to_all_single(x.contiguous(), list(out_splits),
+                                                 list(in_splits), group.group_name))
+
+
+def fetch_nograd(shard: torch.Tensor, gathers: tuple = ()) -> torch.Tensor:
+    """A weight's operand from the rank's shard, gathered along ``(dim,
+    group)`` of ``gathers`` in order, outside autograd (serving)."""
+    w = shard
+    for dim, group in gathers:
+        w = _gather_raw(w, dim, group)
+    return w
 
 
 def gather_nograd(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -3,10 +3,11 @@
 (``tests/test_distributed.py``) builds it.
 
 One spawned run for the module: eight processes run ``SCRIPT`` (one
-thread each, rendezvous on a file under the test's ``tmp_path``, bounded
-by a timeout so that a rank stuck in a collective fails the run instead of
-stalling the suite), each writes its results as JSON, and each test below
-reads one part of them:
+thread each, through ``tests/torch_ranks.py``: rendezvous on a file under
+the test's temporary directory, each rank's output in a log, collective
+timeouts below one deadline for the group, a failure that reports every
+rank's exit code and log), each writes its results as JSON, and each test
+below reads one part of them:
 
 * the sharded train step (``repro_torch.sharding.spmd``) against the
   port's unsharded step on the whole batch, float32 on the plain path:
@@ -41,17 +42,11 @@ reads one part of them:
   number; 6 shards on 4 data ranks refused.
 """
 
-import json
-import subprocess
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
+from torch_ranks import spawn_ranks
 
-ROOT = Path(__file__).resolve().parent.parent
 WORLD = 8
-TIMEOUT_S = 420
 
 SCRIPT = r'''
 import json, os, sys
@@ -61,7 +56,6 @@ import torch.distributed as dist
 
 torch.set_num_threads(1)
 rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
-dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
 
 import dataclasses
 
@@ -344,29 +338,7 @@ with open(out, "w") as f:
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("mesh")
-    script = tmp / "rank.py"
-    script.write_text(SCRIPT)
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "HOME": str(tmp),
-           "OMP_NUM_THREADS": "1", "TMPDIR": str(tmp)}
-    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(WORLD),
-                               str(tmp / "store"), str(tmp / f"rank{r}.json")],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              env=env, cwd=str(tmp)) for r in range(WORLD)]
-    errs = []
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=TIMEOUT_S)
-            errs.append(err)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    failed = [(r, p.returncode, e[-3000:]) for r, (p, e) in enumerate(zip(procs, errs))
-              if p.returncode != 0]
-    assert not failed, failed[0]
-    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(WORLD)]
+    return spawn_ranks(tmp_path_factory, "mesh", SCRIPT, WORLD, ())
 
 
 LOSS_REL = 1e-6

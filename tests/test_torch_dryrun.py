@@ -55,8 +55,8 @@ ROOT = Path(__file__).resolve().parent.parent
 CELLS = [(a, s) for a in ASSIGNED_ARCHS for s in get_config(a).shapes]
 RECORD_KEYS = {"arch", "shape", "mesh", "multi_pod", "n_chips", "status", "build_s", "count_s",
                "memory", "collectives", "hlo_cost", "roofline", "notes"}
-MEMORY_KEYS = {"state_bytes", "input_bytes", "gathered_weight_bytes", "grad_bytes",
-               "saved_activation_bytes", "total_per_device_gib"}
+MEMORY_KEYS = {"state_bytes", "input_bytes", "gathered_weight_bytes", "output_bytes",
+               "grad_bytes", "saved_activation_bytes", "total_per_device_gib"}
 
 
 def _ref_dryrun():
@@ -236,6 +236,19 @@ out["split_cell"] = {"flops": hc.flops, "bytes_by_op": hc.bytes_by_op,
                      "count_by_op": hc.count_by_op, "state_bytes": cell.state_bytes,
                      "input_bytes": cell.input_bytes, "grad_bytes": cell.grad_bytes,
                      "gathered_bytes": cell.gathered_bytes, "saved_bytes": saved}
+# the same model's split prefill and decode cells on the same (2, 4) mesh
+dist.init_process_group("fake", rank=0, world_size=8, store=FakeStore())
+mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
+out["serve_cells"] = {}
+for shape in ("prefill_32k", "decode_32k", "long_500k"):
+    cell = dryrun.build_cell("qwen3-8b", shape, mesh, False, cfg=small)
+    hc, saved = dryrun.count_cell(cell)
+    out["serve_cells"][shape] = {
+        "bytes_by_op": hc.bytes_by_op, "count_by_op": hc.count_by_op,
+        "state_bytes": cell.state_bytes, "input_bytes": cell.input_bytes,
+        "output_bytes": cell.output_bytes, "gathered_bytes": cell.gathered_bytes,
+        "saved_bytes": saved, "grad_bytes": cell.grad_bytes}
+dist.destroy_process_group()
 out["cuda_initialized"] = torch.cuda.is_initialized()
 out["jax_loaded"] = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
 print(json.dumps(out))
@@ -536,3 +549,66 @@ def test_failure_is_recorded_with_its_traceback(monkeypatch):
     assert rec["status"] == "fail" and rec["error"] == "RuntimeError: planted"
     assert "planted" in rec["traceback"]
     assert not dist.is_initialized()
+
+
+#: rank 0 (data 0, model 0) of the (2, 4) split serving cells of the reduced
+#: qwen3-8b (``SPLIT_CELL``: 2 layers, D 64, 8 heads of 8 on 2 kv heads,
+#: d_ff 128, vocabulary 512, float32 weights, bf16 cache), every number
+#: worked out by hand from the shapes and the reference's specs:
+#:
+#: * prefill_32k, tokens (32, 32,768) int32, rows over "data": input 16 x
+#:   32,768 x 4 = 2,097,152; out the cache (2, 2, 16, 8,192, 2, 8) bf16 =
+#:   16,777,216 (rank 0 holds no last position: no logits).  Per layer the
+#:   stream gathered along T before attention and the FFN, (16, 32,768, 64)
+#:   f32 = 134,217,728 each, and wk / wv gathered over "model" (the kv head
+#:   of rank 0's 2 q heads: (64, 16) f32 = 4,096 each); embed and head
+#:   gathered once, (512, 64) f32 = 131,072 each: 10 all-gathers of
+#:   537,149,440 bytes.  wo and w_down reduce-scattered along T, (16, 8,192,
+#:   64) f32 = 33,554,432 each: 4 of 134,217,728.  One all-to-all a layer,
+#:   its result the rank's cache rows of both kv heads, (2, 16, 8,192, 2, 8)
+#:   bf16 = 8,388,608: 2 of 16,777,216;
+#: * decode_32k, tokens and positions (128,) over "data" (256 bytes each),
+#:   the cache (2, 2, 64, 8,192, 2, 8) bf16 = 67,108,864; out the logits (64,
+#:   512) f32 = 131,072.  Per layer wk, wv (4,096 each), q (64, 1, 8, 8) f32
+#:   = 16,384, k and v (64, 1, 4, 8) f32 = 8,192 each (one kv head a rank,
+#:   gathered from all four): 5 all-gathers of 40,960, plus embed and head:
+#:   12 of 344,064.  All-reduces over "model" a layer: the combine's max
+#:   (64, 8) = 2,048 and sum (64, 8, 9) = 18,432, wo's and w_down's partial
+#:   sums (64, 1, 64) = 16,384 each: 8 of 106,496;
+#: * long_500k, one row, the cache's T over ("data", "model"): (2, 2, 1,
+#:   65,536, 2, 8) bf16 = 8,388,608, plus 4 + 4 bytes of token and position;
+#:   out (1, 512) f32 = 2,048.  All-gathers as decode_32k's at one row: 2 x
+#:   (4,096 + 4,096 + 256 + 128 + 128) + 262,144 = 279,552 in 12; the
+#:   combine over "data" and then "model" (max 32 and sum 288 bytes each)
+#:   and the two partial sums (256 each): 12 all-reduces of 2,304.
+#:
+#: The state is rank 0's shards, 136,576 bytes; the gathered weights held at
+#: once embed, head and one layer's wk and wv, 270,336.  None of them is a
+#: whole cache: the cache never moves.
+SERVE_CELLS = {
+    "prefill_32k": {"input_bytes": 2_097_152, "output_bytes": 16_777_216,
+                    "bytes_by_op": {"all-gather": 537_149_440, "reduce-scatter": 134_217_728,
+                                    "all-to-all": 16_777_216},
+                    "count_by_op": {"all-gather": 10, "reduce-scatter": 4, "all-to-all": 2}},
+    "decode_32k": {"input_bytes": 67_109_376, "output_bytes": 131_072,
+                   "bytes_by_op": {"all-gather": 344_064, "all-reduce": 106_496},
+                   "count_by_op": {"all-gather": 12, "all-reduce": 8}},
+    "long_500k": {"input_bytes": 8_388_616, "output_bytes": 2_048,
+                  "bytes_by_op": {"all-gather": 279_552, "all-reduce": 2_304},
+                  "count_by_op": {"all-gather": 12, "all-reduce": 12}},
+}
+
+
+@pytest.mark.parametrize("shape", list(SERVE_CELLS))
+def test_split_serve_cells_equal_the_hand_counts(fake_world, shape):
+    """The LM prefill and decode cells run the split serving steps: inputs,
+    outputs and collectives by op as worked out above (``SERVE_CELLS``),
+    the rank's shards as state, per-layer gathered weights, no gradient and
+    nothing saved."""
+    got = fake_world["serve_cells"][shape]
+    want = SERVE_CELLS[shape]
+    for key, value in want.items():
+        assert got[key] == value, (key, got[key])
+    assert got["state_bytes"] == 136_576
+    assert got["gathered_bytes"] == 270_336
+    assert got["grad_bytes"] == got["saved_bytes"] == 0

@@ -3,8 +3,7 @@
 meshes (4, 2), (2, 4) and (1, 8) of ``("data", "model")``.
 
 One spawned run for the module, as ``tests/test_torch_distributed.py``
-runs its ranks (one thread each, file rendezvous under ``tmp_path``, a
-timeout).  Each rank runs, on each mesh, reduced configs that hit the
+runs its ranks (one thread each, through ``tests/torch_ranks.py``).  Each rank runs, on each mesh, reduced configs that hit the
 split's traps, every case against the port's unsharded step
 (``steps.make_lm_train_step``) on the whole batch, float32, plain path,
 remat ``"block"`` (every config's default):
@@ -67,15 +66,11 @@ return gradients of the shards' shapes.
 """
 
 import json
-import subprocess
-import sys
-from pathlib import Path
 
 import pytest
+from torch_ranks import spawn_ranks
 
-ROOT = Path(__file__).resolve().parent.parent
 WORLD = 8
-TIMEOUT_S = 420
 MESHES = [(4, 2), (2, 4), (1, 8)]
 
 SCRIPT = r'''
@@ -86,7 +81,6 @@ import torch.distributed as dist
 
 torch.set_num_threads(1)
 rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
-dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
 
 from unittest import mock
 
@@ -362,30 +356,7 @@ with open(out, "w") as f:
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("tp")
-    script = tmp / "rank.py"
-    script.write_text(SCRIPT)
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "HOME": str(tmp),
-           "OMP_NUM_THREADS": "1", "TMPDIR": str(tmp)}
-    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(WORLD),
-                               str(tmp / "store"), str(tmp / f"rank{r}.json"),
-                               json.dumps(MESHES)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              env=env, cwd=str(tmp)) for r in range(WORLD)]
-    errs = []
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=TIMEOUT_S)
-            errs.append(err)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    failed = [(r, p.returncode, e[-3000:]) for r, (p, e) in enumerate(zip(procs, errs))
-              if p.returncode != 0]
-    assert not failed, failed[0]
-    return [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(WORLD)]
+    return spawn_ranks(tmp_path_factory, "tp", SCRIPT, WORLD, [json.dumps(MESHES)])
 
 
 LOSS_REL = 1e-6
