@@ -80,7 +80,19 @@ launch counts set to 0 just before it and read just after:
   tokens, then 8 greedy decode steps into the cache in the decode spec's
   layout, row 8's partial mode once a layer a step), logits and caches
   bit-equal to ``make_lm_prefill_step`` / ``make_lm_decode_step``'s kernel
-  path; ``psum_int8`` / ``psum_topk`` on two
+  path; the recsys models on tables row-sharded over ``"model"``
+  (``sharding.recsys_split``: row 9's shard mode, the partials summed over
+  ``"model"``): xDeepFM at full size through the split serve step
+  (``make_recsys_serve_step(..., mesh=)``) at ``serve_bulk`` and
+  ``retrieval_cand`` (row 9 in shard mode and row 10), two-tower on its full
+  10 M-row tables at ``serve_p99`` and ``retrieval_cand`` (float32 and
+  bf16), and one split train step each of SASRec and two-tower at the train
+  phase's cut (16,384 rows, 1 M-row tables); the GIN through
+  ``sharding.gnn_split`` (``make_gnn_train_step(..., shard_axes=, mesh=)``)
+  on the train phase's sampled block and on a synthetic graph of half of
+  ``ogb_products``' published size (``MESH_OGB``); each bit-equal to the
+  unsharded kernel path, with no ``full_tensor`` on a table or a GNN input;
+  ``psum_int8`` / ``psum_topk`` on two
   of its gradients, bit-equal to their formula; a full-size xDeepFM train
   state resharded, saved, restored and placed back, bit for bit.
   ``--only-mesh`` runs it alone;
@@ -2586,15 +2598,18 @@ def _model_row(rows: list, kernel: str, shape: dict, got, want, limit=None) -> N
                  "within_tolerance": ok})
 
 
-def embedding_bag_check(rows: list, shape: dict, idx, table, bag: int) -> None:
+def embedding_bag_check(rows: list, shape: dict, idx, table, bag: int, *shard) -> None:
     """embedding_bag against its plain version (tolerance 0, NaN pattern
-    equal), the row carrying the load route the launch took."""
+    equal), the row carrying the load route the launch took; ``shard``:
+    ``(row_start, n_rows)`` of the shard mode."""
     from repro_torch.kernels.embedding_bag.ops import (embedding_bag, embedding_bag_route,
                                                        embedding_bag_torch)
 
-    _model_row(rows, "embedding_bag", shape, embedding_bag(idx, table, bag),
-               embedding_bag_torch(idx, table, bag))
+    _model_row(rows, "embedding_bag", shape, embedding_bag(idx, table, bag, *shard),
+               embedding_bag_torch(idx, table, bag, *shard))
     rows[-1]["route"] = embedding_bag_route(table)
+    if shard:
+        rows[-1]["shard_mode"] = True
 
 
 def cin_check(rows: list, shape: dict, x0, xk, w) -> None:
@@ -2740,6 +2755,122 @@ def model_kernel_edge_cases(dev, seed: int) -> list[dict]:
     return rows
 
 
+#: row 9's shard mode at its edges: (rows of the whole table, shard
+#: boundaries) — shards at the start, the middle and the end, unequal and
+#: equal — and the tables (dtype, D, layout) that reach every load route
+EB_SHARD_TABLES = ((1000, (0, 1, 333, 999, 1000)), (4096, (0, 1024, 2048, 3072, 4096)))
+EB_SHARD_LAYOUTS = ((torch.float32, 4, "contiguous"), (torch.float32, 10, "contiguous"),
+                    (torch.float32, 1, "linear[:, None]"), (torch.float32, 10, "one element in"),
+                    (torch.bfloat16, 8, "contiguous"), (torch.bfloat16, 4, "contiguous"),
+                    (torch.bfloat16, 50, "contiguous"))
+#: two-tower's retrieval table cut as on the (16, 16) mesh: 16 row shards of
+#: its 10,000,000 items; one model group's candidate ids (1,000,000 padded to
+#: a multiple of 4,096, 3,920 a rank, gathered over 16 model ranks)
+EB_SHARD_PATH = {"n_rows": 10_000_000, "d": 256, "shards": 16, "candidates": 1_000_000,
+                 "pad_multiple": 4096, "ranks": 256}
+
+
+def embedding_bag_shard_edge_cases(dev, seed: int) -> list[dict]:
+    """Row 9's shard mode against its plain version (tolerance 0, NaN where
+    it is NaN) on every shard of ``EB_SHARD_TABLES`` for every layout of
+    ``EB_SHARD_LAYOUTS`` (every route, both dtypes), bags of 1 and 39: ids on
+    each shard boundary and beside it, -1 and n_rows (outside the table:
+    NaN on every shard), the rest random."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows: list = []
+    for n, bounds in EB_SHARD_TABLES:
+        for dtype, d, layout in EB_SHARD_LAYOUTS:
+            base = torch.randn((n * d + 1,), generator=g, device=dev).to(dtype)
+            if layout == "linear[:, None]":
+                whole = base[:n][:, None]
+            elif layout == "one element in":
+                whole = base[1:].view(n, d)
+            else:
+                whole = base[:n * d].view(n, d)
+            edges = torch.tensor(sorted({min(max(b + o, 0), n - 1) for b in bounds
+                                         for o in (-1, 0)}) + [-1, n], device=dev)
+            for bag in (1, 39):
+                idx = torch.randint(0, n, (300 * bag,), generator=g, device=dev)
+                idx[:edges.numel()] = edges
+                idx = idx.to(torch.int32)
+                for lo, hi in zip(bounds[:-1], bounds[1:]):
+                    shape = {"n_rows": n, "shard": [lo, hi], "D": d, "bag": bag,
+                             "dtype": str(dtype).split(".")[-1], "table": layout,
+                             "indices": "shard boundaries, -1 and n_rows, random"}
+                    embedding_bag_check(rows, shape, idx, whole[lo:hi], bag, lo, n)
+    for dtype in (torch.float32, torch.bfloat16):
+        seen = {r["route"] for r in rows if r["shape"]["dtype"] == str(dtype).split(".")[-1]}
+        require(seen == {"scalar", "vec8", "vec16"},
+                f"embedding_bag shard-mode edge cases reach the routes {seen} in {dtype}")
+    return rows
+
+
+def embedding_bag_shard_bound(idx, shard, row_start: int):
+    """4 B per index, a row per index inside the shard (this run's data: the
+    others read nothing), 4 B per output element; one add per element."""
+    n, d = idx.numel(), shard.shape[1]
+    r = idx.reshape(-1).long() - row_start
+    inside = int(((r >= 0) & (r < shard.shape[0])).sum().item())
+    return bound(4 * n + inside * d * shard.element_size() + 4 * n * d, n * d)
+
+
+@torch.no_grad()
+def embedding_bag_shard_path(dev, seed: int, reps: int) -> dict:
+    """Two-tower's retrieval table (``EB_SHARD_PATH``) cut into 16 row
+    shards, each looking up one model group's gathered candidate ids: every
+    shard against its plain version (tolerance 0), the shards' outputs
+    summed in rank order equal to the whole table's lookup (``torch.equal``:
+    -0.0 and +0.0 compare equal); shard 0 timed beside its bound, its plain
+    version and the whole-table launch.  No single PyTorch call computes
+    a shard's lookup (ids of other shards add 0): ``library_ms`` is None."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipelines import recsys_batches
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag, embedding_bag_torch
+
+    p = EB_SHARD_PATH
+    cfg = get_config("two-tower-retrieval")
+    require(cfg.n_items == p["n_rows"] and cfg.embed_dim == p["d"],
+            f"two-tower's item table is {cfg.n_items} x {cfg.embed_dim}")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((p["n_rows"], p["d"]), generator=g, device=dev).mul_(0.01)
+    cand = torch.from_numpy(next(recsys_batches(cfg, p["candidates"], seed=seed))["item_ids"])
+    pad = (-cand.numel()) % p["pad_multiple"]
+    cand = torch.cat([cand, cand[:1].expand(pad)]).to(dev)
+    per_rank = cand.numel() // p["ranks"]
+    ids = (cand[:per_rank * p["shards"]] % p["n_rows"]).to(torch.int32)  # data rank 0's group
+    rows: list = []
+    step = p["n_rows"] // p["shards"]
+    total = None
+    for j in range(p["shards"]):
+        shard = table[j * step:(j + 1) * step]
+        part = embedding_bag(ids, shard, 1, j * step, p["n_rows"])
+        rows.append({"shard": j, "mismatches": int(
+            (part != embedding_bag_torch(ids, shard, 1, j * step, p["n_rows"])).sum())})
+        total = part if total is None else total + part
+    whole = embedding_bag(ids, table, 1)
+    require(torch.equal(total, whole), "embedding_bag: the 16 shards' lookups summed differ "
+            "from the whole table's")
+    mism = sum(r["mismatches"] for r in rows)
+    require(mism == 0, f"embedding_bag shard mode: {mism} elements differ from the plain "
+            f"version at the path's shards")
+    shard = table[:step]
+    fn = lambda: embedding_bag(ids, shard, 1, 0, p["n_rows"])  # noqa: E731
+    b_ms, b_by = embedding_bag_shard_bound(ids, shard, 0)
+    out = {"at": "mesh (16, 16): two-tower item table, shard 0 of 16, one model group's "
+                 "gathered candidate ids",
+           "shape": {"ids": ids.numel(), "shard_rows": step, "n_rows": p["n_rows"], "D": p["d"],
+                     "bag": 1, "dtype": "float32"},
+           "shards": p["shards"], "mismatches": mism, "sum_equals_whole": True,
+           "ms": time_any(fn, reps), "call_ms": time_any(fn, reps, preload=False),
+           "plain_ms": time_any(lambda: embedding_bag_torch(ids, shard, 1, 0, p["n_rows"]),
+                                reps),
+           "whole_table_ms": time_any(lambda: embedding_bag(ids, table, 1), reps),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "max_abs_err": 0.0}
+    del table, total, whole
+    return out
+
+
 def embedding_bag_bound(idx, table, bag: int):
     """4 B per index, one table row per index and 4 B per output element
     (the rows an index names, once each); one add per element read."""
@@ -2858,8 +2989,9 @@ def model_kernel_at_path(kernel: str, args: tuple, at: str, reps: int, timed: bo
 
 def model_refusals(dev) -> int:
     """The model-side wrappers refuse what their kernels do not take (a
-    float16 table, indices elsewhere, float indices, a non-contiguous or
-    ill-fitting operand, an integer tensor); returns how many were checked."""
+    float16 table, indices elsewhere, float indices, a shard outside its
+    table, a non-contiguous or ill-fitting operand, an integer tensor);
+    returns how many were checked."""
     from repro_torch.kernels.cin_interaction.ops import cin_layer
     from repro_torch.kernels.embedding_bag.ops import embedding_bag
     from repro_torch.kernels.moe_gemm.ops import moe_gemm
@@ -2874,6 +3006,7 @@ def model_refusals(dev) -> int:
         (ValueError, "lie on", lambda: embedding_bag(i.cpu(), t, 2)),
         (TypeError, "integer", lambda: embedding_bag(i.float(), t, 2)),
         (ValueError, "bags of", lambda: embedding_bag(i, t, 4)),
+        (ValueError, "does not lie inside", lambda: embedding_bag(i, t, 2, 5, 12)),
         (ValueError, "lies on", lambda: cin_layer(x, x.cpu(), torch.zeros((9, 2), device=dev))),
         (TypeError, "float tensor", lambda: cin_layer(x.int(), x, torch.zeros((9, 2), device=dev))),
         (ValueError, "do not fit", lambda: cin_layer(x, x, torch.zeros((8, 2), device=dev))),
@@ -3232,6 +3365,8 @@ def reset_launch_counts() -> None:
         for extra in ("launches_lse", "launches_backward"):
             if hasattr(fn, extra):
                 setattr(fn, extra, 0)
+        for route in getattr(fn, "launches_shard", {}):
+            fn.launches_shard[route] = 0
 
 
 def build_indexes(args, device: str) -> dict:
@@ -5220,6 +5355,24 @@ MESH_CKPT_DIR = ROOT / "build" / "mesh_ckpt"
 #: the split prefill and decode (at the train phase's depth, full width): rows,
 #: prompt tokens, greedy decode steps into a cache of the prompt plus those
 MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_NEW = 4, 2048, 8
+#: the recsys split serve step's paths: (model, shape, serve_dtype); the
+#: models at full size (two-tower's two 10 M-row tables: 20.5 GB)
+MESH_RECSYS_SERVE = (("xdeepfm", "serve_bulk", None), ("xdeepfm", "retrieval_cand", None),
+                     ("two-tower-retrieval", "serve_p99", None),
+                     ("two-tower-retrieval", "retrieval_cand", None),
+                     ("two-tower-retrieval", "retrieval_cand", torch.bfloat16))
+#: the split recsys train steps, at the train phase's two-tower cut (rows,
+#: and 1 M-row tables for two-tower)
+MESH_RECSYS_TRAIN = ("sasrec", "two-tower-retrieval")
+#: ogb_products' published size (nodes, edges, features, classes; its train
+#: split is 8.03 % of the nodes) and the cut this phase takes of nodes and
+#: edges: the largest that stays under 60 GB of peak memory.  On an NVIDIA
+#: H100 80GB HBM3 the steps' ordered segment sums over (E, 64) float32
+#: message rows peaked at 38.1 GB on half of the graph (a 50 s build), so
+#: the whole graph would pass 60 GB
+MESH_OGB = (2_449_029, 61_859_140, 100, 47)
+MESH_OGB_TRAIN_SHARE = 0.0803
+MESH_OGB_CUT = 2
 
 
 @contextlib.contextmanager
@@ -5649,6 +5802,254 @@ def mesh_checkpoint(mesh, args, dev) -> dict:
             "restore_sharding_tree_s": tree_s, "bit_equal": True}
 
 
+def _mesh_recsys_inputs(cfg, shape: str, seed: int, dev) -> dict:
+    """``_recsys_inputs``, and two-tower's retrieval inputs: one user's
+    features and the candidates' item ids."""
+    from repro_torch.data.pipelines import recsys_batches
+
+    if cfg.interaction == "dot" and cfg.shapes[shape].kind == "retrieval":
+        n = cfg.shapes[shape].dims["n_candidates"]
+        users = next(recsys_batches(cfg, 1, seed=seed))["user_feats"]
+        items = next(recsys_batches(cfg, n, seed=seed + 1))["item_ids"]
+        return {"user_feats": torch.from_numpy(users).to(dev),
+                "candidates": torch.from_numpy(items).to(dev)}
+    return _recsys_inputs(cfg, shape, seed, dev)[0]
+
+
+def _shard_launches() -> dict:
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+
+    return dict(embedding_bag.launches_shard)
+
+
+def mesh_recsys(mesh, args, dev) -> dict:
+    """The recsys models on tables row-sharded over ``"model"``: the split
+    serve step (``make_recsys_serve_step(..., mesh=)``) at
+    ``MESH_RECSYS_SERVE`` against the unsharded kernel path (xDeepFM's
+    parameters placed as DTensors, two-tower's passed as the rank's local
+    tensors: on a world of one the whole tables, not copied), then the split
+    train step (``spmd.make_sharded_train_step``) of ``MESH_RECSYS_TRAIN``
+    against ``make_recsys_train_step``'s: outputs, gradients, metrics and
+    the updated state bit-equal, launches of the split runs alone (row 9's
+    shard mode by route), ``full_tensor`` calls (none)."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpointer import flatten, reshard
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipelines import recsys_batches
+    from repro_torch.models import steps
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.specs import input_specs_sharding_for, recsys_param_specs
+    from repro_torch.train.optimizer import OptConfig, param_tree
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    axes = tuple(mesh.mesh_dim_names)
+    serving, training = [], []
+    for name in dict.fromkeys(m for m, _, _ in MESH_RECSYS_SERVE):
+        cfg = get_config(name)
+        params = steps.init_model_params(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                                         dev)
+        placed = (reshard(params, mesh, recsys_param_specs(cfg, params, mesh, False))
+                  if name == "xdeepfm" else param_tree(params))
+        for _, shape, dtype in (x for x in MESH_RECSYS_SERVE if x[0] == name):
+            inp = _mesh_recsys_inputs(cfg, shape, args.seed, dev)
+            retrieval = cfg.shapes[shape].kind == "retrieval"
+            kw = dict(retrieval=retrieval, serve_dtype=dtype,
+                      cand_pad_multiple=16 * dist.get_world_size() if retrieval else 1)
+            sync()
+            t0 = time.perf_counter()
+            want = steps.make_recsys_serve_step(cfg, **kw)(params, **inp)
+            sync()
+            t1 = time.perf_counter()
+            split = steps.make_recsys_serve_step(cfg, cand_shard_axes=axes if retrieval else None,
+                                                 mesh=mesh, **kw)
+            reset_launch_counts()
+            sync()
+            t2 = time.perf_counter()
+            with counted_full_tensor() as full:
+                got = split(placed, **inp)
+            sync()
+            t3 = time.perf_counter()
+            launches = {k: n for k, n in launch_counts().items() if n}
+            serving.append({"model": name, "shape": shape,
+                            "serve_dtype": None if dtype is None else str(dtype).split(".")[-1],
+                            "rows": int(next(iter(inp.values())).shape[0]) if not retrieval
+                            else int(inp["candidates"].shape[0]),
+                            "bit_equal": bool(torch.equal(got, want)),
+                            "finite": bool(torch.isfinite(got).all()),
+                            "shape_out": list(got.shape), "launches": launches,
+                            "launches_shard": _shard_launches(), "full_tensor_calls": full["n"],
+                            "split_wall_ms": (t3 - t2) * 1e3,
+                            "unsharded_wall_ms": (t1 - t0) * 1e3})
+            del want, got, inp
+            _free(dev)
+        del params, placed
+        _free(dev)
+    opt = OptConfig(**TRAIN_OPT)
+    for name in MESH_RECSYS_TRAIN:
+        cfg = get_config(name)
+        if cfg.interaction == "dot":
+            cfg = dataclasses.replace(cfg, n_users=TRAIN_TT_VOCAB, n_items=TRAIN_TT_VOCAB)
+        params = steps.init_model_params(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                                         dev)
+        bspecs = input_specs_sharding_for(cfg, "train_batch", mesh, False)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 next(recsys_batches(cfg, TRAIN_TT_ROWS, seed=args.seed)).items() if k in bspecs}
+        bspecs = {k: bspecs[k] for k in batch}
+        specs = spmd.state_specs_for(cfg, spmd.meta_state(cfg, opt), mesh)
+        sharded = reshard(steps.init_state(params, opt), mesh, specs)
+        sstep = spmd.make_sharded_train_step(cfg, opt, mesh, specs, bspecs)
+        want_g = steps._grads(steps.loss_for(cfg), params, batch)[2]
+        with counted_full_tensor() as full_g:
+            got_g, _ = sstep.grads(sharded, batch)
+        grad_bad = [k for k in want_g if not torch.equal(want_g[k].float(), got_g[k])]
+        del want_g, got_g
+        state = steps.init_state(params, opt)
+        sync()
+        t0 = time.perf_counter()
+        state, m1 = steps.make_recsys_train_step(cfg, opt)(state, batch)
+        sync()
+        t1 = time.perf_counter()
+        reset_launch_counts()
+        with counted_full_tensor() as full_s:
+            sharded, m2 = sstep(sharded, batch)
+        sync()
+        t2 = time.perf_counter()
+        launches = {k: n for k, n in launch_counts().items() if n}
+        metric_bad = [k for k in m1 if not torch.equal(m1[k].float(), m2[k].float())]
+        state_bad = _equal_trees(flatten(state), flatten(sharded))
+        training.append({"model": name, "rows": TRAIN_TT_ROWS,
+                         "table_rows": {k: list(v.shape) for k, v in param_tree(params).items()
+                                        if k in sstep.split.sharded},
+                         "bit_equal": {"gradients": not grad_bad, "metrics": not metric_bad,
+                                       "state": not state_bad},
+                         "differ": grad_bad[:4] + metric_bad[:4] + state_bad[:4],
+                         "loss": float(m2["loss"]), "launches": launches,
+                         "launches_shard": _shard_launches(),
+                         "full_tensor_calls": full_g["n"] + full_s["n"],
+                         "split_wall_ms": (t2 - t1) * 1e3, "unsharded_wall_ms": (t1 - t0) * 1e3})
+        del params, state, sharded, sstep, batch
+        _free(dev)
+    for r in serving + training:
+        what = f"mesh {r['model']} {r.get('shape', 'train step')}"
+        equal = r["bit_equal"] if isinstance(r["bit_equal"], bool) else all(
+            r["bit_equal"].values())
+        require(equal, f"{what}: the split step differs from the unsharded kernel path "
+                f"{r.get('differ', '')}")
+        require(r["full_tensor_calls"] == 0, f"{what}: full_tensor called {r['full_tensor_calls']} "
+                f"times: a table was gathered")
+        if dev.type == "cuda":
+            require(0 < sum(r["launches_shard"].values()) == r["launches"]["embedding_bag"],
+                    f"{what}: embedding_bag launches {r['launches']}, shard mode "
+                    f"{r['launches_shard']}: every lookup must take the shard mode")
+            if r["model"] == "xdeepfm":
+                require(r["launches"].get("cin_layer", 0) == 3, f"{what}: cin_layer launches "
+                        f"{r['launches']}")
+    return {"serve": serving, "train": training}
+
+
+def mesh_gin(mesh, args, dev) -> dict:
+    """The GIN's graphs split over the mesh (``sharding.gnn_split``): the
+    train phase's sampled block (2,000-node graph, ``TRAIN_GIN_SEEDS`` seeds,
+    fanout (10, 5)), then a synthetic graph of ``ogb_products``' published
+    size cut by ``MESH_OGB_CUT`` (``data.graphs.synthetic_graph``, its edges
+    trimmed to the cut's count): the split gradients
+    (``spmd.make_sharded_train_step``) and one step of
+    ``make_gnn_train_step(..., shard_axes=, mesh=)`` against
+    ``make_gnn_train_step``'s from the same weights, bit for bit; no kernel
+    launch (the GIN has none) and no ``full_tensor``; the graph's build
+    seconds, the split step's own peak memory (``max_memory_allocated``
+    from a reset just before it: the state, the batch and the unsharded
+    step's result are resident) and the peak over the case's other runs
+    (the unsharded gradients and step, the split gradients)."""
+    from repro_torch.checkpoint.checkpointer import flatten, reshard
+    from repro_torch.configs import get_config
+    from repro_torch.data import graphs
+    from repro_torch.models import gnn, steps
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.compat import P
+    from repro_torch.train.optimizer import OptConfig, param_tree
+
+    cfg, opt = get_config("gin-tu"), OptConfig(**TRAIN_OPT)
+    axes = tuple(mesh.mesh_dim_names)
+    on_gpu = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_gpu else (lambda: None)
+    t0 = time.perf_counter()
+    g = graphs.synthetic_graph(2000, 8, 32, 5, args.seed)
+    cases = [("train block", next(graphs.graph_batches(g, TRAIN_GIN_SEEDS, (10, 5), args.seed)),
+              32, 5, time.perf_counter() - t0)]
+    n_full, e_full, d_feat, n_cls = MESH_OGB
+    n, e = n_full // MESH_OGB_CUT, e_full // MESH_OGB_CUT
+    t0 = time.perf_counter()
+    big = graphs.synthetic_graph(n, -(-e // n), d_feat, n_cls, args.seed)
+    mask = np.random.default_rng(args.seed).random(n) < MESH_OGB_TRAIN_SHARE
+    cases.append((f"ogb_products / {MESH_OGB_CUT}",
+                  {"node_feat": big.node_feat, "edge_src": big.edge_src[:e],
+                   "edge_dst": big.edge_dst[:e], "labels": big.labels, "train_mask": mask},
+                  d_feat, n_cls, time.perf_counter() - t0))
+    del big, g
+    out = []
+    for what, batch, d, c, build_s in cases:
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+        params = gnn.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), d, c,
+                                 dev)
+        shapes = {k: tuple(v.shape) for k, v in param_tree(params).items()}
+        specs = spmd.state_specs_for(cfg, steps.init_state(params, opt), mesh)
+        sharded = reshard(steps.init_state(params, opt), mesh, specs)
+        if on_gpu:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        want_g = steps._grads(steps.loss_for(cfg), params, gnn.pad_graph_batch(batch, 1))[2]
+        grads = spmd.make_sharded_train_step(cfg, opt, mesh, specs, {k: P(axes) for k in batch},
+                                             shard_axes=axes, pad_multiple=1,
+                                             shapes=shapes).grads
+        with counted_full_tensor() as full_g:
+            got_g, _ = grads(sharded, batch)
+        grad_bad = [k for k in want_g if not torch.equal(want_g[k].float(), got_g[k])]
+        del want_g, got_g
+        state = steps.init_state(params, opt)
+        sync()
+        t1 = time.perf_counter()
+        state, m1 = steps.make_gnn_train_step(cfg, opt, pad_multiple=1)(state, batch)
+        sync()
+        t2 = time.perf_counter()
+        entry = steps.make_gnn_train_step(cfg, opt, pad_multiple=1, shard_axes=axes, mesh=mesh)
+        if on_gpu:
+            others_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        with counted_full_tensor() as full_s:
+            sharded, m2 = entry(sharded, batch)
+        sync()
+        t3 = time.perf_counter()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        metric_bad = [k for k in m1 if not torch.equal(m1[k].float(), m2[k].float())]
+        state_bad = _equal_trees(flatten(state), flatten(sharded))
+        out.append({"graph": what, "nodes": int(batch["node_feat"].shape[0]),
+                    "edges": int(batch["edge_src"].shape[0]), "d_feat": d, "classes": c,
+                    "build_s": build_s,
+                    "bit_equal": {"gradients": not grad_bad, "metrics": not metric_bad,
+                                  "state": not state_bad},
+                    "differ": grad_bad[:4] + metric_bad[:4] + state_bad[:4],
+                    "loss": float(m2["loss"]), "launches": launches,
+                    "full_tensor_calls": full_g["n"] + full_s["n"],
+                    "max_memory_allocated": torch.cuda.max_memory_allocated() if on_gpu else None,
+                    "others_max_memory_allocated": others_peak if on_gpu else None,
+                    "split_step_wall_ms": (t3 - t2) * 1e3,
+                    "unsharded_step_wall_ms": (t2 - t1) * 1e3})
+        del batch, params, state, sharded
+        _free(dev)
+    for r in out:
+        require(all(r["bit_equal"].values()), f"mesh gin {r['graph']}: the split step differs "
+                f"from the unsharded one in {r['differ']}")
+        require(r["full_tensor_calls"] == 0 and not r["launches"],
+                f"mesh gin {r['graph']}: full_tensor {r['full_tensor_calls']}, launches "
+                f"{r['launches']}")
+    if on_gpu:
+        require(out[-1]["max_memory_allocated"] < 60 * 2**30,
+                f"mesh gin: the ogb_products split step peaked at "
+                f"{out[-1]['max_memory_allocated']} bytes, past 60 GB")
+    return {"graphs": out, "cut": f"ogb_products' nodes and edges / {MESH_OGB_CUT}"}
+
+
 def mesh_phase(args, dev, built: dict, cut: dict | None) -> dict:
     """The mesh tier on the card over NCCL with a world of one (see the
     module docstring): the partitioned server, the sharded LM / MoE train
@@ -5679,6 +6080,13 @@ def mesh_phase(args, dev, built: dict, cut: dict | None) -> dict:
         compression = mesh_compression(mesh, psum_grads, args.reps)
         del psum_grads
         _free(dev)
+        t5 = time.perf_counter()
+        recsys = mesh_recsys(mesh, args, dev)
+        _free(dev)
+        t6 = time.perf_counter()
+        gin = mesh_gin(mesh, args, dev)
+        _free(dev)
+        t7 = time.perf_counter()
         ckpt = mesh_checkpoint(mesh, args, dev)
         mesh_desc = {"shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names),
                      "device_type": mesh.device_type}
@@ -5690,11 +6098,18 @@ def mesh_phase(args, dev, built: dict, cut: dict | None) -> dict:
                 + served("flash_attention_tpu"),
                 "moe_gemm": sum(r["launches"]["moe_gemm"] for r in lms) + served("moe_gemm"),
                 "flash_decode_partial": served("flash_decode_partial")}
+    split_runs = recsys["serve"] + recsys["train"]
+    for k in ("embedding_bag", "cin_layer"):
+        launches[k] = sum(r["launches"].get(k, 0) for r in split_runs)
+    shard = {route: sum(r["launches_shard"][route] for r in split_runs)
+             for route in split_runs[0]["launches_shard"]}
     return {"backend": backend, "world_size": 1, "mesh": mesh_desc,
             "partitioned": part, "train": lms, "serve": serving, "compression": compression,
-            "checkpoint": ckpt, "launches": launches,
+            "recsys": recsys, "gin": gin, "checkpoint": ckpt, "launches": launches,
+            "launches_shard": shard,
             "queries_s": t1 - t0, "partitioned_s": t2 - t1, "train_s": t3 - t2,
-            "serve_s": t4 - t3, "phase_s": time.perf_counter() - t1}
+            "serve_s": t4 - t3, "recsys_s": t6 - t5, "gin_s": t7 - t6,
+            "phase_s": time.perf_counter() - t1}
 
 
 DRIVERS_DIR = ROOT / "build" / "drivers"
@@ -6122,6 +6537,11 @@ def main() -> int:
     require(all(r["within_tolerance"] for r in moe_attn),
             f"an attention kernel at the moe_serve path is outside its tolerance: {moe_attn}")
     model_edges = model_kernel_edge_cases(dev, args.seed)
+    # row 9's shard mode: its edges, then two-tower's table in 16 row shards
+    shard_edges = embedding_bag_shard_edge_cases(dev, args.seed)
+    model_edges += shard_edges
+    shard_path = embedding_bag_shard_path(dev, args.seed, args.reps)
+    torch.cuda.empty_cache()
     model_path = rec_path + moe_path
     bad = [r for r in model_edges + model_path if not r["within_tolerance"]]
     emit("model_kernels", card=card,
@@ -6136,7 +6556,10 @@ def main() -> int:
          limit_used={k: max(r["limit_used"] for r in model_edges + model_path
                             if r["kernel"] == k) for k in MODEL_KERNELS},
          by_route=by_route(model_edges + model_path, ("limit_used",)),
-         at_path=model_path)
+         at_path=model_path,
+         embedding_bag_shard_mode={"edge_cases": len(shard_edges),
+                                   "by_route": by_route(shard_edges, ("max_abs_err",)),
+                                   "at_path": shard_path})
     require(not bad, f"{len(bad)} model-side kernel outputs outside their tolerance, "
             f"first {bad[:2]}")
     torch.cuda.empty_cache()
@@ -6242,7 +6665,14 @@ def main() -> int:
                        for x in model_path if x["kernel"] == name and "ms" in x}
             kernels[-1].update(kernel_route=r["route"], design_ceiling_ms=r["design_ceiling_ms"],
                                launches_by_route=rec["launches_by_route"][name],
-                               at_path=lookups)
+                               at_path=lookups,
+                               # the shard mode: launched by the mesh phase's split
+                               # recsys steps, timed at two-tower's shard shape
+                               launches_shard=mesh["launches_shard"],
+                               shard_mode={k: shard_path[k] for k in
+                                           ("ms", "call_ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms", "whole_table_ms",
+                                            "shape", "at")})
         elif name in ROUTED_KERNELS:
             kernels[-1].update(kernel_route=r["route"], launches_by_route={
                 phase: by[name] for phase, by in moe["launches_by_route"].items()})

@@ -11,6 +11,13 @@
 //   order, so the two agree bit for bit).  A row outside [0, V) is never
 //   read: it makes its bag's sums NaN (jnp.take fills such rows with NaN).
 //
+//   Shard mode: `table` holds rows [row_start, row_start + V) of a table of
+//   n_rows rows (row-sharded over a mesh axis).  An id in the shard reads
+//   row id - row_start; an id in [0, n_rows) outside the shard adds exactly
+//   0.0 and reads nothing; an id outside [0, n_rows) makes its bag NaN, on
+//   every shard.  row_start = 0, n_rows = V is the whole table (the same
+//   bits as before the mode existed).
+//
 // The Pallas kernel walks one lookup per grid step, fetching the addressed
 // row by scalar prefetch into VMEM and accumulating into the bag's output
 // row in place, with D padded to 128 lanes.  No padding here (xDeepFM's D is
@@ -130,7 +137,8 @@ template <typename T, int V, int kItems, int kUnroll>
 __global__ void __launch_bounds__(kThreads)
 embedding_bag_kernel(const int* __restrict__ idx, const T* __restrict__ table,
                      float* __restrict__ out, long long n_bags, int bag, int d, long long v,
-                     long long row_stride, int units, int tile_bags, int stride,
+                     long long row_stride, long long row_start, long long n_rows, int units,
+                     int tile_bags, int stride,
                      FastDiv by_units, FastDiv by_bag) {
   extern __shared__ int staged[];
   const int tid = threadIdx.x;
@@ -176,12 +184,15 @@ embedding_bag_kernel(const int* __restrict__ idx, const T* __restrict__ table,
           for (int k = 0; k < kItems; ++k) {
             if (e0 + u < n_s) {
               // an item past the tile reads nothing and adds NaN to a sum never stored
-              const long long r = on[k] ? staged[bl[k] * stride + e0 + u] : -1;
-              if (r >= 0 && r < v) {
+              const long long id = on[k] ? staged[bl[k] * stride + e0 + u] : -1;
+              const long long r = id - row_start;
+              if (id >= 0 && id < n_rows && r >= 0 && r < v) {
                 load_vec<T, V>(table + r * row_stride + col[k], x[u][k]);
               } else {
+                // another shard's row adds 0; an id outside the table, NaN
+                const float fill = id >= 0 && id < n_rows ? 0.f : nan;
 #pragma unroll
-                for (int t = 0; t < V; ++t) x[u][k][t] = nan;
+                for (int t = 0; t < V; ++t) x[u][k][t] = fill;
               }
             }
           }
@@ -207,7 +218,8 @@ embedding_bag_kernel(const int* __restrict__ idx, const T* __restrict__ table,
 
 template <typename T, int V, int kItems, int kUnroll>
 cudaError_t launch_items(const int* idx, const void* table, float* out, long long n_bags,
-                         int bag, int d, long long v, long long row_stride, cudaStream_t stream) {
+                         int bag, int d, long long v, long long row_stride, long long row_start,
+                         long long n_rows, cudaStream_t stream) {
   const int units = d / V;
   const int tile_bags = units >= kThreads * kItems ? 1 : kThreads * kItems / units;
   const long long blocks = (n_bags + tile_bags - 1) / tile_bags;
@@ -218,39 +230,43 @@ cudaError_t launch_items(const int* idx, const void* table, float* out, long lon
   const size_t smem = static_cast<size_t>(tile_bags) * stride * sizeof(int);
   embedding_bag_kernel<T, V, kItems, kUnroll>
       <<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
-      idx, static_cast<const T*>(table), out, n_bags, bag, d, v, row_stride, units, tile_bags,
-      stride, make_div(static_cast<unsigned int>(units)),
+      idx, static_cast<const T*>(table), out, n_bags, bag, d, v, row_stride, row_start, n_rows,
+      units, tile_bags, stride, make_div(static_cast<unsigned int>(units)),
       make_div(static_cast<unsigned int>(bag > 0 ? bag : 1)));
   return cudaGetLastError();
 }
 
 template <typename T, int V>
 cudaError_t launch(const int* idx, const void* table, float* out, long long n_bags, int bag,
-                   int d, long long v, long long row_stride, cudaStream_t stream) {
+                   int d, long long v, long long row_stride, long long row_start,
+                   long long n_rows, cudaStream_t stream) {
   // bags of one: 8 rows in flight a thread, at most 16 floats of them; longer
   // bags: kUnroll positions of 4 items (2 for wide vectors), 32 floats or 16
   constexpr int kOne = V <= 2 ? 8 : 16 / V;
   constexpr int kLong = V <= 2 ? 4 : 2;
   constexpr int kUnroll = V >= kChunk ? 1 : kChunk / V;
   return bag <= 1 ? launch_items<T, V, kOne, 1>(idx, table, out, n_bags, bag, d, v, row_stride,
-                                                stream)
+                                                row_start, n_rows, stream)
                   : launch_items<T, V, kLong, kUnroll>(idx, table, out, n_bags, bag, d, v,
-                                                       row_stride, stream);
+                                                       row_stride, row_start, n_rows, stream);
 }
 
 }  // namespace
 
-// (idx, table, out, n_bags, bag, d, v, row_stride, dtype, route, stream)
+// (idx, table, out, n_bags, bag, d, v, row_stride, row_start, n_rows, dtype,
+//  route, stream)
 // route: 0 element loads, 1 8-byte loads, 2 16-byte loads; a vector route
 // needs D, the row stride and the table's address to be whole vectors
-// (else refused: the wrapper picks the route).
+// (else refused: the wrapper picks the route).  The shard [row_start,
+// row_start + v) must lie inside [0, n_rows) (else refused).
 extern "C" int embedding_bag_launch(const int* idx, const void* table, float* out,
                                     long long n_bags, int bag, int d, long long v,
-                                    long long row_stride, int dtype, int route,
+                                    long long row_stride, long long row_start,
+                                    long long n_rows, int dtype, int route,
                                     cudaStream_t stream) {
   if (n_bags <= 0 || d <= 0) return 0;
   if (bag < 0 || v < 0 || row_stride < 0 || (dtype != kF32 && dtype != kBF16) || route < 0 ||
-      route > 2) {
+      route > 2 || row_start < 0 || n_rows < 0 || row_start > n_rows - v) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int size = dtype == kF32 ? 4 : 2;
@@ -260,15 +276,20 @@ extern "C" int embedding_bag_launch(const int* idx, const void* table, float* ou
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   cudaError_t err;
+  const long long s0 = row_start, n = n_rows;
   if (dtype == kF32) {
-    err = route == 0 ? launch<float, 1>(idx, table, out, n_bags, bag, d, v, row_stride, stream)
-        : route == 1 ? launch<float, 2>(idx, table, out, n_bags, bag, d, v, row_stride, stream)
-                     : launch<float, 4>(idx, table, out, n_bags, bag, d, v, row_stride, stream);
+    err = route == 0   ? launch<float, 1>(idx, table, out, n_bags, bag, d, v, row_stride, s0, n,
+                                          stream)
+          : route == 1 ? launch<float, 2>(idx, table, out, n_bags, bag, d, v, row_stride, s0, n,
+                                          stream)
+                       : launch<float, 4>(idx, table, out, n_bags, bag, d, v, row_stride, s0, n,
+                                          stream);
   } else {
     using B = __nv_bfloat16;
-    err = route == 0 ? launch<B, 1>(idx, table, out, n_bags, bag, d, v, row_stride, stream)
-        : route == 1 ? launch<B, 4>(idx, table, out, n_bags, bag, d, v, row_stride, stream)
-                     : launch<B, 8>(idx, table, out, n_bags, bag, d, v, row_stride, stream);
+    const long long rs = row_stride;
+    err = route == 0   ? launch<B, 1>(idx, table, out, n_bags, bag, d, v, rs, s0, n, stream)
+          : route == 1 ? launch<B, 4>(idx, table, out, n_bags, bag, d, v, rs, s0, n, stream)
+                       : launch<B, 8>(idx, table, out, n_bags, bag, d, v, rs, s0, n, stream);
   }
   return static_cast<int>(err);
 }

@@ -75,8 +75,9 @@ SIGNATURES = {
     #  v strides b/s/k, stream)
     "flash_decode_partial_launch": (_P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _I, _F, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _P),
-    # (idx, table, out, n_bags, bag, D, V, row stride, dtype, route, stream)
-    "embedding_bag_launch": (_P, _P, _P, _L, _I, _I, _L, _L, _I, _I, _P),
+    # (idx, table, out, n_bags, bag, D, V, row stride, row_start, n_rows, dtype, route,
+    #  stream)
+    "embedding_bag_launch": (_P, _P, _P, _L, _I, _I, _L, _L, _L, _L, _I, _I, _P),
     # (x0, xk, w, out, B, m, Hk, H, D, stream)
     "cin_layer_launch": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     # (buf, w, out, E, C, D, F, buf dtype, w dtype, route, stream)

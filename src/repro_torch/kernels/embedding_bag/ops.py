@@ -13,6 +13,15 @@ outside ``[0, V)`` is never read: its bag comes out NaN, as the reference's
 their indices first, as ``models.recsys`` does).  Unlike the reference's
 op, the table is not padded to 128 columns.
 
+Shard mode (``row_start``, ``n_rows``): ``table`` holds rows ``[row_start,
+row_start + V)`` of a table of ``n_rows`` rows, as a rank holds its shard of
+a table row-sharded over a mesh axis (``sharding.recsys_split``).  An id in
+the shard reads its row; an id in ``[0, n_rows)`` outside the shard adds
+exactly 0.0 and is never read; an id outside ``[0, n_rows)`` makes its bag
+NaN on every shard.  The defaults (``row_start=0``, ``n_rows=V``) are the
+whole table, bit for bit as before.  A call that passes ``n_rows`` or a
+non-zero ``row_start`` is a shard-mode launch (``launches_shard``).
+
 Training goes through :class:`EmbeddingBag`: its forward is the kernel (or
 whatever lookup the caller passes), its backward
 :func:`embedding_bag_backward`, the table gradient summed by
@@ -44,20 +53,37 @@ def _flat(indices: torch.Tensor, table: torch.Tensor, bag_size: int):
     return indices, indices.shape[0] // bag_size, bag_size
 
 
-def embedding_bag_torch(indices: torch.Tensor, table: torch.Tensor,
-                        bag_size: int = 1) -> torch.Tensor:
+def _shard(table: torch.Tensor, row_start: int, n_rows: int | None) -> int:
+    """The whole table's row count, once the shard ``[row_start, row_start +
+    V)`` is checked to lie inside it."""
+    v = table.shape[0]
+    n = v if n_rows is None else int(n_rows)
+    if row_start < 0 or row_start + v > n:
+        raise ValueError(f"a shard of {v} rows at row {row_start} does not lie inside a table "
+                         f"of {n} rows")
+    return n
+
+
+def embedding_bag_torch(indices: torch.Tensor, table: torch.Tensor, bag_size: int = 1,
+                        row_start: int = 0, n_rows: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`embedding_bag`: the bag's rows
-    gathered at once, then added to a float32 zero one position at a time."""
+    gathered at once, then added to a float32 zero one position at a time
+    (another shard's row as 0.0, an id outside the table as NaN)."""
     idx, n_bags, bag = _flat(indices, table, bag_size)
+    n = _shard(table, row_start, n_rows)
     v, d = table.shape
     idx = idx.long().reshape(n_bags, bag)
-    live = (idx >= 0) & (idx < v)
+    live = (idx >= 0) & (idx < n)
+    local = idx - row_start
+    inside = live & (local >= 0) & (local < v)
     safe = table if v else table.new_zeros((1, d))
-    rows = safe[torch.where(live, idx, 0)]
+    rows = safe[torch.where(inside, local, 0)]
     out = torch.zeros((n_bags, d), dtype=torch.float32, device=table.device)
     nan = torch.tensor(float("nan"), device=table.device)
+    zero = torch.tensor(0.0, device=table.device)
     for s in range(bag):
-        out = out + torch.where(live[:, s, None], rows[:, s].float(), nan)
+        fill = torch.where(live[:, s, None], zero, nan)
+        out = out + torch.where(inside[:, s, None], rows[:, s].float(), fill)
     return out
 
 
@@ -79,24 +105,29 @@ def embedding_bag_route(table: torch.Tensor) -> str:
     return "scalar"
 
 
-def embedding_bag(indices: torch.Tensor, table: torch.Tensor, bag_size: int = 1) -> torch.Tensor:
+def embedding_bag(indices: torch.Tensor, table: torch.Tensor, bag_size: int = 1,
+                  row_start: int = 0, n_rows: int | None = None) -> torch.Tensor:
     """indices (n_bags, bag) — or flat, with ``bag_size`` — of any integer
     dtype (cast to int32, as the reference's op does); table (V, D) ->
-    (n_bags, D) float32 bag sums.
+    (n_bags, D) float32 bag sums; ``row_start`` / ``n_rows``: the shard mode
+    (module docstring).
 
     The kernel takes a float32 or bfloat16 table whose columns are
     contiguous (its rows may lie any stride apart: ``linear[:, None]`` is
     read in place) and indices on the table's device.  It has no backward:
-    a call that would need one is refused.
+    a call that would need one is refused.  A shard that does not lie
+    inside ``[0, n_rows)`` is refused before the launch.
     """
     if table.device.type == "cpu":
-        return embedding_bag_torch(indices, table, bag_size)
+        return embedding_bag_torch(indices, table, bag_size, row_start, n_rows)
     cuda_build.require_cuda("table", table)
     dtype = cuda_build.require_float("table", table, 2)
     idx, n_bags, bag = _flat(indices, table, bag_size)
     if idx.device != table.device:
         raise ValueError(f"indices lie on {idx.device}, the table on {table.device}")
     cuda_build.require_no_grad("embedding_bag", table)
+    n = _shard(table, row_start, n_rows)
+    shard = n_rows is not None or row_start != 0
     idx = idx.to(torch.int32).contiguous()
     v, d = table.shape
     out = torch.empty((n_bags, d), dtype=torch.float32, device=table.device)
@@ -106,18 +137,21 @@ def embedding_bag(indices: torch.Tensor, table: torch.Tensor, bag_size: int = 1)
     lib = cuda_build.load()
     with torch.cuda.device(table.device):
         code = lib.embedding_bag_launch(idx.data_ptr(), table.data_ptr(), out.data_ptr(),
-                                        n_bags, bag, d, v, table.stride(0), dtype,
-                                        ROUTE_CODES[route], cuda_build.stream_ptr())
+                                        n_bags, bag, d, v, table.stride(0), row_start, n,
+                                        dtype, ROUTE_CODES[route], cuda_build.stream_ptr())
     cuda_build.check(code, f"embedding_bag ({route})")
     embedding_bag.launches += 1
     embedding_bag.launches_by_route[route] += 1
+    if shard:
+        embedding_bag.launches_shard[route] += 1
     return out
 
 
-#: kernel launches made by the wrapper, in all and by load route (never
-#: raised by the plain version)
+#: kernel launches made by the wrapper, in all, by load route, and those of
+#: the shard mode by load route (never raised by the plain version)
 embedding_bag.launches = 0
 embedding_bag.launches_by_route = dict.fromkeys(ROUTE_CODES, 0)
+embedding_bag.launches_shard = dict.fromkeys(ROUTE_CODES, 0)
 
 
 def embedding_bag_backward(indices: torch.Tensor, dout: torch.Tensor, n_rows: int,
@@ -134,19 +168,26 @@ def embedding_bag_backward(indices: torch.Tensor, dout: torch.Tensor, n_rows: in
 
 
 class EmbeddingBag(torch.autograd.Function):
-    """``EmbeddingBag.apply(indices, table, bag_size, lookup)``: ``lookup(indices,
-    table, bag_size)`` (default :func:`embedding_bag`: the kernel on CUDA)
-    as the forward, float32 (n_bags, D); the table gradient by
-    :func:`embedding_bag_backward`, in the table's dtype."""
+    """``EmbeddingBag.apply(indices, table, bag_size, lookup, row_start,
+    n_rows)``: ``lookup(indices, table, bag_size, row_start, n_rows)``
+    (default :func:`embedding_bag`: the kernel on CUDA) as the forward,
+    float32 (n_bags, D);
+    the table gradient by :func:`embedding_bag_backward`, in the table's
+    dtype: for a shard, into its own rows only (the ids shifted by
+    ``row_start``, those outside the shard dropped)."""
 
     @staticmethod
-    def forward(ctx, indices, table, bag_size: int = 1, lookup=None):
+    def forward(ctx, indices, table, bag_size: int = 1, lookup=None, row_start: int = 0,
+                n_rows: int | None = None):
         ctx.save_for_backward(indices)
         ctx.n_rows, ctx.bag, ctx.dtype = table.shape[0], bag_size, table.dtype
-        return (lookup or embedding_bag)(indices, table, bag_size)
+        ctx.row_start = row_start
+        return (lookup or embedding_bag)(indices, table, bag_size, row_start, n_rows)
 
     @staticmethod
     def backward(ctx, dout):
         indices, = ctx.saved_tensors
+        if ctx.row_start:
+            indices = indices.long() - ctx.row_start
         grad = embedding_bag_backward(indices, dout, ctx.n_rows, ctx.bag)
-        return None, grad.to(ctx.dtype), None, None
+        return None, grad.to(ctx.dtype), None, None, None, None

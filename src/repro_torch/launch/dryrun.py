@@ -18,9 +18,16 @@ tensors placed as DTensors by the reference's partition specs
   ``"data"`` (FSDP) and ``"model"``, each layer checkpointed as
   ``cfg.remat`` says (the recompute is counted), gradients reduce-scattered
   into float32 shards, the update of the rank's shards;
-* the other train cells: the same factory's gathered step (gather the
-  weights, slice the batch, loss and gradients, the float32 gradient
-  all-reduce, the update of the rank's shards);
+* the recsys train cells: the same factory's split step
+  (:mod:`repro_torch.sharding.recsys_split`): the rank's rows over the data
+  axes, looked up on its shards of the tables row-sharded over
+  ``"model"`` (partials summed over ``"model"``), two-tower's items gathered
+  over the data axes, gradients summed over the data axes, the update of
+  the rank's shards; no table is gathered;
+* the GIN cells: the same factory's split step
+  (:mod:`repro_torch.sharding.gnn_split`): a node-level graph padded and
+  split over every axis (each layer's ``h @ w1`` all-gathered, its messages'
+  partials reduce-scattered), ``molecule`` split by examples;
 * LM prefill / decode cells: :mod:`repro_torch.sharding.lm_serve`'s split
   steps (the train step's plan, without autograd): the prefill on the
   rank's rows and T / m tokens, its heads, FFN columns and experts, the
@@ -29,10 +36,12 @@ tensors placed as DTensors by the reference's partition specs
   (``decode_32k``: its rows and T / m rows; ``long_500k``: its T slice of
   the one row), which is never gathered, every head's partial attention
   joined over the axes that split T;
-* the other serve cells: the port's serving step on whole gathered weights
-  and the rank's rows of the inputs (every other sharded dimension of an
-  input gathered): recsys serving stays data-parallel over gathered
-  weights.
+* the recsys serve cells: :func:`repro_torch.sharding.recsys_split.
+  make_sharded_recsys_serve_step` as the reference's dry-run builds its
+  step (``cand_shard_axes`` every axis, ``cand_pad_multiple`` 16 a rank,
+  bf16 retrieval): the rank's rows over the data axes, or its slice of the
+  candidates over every axis, looked up on its table shards; the scores
+  gathered over the candidates' axes.
 
 Every model op runs the plain PyTorch route, named in the call
 (``attention="torch"`` for the LMs and their MoE products; the recsys
@@ -54,14 +63,18 @@ What a record holds, against the reference's:
 * ``memory``: the port's own model of a rank's bytes, in parts:
   ``state_bytes`` (its shards of the parameters and the optimiser state),
   ``input_bytes`` (the batch, or its shards of the serving inputs),
-  ``gathered_weight_bytes`` (the weights gathered whole; for the LM split
-  steps the largest set gathered at once: the embedding and head and one
-  layer's gathered weights, :func:`lm_train_parts`), ``output_bytes``
-  (what the step returns beside its inputs: the LM prefill's logits and
-  cache, a decode's logits; 0 for a train step, which updates its state in
-  place), ``grad_bytes`` (a
-  train step's float32 gradient: whole for the gathered step, the rank's
-  shards plus one layer's float32 transient for the LM step),
+  ``gathered_weight_bytes`` (the weights gathered whole: none for the
+  recsys and GIN split steps and the uihrdc index's expansion table; for
+  the LM split steps the largest set gathered at once: the embedding and
+  head and one layer's gathered weights, :func:`lm_train_parts`),
+  ``output_bytes`` (what the step returns beside its inputs: the LM
+  prefill's logits and cache, a decode's logits, a recsys step's scores; 0
+  for a train step, which updates its state in place), ``grad_bytes`` (a
+  train step's float32 gradient: the rank's shards plus, for the LM step,
+  one layer's float32 transient, for the recsys and GIN steps the largest
+  float32 rows a sparse backward holds at once: a table gradient's rows a
+  lookup, ``EmbeddingBag``'s, or the GIN's messages, ``GatherRows``', as
+  the step's split reports them in the counted run),
   ``saved_activation_bytes`` (what autograd saves for the backward,
   weights excluded, from ``saved_tensors_hooks``; under remat those hooks
   see only what is saved outside the checkpointed layers, so the LM train
@@ -105,10 +118,10 @@ from ..kernels.cin_interaction.ops import cin_layer_torch
 from ..kernels.embedding_bag.ops import embedding_bag_torch
 from ..models import recsys
 from ..models import steps as steps_mod
-from ..sharding import lm_serve, spmd, tp
+from ..sharding import lm_serve, recsys_split, spmd, tp
 from ..sharding.compat import NamedSharding, P, place
 from ..sharding.specs import best_div_axes, input_specs_sharding_for, param_specs_for
-from ..train.optimizer import OptConfig, param_tree
+from ..train.optimizer import OptConfig
 from .hlo_analysis import roofline_terms
 from .hlo_cost import HLOCost
 from .mesh import make_production_mesh
@@ -313,6 +326,11 @@ class Cell:
     #: ``output_bytes`` by :func:`count_cell`
     outputs: object = None
     output_bytes: int = 0
+    #: a split recsys / GIN train cell: ``{"bytes": n}``, the largest float32
+    #: rows a sparse backward holds at once, as the step's split reports them
+    #: (``on_rows``) in the counted run; :func:`count_cell` adds them to
+    #: ``grad_bytes``
+    sparse_rows: dict | None = None
 
 
 def _named(mesh, spec_tree):
@@ -335,22 +353,6 @@ def _rank_rows(t: DTensor, row_dim: int) -> torch.Tensor:
     keep = tuple(p if isinstance(p, Shard) and p.dim == row_dim else Replicate()
                  for p in t.placements)
     return t.redistribute(t.device_mesh, keep).to_local()
-
-
-def _gathered_model(cfg, shape_name, placed: dict):
-    """A ``meta`` model's parameters and a step prologue that fills the
-    model with the whole weights gathered from ``placed`` (``{path:
-    DTensor}``) and returns it."""
-    work = steps_mod.init_model_params(cfg, None, "meta", shape_name)
-    work_params = param_tree(work)
-
-    def gather():
-        with torch.no_grad():
-            for k, p in work_params.items():
-                p.copy_(placed[k].full_tensor())
-        return work
-
-    return work_params, gather
 
 
 def _mesh_size(mesh, axes) -> int:
@@ -394,35 +396,66 @@ def build_cell(arch: str, shape_name: str, mesh, multi_pod: bool, cfg=None) -> C
         step = spmd.make_sharded_train_step(cfg, opt_cfg, mesh, sspecs, in_specs,
                                             shape_name=shape_name, attention=attention,
                                             device="meta")
-        work_params = param_tree(step.work)
-        n_params = sum(p.numel() for p in param_tree(state["params"]).values())
-        if isinstance(cfg, GNNConfig) and inputs["node_feat"].dim() == 2:
-            notes.append("one graph: its nodes are not split over ranks, every rank "
-                         "computes the whole graph (spmd's loss does not split it)")
+        local = {k: v.to_local() for k, v in placed["params"].items()}
+        if isinstance(cfg, GNNConfig):
+            notes.append(_gnn_note(cfg, shape_name, inputs, step.split))
+        else:
+            notes.append(_recsys_note(step.split))
+        rows = {"bytes": 0}
+        step.split.on_rows = lambda b: rows.update(bytes=max(rows["bytes"], b))
+
         def run():
             with plain_recsys_route():
                 return step(placed, inputs)
 
-        return Cell(run=run, work_params=work_params,
+        return Cell(run=run, work_params=local,
                     state_bytes=_local_bytes({"params": placed["params"],
                                               "opt": placed["opt"]}),
-                    input_bytes=_nbytes(inputs), grad_bytes=4 * n_params, notes=notes)
+                    input_bytes=_nbytes(inputs), grad_bytes=4 * sum(
+                        t.numel() for t in local.values()), notes=notes, gathered_bytes=0,
+                    sparse_rows=rows)
 
     params = steps_mod.init_model_params(cfg, None, "meta", shape_name)
     pspecs = param_specs_for(cfg, params, mesh, multi_pod)
     placed = place(params, _named(mesh, pspecs))
     placed_in = {k: _place_leaf(v, mesh, in_specs[k]) for k, v in inputs.items()}
-    work_params, gather = _gathered_model(cfg, shape_name, placed)
     retrieval = kind == "retrieval"
-    serve = steps_mod.make_recsys_serve_step(
-        cfg, retrieval=retrieval, serve_dtype=torch.bfloat16 if retrieval else None)
+    names = tuple(mesh.mesh_dim_names)
+    serve = recsys_split.make_sharded_recsys_serve_step(
+        cfg, mesh, pspecs, in_specs, retrieval=retrieval, cand_shard_axes=names,
+        cand_pad_multiple=16 * math.prod(mesh.shape),
+        serve_dtype=torch.bfloat16 if retrieval else None, device="meta")
+    notes.append(_recsys_note(serve.plan)
+                 + ("; candidates over every axis, scores gathered" if retrieval else ""))
+    if retrieval:
+        casts = sum(t.to_local().numel() * 2 for t in placed.values() if t.dtype == torch.float32)
+        notes.append(f"serve_dtype bf16: the rank's shards cast, {casts} bytes (not a part)")
 
     def run():
         with plain_recsys_route():
-            return serve(gather(), **{k: _rank_rows(v, 0) for k, v in placed_in.items()})
+            return serve(placed, **inputs)
 
-    return Cell(run=run, work_params=work_params, state_bytes=_local_bytes(placed),
-                input_bytes=_local_bytes(placed_in), grad_bytes=0, notes=notes)
+    return Cell(run=run, work_params={}, state_bytes=_local_bytes(placed),
+                input_bytes=_local_bytes(placed_in), grad_bytes=0, notes=notes,
+                gathered_bytes=0, outputs=_nbytes)
+
+
+def _recsys_note(plan) -> str:
+    sharded = sorted(plan.sharded)
+    replicated = [k for k in plan.tables if k not in plan.sharded]
+    return (f"split: tables row-sharded over 'model' {sharded or 'none'}"
+            + (f", replicated {replicated} (rows not a multiple of the model axis)"
+               if replicated else "") + "; rows over the data axes; no table gathered")
+
+
+def _gnn_note(cfg, shape_name: str, inputs: dict, split) -> str:
+    if inputs["node_feat"].dim() == 3:
+        return "split: the graphs by examples over the batch's axes"
+    n, e = inputs["node_feat"].shape[0], inputs["edge_src"].shape[0]
+    pad = lambda x: -(-x // split.n) * split.n  # noqa: E731
+    return (f"split: {pad(n) // split.n} of {n} nodes and {pad(e) // split.n} of {e} edges "
+            f"a rank over {list(split.axes)} (padded to a multiple of {split.n}); h @ w1 "
+            f"all-gathered, message partials reduce-scattered each layer")
 
 
 def _lm_train_cell(cfg, shape_name: str, mesh, multi_pod: bool, in_specs: dict,
@@ -581,6 +614,8 @@ def count_cell(cell: Cell) -> tuple[HLOCost, int]:
     splits = () if cell.split is None else (cell.split,)
     with FlopCounterMode(display=False) as flop_mode, cost_mode, saved.hooks(*splits):
         out = cell.run()
+    if cell.sparse_rows is not None:
+        cell.grad_bytes += cell.sparse_rows["bytes"]
     cell.output_bytes = 0 if cell.outputs is None else cell.outputs(out)
     hc = HLOCost(flops=float(flop_mode.get_total_flops()), hbm_bytes=float(cost_mode.hbm_bytes),
                  collective_bytes=float(sum(cost_mode.bytes_by_op.values())),

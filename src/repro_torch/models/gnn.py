@@ -95,24 +95,33 @@ def gnn_params_from_reference(cfg: GNNConfig, params: dict, device="cuda") -> GI
 
 
 def _gin_layer(lp, h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-               n_nodes: int) -> torch.Tensor:
+               n_nodes: int, split=None) -> torch.Tensor:
     # W1 before the gather / scatter (W1 sum_u h_u == sum_u W1 h_u); messages
     # rounded to bf16, summed in float32 (autograd rounds each message's
-    # gradient to bf16 too, as the reference's two casts do)
+    # gradient to bf16 too, as the reference's two casts do).  On a split
+    # graph h and the result are the rank's nodes, src / dst its edges: hw is
+    # gathered from every rank and the float32 partial over every node
+    # reduce-scattered back
     hw = h @ lp["w1"]
-    msg = SegmentSum.apply(GatherRows.apply(hw, src).to(torch.bfloat16).float(), dst, n_nodes)
+    every = hw if split is None else split.gather(hw)
+    msg = SegmentSum.apply(GatherRows.apply(every, src).to(torch.bfloat16).float(), dst, n_nodes)
+    if split is not None:
+        msg = split.scatter(msg)
     z = (1.0 + lp["eps"]) * hw + msg
     z = F.relu(z + lp["b1"])
     return F.relu(z @ lp["w2"] + lp["b2"])
 
 
 def forward_node(cfg: GNNConfig, params: GIN, node_feat: torch.Tensor,
-                 edge_src: torch.Tensor, edge_dst: torch.Tensor) -> torch.Tensor:
-    """Node classification logits (N, n_classes)."""
-    n = node_feat.shape[0]
+                 edge_src: torch.Tensor, edge_dst: torch.Tensor, split=None) -> torch.Tensor:
+    """Node classification logits (N, n_classes).  ``split``: the rank's
+    part of a graph split over mesh axes (``sharding.gnn_split.GraphSplit``:
+    ``n`` ranks, ``gather`` / ``scatter`` over them); the features are then
+    its nodes, the edges its edges, and the logits its nodes'."""
+    n = node_feat.shape[0] * (1 if split is None else split.n)
     h = node_feat
     for lp in params.layers:
-        h = _gin_layer(lp, h, edge_src, edge_dst, n)
+        h = _gin_layer(lp, h, edge_src, edge_dst, n, split)
     return h @ params.out_w + params.out_b
 
 
@@ -132,15 +141,22 @@ def forward_graph_batch(cfg: GNNConfig, params: GIN, node_feat: torch.Tensor,
     return pooled @ params.out_w + params.out_b
 
 
-def pad_graph_batch(batch: dict, multiple: int, shard_axes=None) -> dict:
+def pad_graph_batch(batch: dict, multiple: int, shard_axes=None, mesh=None) -> dict:
     """Pad node / edge arrays to a multiple of ``multiple``: padded edges
-    point at a padded node (mask False, never read).  ``shard_axes`` is a
-    mesh hint of the reference, refused."""
+    point at a padded node (mask False, never read).  With ``shard_axes`` and
+    ``mesh``, the rank's slice of the padded nodes, edges and per-node labels
+    and mask over those axes (``sharding.gnn_split``: what a rank holds of
+    the reference's constrained arrays); without a mesh ``shard_axes`` is
+    refused."""
+    if mesh is not None and shard_axes is not None:
+        from ..sharding.gnn_split import GraphSplit, pad_and_split
+
+        return pad_and_split(batch, multiple, GraphSplit(mesh, shard_axes))
     if shard_axes is not None:
         raise NotImplementedError(
             f"shard_axes={shard_axes!r} is a mesh sharding constraint of the reference on "
-            f"activations, which the port does not shard; to train on a mesh, use "
-            f"repro_torch.sharding.spmd.make_sharded_train_step")
+            f"activations; give a mesh (mesh=) to split the graph over those axes, or train "
+            f"with repro_torch.sharding.spmd.make_sharded_train_step")
     n = batch["node_feat"].shape[0]
     e = batch["edge_src"].shape[0]
     npad = (-n) % multiple
@@ -160,6 +176,20 @@ def pad_graph_batch(batch: dict, multiple: int, shard_axes=None) -> dict:
     return out
 
 
+def masked_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                count: torch.Tensor | None = None):
+    """``(loss, {"nll", "acc"})``: the NLL of ``labels`` summed over
+    ``mask`` and the masked accuracy, each divided by the mask's count
+    (``count``: the whole mask's, of which ``mask`` is a rank's part)."""
+    labels, m = labels.long(), mask.float()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    denom = torch.clamp(m.sum() if count is None else count, min=1.0)
+    loss = torch.sum(nll * m) / denom
+    acc = torch.sum((logits.argmax(dim=-1) == labels).float() * m) / denom
+    return loss, {"nll": loss, "acc": acc.detach()}
+
+
 def loss_fn(cfg: GNNConfig, params: GIN, batch: dict):
     """``(loss, {"nll", "acc"})``: the masked mean NLL of the labels (on the
     seed rows of a mini-batch block) and the masked accuracy."""
@@ -172,10 +202,4 @@ def loss_fn(cfg: GNNConfig, params: GIN, batch: dict):
         if batch["labels"].shape[0] != logits.shape[0]:
             # mini-batch block: loss only on the seed nodes (first b rows)
             logits = logits[: batch["labels"].shape[0]]
-    labels, m = batch["labels"].long(), batch["train_mask"].float()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    denom = torch.clamp(m.sum(), min=1.0)
-    loss = torch.sum(nll * m) / denom
-    acc = torch.sum((logits.argmax(dim=-1) == labels).float() * m) / denom
-    return loss, {"nll": loss, "acc": acc.detach()}
+    return masked_loss(logits, batch["labels"], batch["train_mask"])

@@ -77,9 +77,13 @@ def _rows(cfg: RecsysConfig, fields: torch.Tensor) -> torch.Tensor:
     return (fields + offs[:-1]).to(torch.int32)
 
 
-def _bag(ids: torch.Tensor, table: torch.Tensor, bag: int) -> torch.Tensor:
+def _bag(ids: torch.Tensor, table, bag: int) -> torch.Tensor:
     """``embedding_bag(ids, table, bag)``, through its autograd Function when
-    the table wants a gradient."""
+    the table wants a gradient.  A table that is a rank's shard of a
+    row-sharded one (``sharding.recsys_split.TableShard``) does its own
+    lookup (the kernel's shard mode and the collectives over the mesh)."""
+    if not isinstance(table, torch.Tensor):
+        return table.bag(ids, bag)
     if torch.is_grad_enabled() and table.requires_grad:
         return EmbeddingBag.apply(ids, table, bag, embedding_bag)
     return embedding_bag(ids, table, bag)
@@ -93,7 +97,7 @@ def _cin(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return cin_layer(x0, xk, w)
 
 
-def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def _lookup(table, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` (ids of any shape) through ``embedding_bag`` with bags
     of 1, in the table's dtype (a float32 sum of one row is the row)."""
     out = _bag(ids.reshape(-1), table, 1)
@@ -221,13 +225,18 @@ def _model_class(cfg: RecsysConfig):
     return MODELS[cfg.interaction]
 
 
+def cast_leaf(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``v`` detached, in ``dtype`` if it is float32."""
+    return v.detach().to(dtype) if v.dtype == torch.float32 else v.detach()
+
+
 def cast_params(params: nn.Module, dtype: torch.dtype):
     """The float32 parameters of ``params`` in ``dtype``, as a new object
     with the same attributes (lists and per-block dicts alike); the module
     itself is left as it is."""
     def conv(v):
         if isinstance(v, torch.Tensor):
-            return v.detach().to(dtype) if v.dtype == torch.float32 else v.detach()
+            return cast_leaf(v, dtype)
         if isinstance(v, nn.ParameterDict):
             return {k: conv(x) for k, x in v.items()}
         return [conv(x) for x in v]
@@ -384,10 +393,12 @@ def sasrec_serve_scores(cfg: RecsysConfig, params, hist: torch.Tensor,
 
 
 def sasrec_retrieval(cfg: RecsysConfig, params, hist: torch.Tensor,
-                     candidates: torch.Tensor) -> torch.Tensor:
-    """Score each user against the candidate items: one batched product."""
+                     candidates: torch.Tensor, cand_params=None) -> torch.Tensor:
+    """Score each user against the candidate items: one batched product.
+    ``cand_params`` looks the candidates up (default ``params``)."""
     h = sasrec_encode(cfg, params, hist)[:, -1]  # (B, d)
-    ce = _lookup(params.item_emb, candidates)  # (N, d)
+    ce = _lookup((params if cand_params is None else cand_params).item_emb,
+                 candidates)  # (N, d)
     return _mm(h, ce.T)  # (B, N)
 
 
@@ -399,13 +410,15 @@ def _normalize(u: torch.Tensor) -> torch.Tensor:
 
 
 def tt_user_tower(cfg: RecsysConfig, params, user_feats: torch.Tensor) -> torch.Tensor:
-    """user_feats (B, N_USER_FIELDS) hashed ids -> (B, out_dim) normalised."""
-    e = _lookup(params.user_table, user_feats % params.user_table.shape[0])
+    """user_feats (B, N_USER_FIELDS) hashed ids -> (B, out_dim) normalised;
+    the ids hashed ``% cfg.n_users``, the whole table's rows (a rank's shard
+    of a row-sharded table holds fewer)."""
+    e = _lookup(params.user_table, user_feats % cfg.n_users)
     return _normalize(_mlp(e.reshape(e.shape[0], -1), params.user_mlp_w, params.user_mlp_b))
 
 
 def tt_item_tower(cfg: RecsysConfig, params, item_ids: torch.Tensor) -> torch.Tensor:
-    e = _lookup(params.item_table, item_ids % params.item_table.shape[0])
+    e = _lookup(params.item_table, item_ids % cfg.n_items)
     return _normalize(_mlp(e, params.item_mlp_w, params.item_mlp_b))
 
 
@@ -420,7 +433,10 @@ def tt_train_loss(cfg: RecsysConfig, params, user_feats, item_ids, labels):
     return loss, {"nll": loss}
 
 
-def tt_retrieval(cfg: RecsysConfig, params, user_feats, candidates) -> torch.Tensor:
+def tt_retrieval(cfg: RecsysConfig, params, user_feats, candidates,
+                 cand_params=None) -> torch.Tensor:
+    """Each user's scores of the candidates; ``cand_params`` looks the
+    candidates up (default ``params``)."""
     u = tt_user_tower(cfg, params, user_feats)  # (B, d)
-    v = tt_item_tower(cfg, params, candidates)  # (N, d)
+    v = tt_item_tower(cfg, params if cand_params is None else cand_params, candidates)  # (N, d)
     return _mm(u, v.T)

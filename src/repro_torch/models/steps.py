@@ -192,9 +192,15 @@ def make_lm_decode_step(cfg: LMConfig, attention: str | None = None):
 # GNN
 # ----------------------------------------------------------------------
 def make_gnn_train_step(cfg: GNNConfig, opt_cfg: OptConfig,
-                        pad_multiple: int | None = None, shard_axes=None):
+                        pad_multiple: int | None = None, shard_axes=None, mesh=None):
     """``pad_multiple`` pads a node-level batch as the reference does
-    (``gnn.pad_graph_batch``); ``shard_axes`` is a mesh hint, refused."""
+    (``gnn.pad_graph_batch``).  ``shard_axes`` splits the graph over those
+    axes of ``mesh`` (``sharding.gnn_split``): the step then takes a state
+    placed on ``mesh`` (the GIN's weights replicated, as ``checkpointer.
+    reshard`` places them by ``spmd.state_specs_for``) and the whole batch
+    on every rank; without a mesh ``shard_axes`` is refused."""
+    if mesh is not None:
+        return _gnn_mesh_step(cfg, opt_cfg, pad_multiple, shard_axes, mesh)
     if shard_axes is not None:
         raise NotImplementedError(f"shard_axes={shard_axes!r} {_MESH_HINT}")
     loss = loss_for(cfg)
@@ -205,6 +211,26 @@ def make_gnn_train_step(cfg: GNNConfig, opt_cfg: OptConfig,
             batch = gnn.pad_graph_batch(batch, pad_multiple)
         l, aux, grads = _grads(loss, state["params"], batch)
         return _apply_update(opt_cfg, state, grads, {"loss": l, **aux})
+
+    return train_step
+
+
+def _gnn_mesh_step(cfg: GNNConfig, opt_cfg: OptConfig, pad_multiple, shard_axes, mesh):
+    """The GIN's train step on ``mesh``, built at the first call from the
+    state's leaf shapes (``spmd.make_sharded_train_step``)."""
+    from ..sharding import spmd
+    from ..sharding.compat import P
+
+    built = {}
+
+    def train_step(state, batch):
+        if "step" not in built:
+            lead = P(tuple(mesh.mesh_dim_names))
+            built["step"] = spmd.make_sharded_train_step(
+                cfg, opt_cfg, mesh, spmd.state_specs_for(cfg, state, mesh),
+                {k: lead for k in batch}, shard_axes=shard_axes, pad_multiple=pad_multiple,
+                shapes={k: tuple(v.shape) for k, v in state["params"].items()})
+        return built["step"](state, batch)
 
     return train_step
 
@@ -248,7 +274,7 @@ def make_recsys_train_step(cfg: RecsysConfig, opt_cfg: OptConfig):
 
 def make_recsys_serve_step(cfg: RecsysConfig, retrieval: bool = False,
                            cand_shard_axes=None, cand_pad_multiple: int = 1,
-                           serve_dtype=None):
+                           serve_dtype=None, mesh=None):
     """``serve(params, **inputs)``: logits of ``fields`` (FM, xDeepFM),
     scores of ``target`` after ``hist`` (SASRec), or user-item cosine
     scores (two-tower); with ``retrieval``, the scores of every row of
@@ -256,34 +282,32 @@ def make_recsys_serve_step(cfg: RecsysConfig, retrieval: bool = False,
     logit per candidate row for FM and xDeepFM.  ``serve_dtype`` (retrieval
     only, as in the reference) serves a cast copy of the float32 weights;
     ``cand_pad_multiple`` pads the candidates by repeating the first one and
-    slices the scores back.  ``cand_shard_axes`` names mesh axes of the
-    reference's sharding, which has no counterpart on one card: it raises."""
+    slices the scores back.  With ``mesh`` the step is
+    ``sharding.recsys_split.make_sharded_recsys_serve_step``'s on parameters
+    placed by the reference's ``recsys_param_specs`` (the tables row-sharded
+    over ``"model"``), the candidates split over ``cand_shard_axes``;
+    without a mesh ``cand_shard_axes`` is refused."""
+    if mesh is not None:
+        from ..sharding.recsys_split import make_sharded_recsys_serve_step
+        from ..sharding.specs import recsys_param_specs
+
+        pspecs = recsys_param_specs(cfg, init_model_params(cfg, None, "meta"), mesh,
+                                    "pod" in mesh.mesh_dim_names)
+        return make_sharded_recsys_serve_step(cfg, mesh, pspecs, retrieval=retrieval,
+                                              cand_shard_axes=cand_shard_axes,
+                                              cand_pad_multiple=cand_pad_multiple,
+                                              serve_dtype=serve_dtype)
     if cand_shard_axes is not None:
         raise NotImplementedError(
             f"cand_shard_axes={cand_shard_axes!r} is a mesh sharding hint of the "
-            f"reference; the port serves on one card")
+            f"reference; give the step a mesh (mesh=) to serve on one")
     if retrieval:
         @torch.no_grad()
         def serve(params, **inputs):
             if serve_dtype is not None:
                 params = recsys.cast_params(params, serve_dtype)
-            cand = inputs["candidates"]
-            nc = cand.shape[0]
-            pad = (-nc) % cand_pad_multiple if cand_pad_multiple > 1 else 0
-            if pad:
-                cand = torch.cat([cand, cand[:1].expand(pad, *cand.shape[1:])])
-            if cfg.interaction == "self-attn-seq":
-                out = recsys.sasrec_retrieval(cfg, params, inputs["hist"], cand)
-            elif cfg.interaction == "dot":
-                out = recsys.tt_retrieval(cfg, params, inputs["user_feats"], cand)
-            elif cfg.interaction in ("fm-2way", "cin"):
-                # fm / cin: score the candidate matrix directly (batched)
-                fn = recsys.fm_logits if cfg.interaction == "fm-2way" else recsys.xdeepfm_logits
-                out = fn(cfg, params, cand)
-            else:
-                raise ValueError(cfg.interaction)
-            # candidate axis is last for (B, NC) scores, first for (NC,) logits
-            return out[..., :nc] if out.dim() > 1 else out[:nc]
+            cand, nc = pad_candidates(inputs["candidates"], cand_pad_multiple)
+            return cut_candidates(retrieval_scores(cfg, params, inputs, cand), nc)
 
         return serve
 
@@ -302,6 +326,41 @@ def make_recsys_serve_step(cfg: RecsysConfig, retrieval: bool = False,
         raise ValueError(cfg.interaction)
 
     return serve
+
+
+def pad_candidates(cand: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:
+    """``(candidates, nc)``: the candidate rows padded to a multiple of
+    ``multiple`` by repeating the first (the reference's padding), and how
+    many were given."""
+    nc = cand.shape[0]
+    pad = (-nc) % multiple if multiple > 1 else 0
+    if pad:
+        cand = torch.cat([cand, cand[:1].expand(pad, *cand.shape[1:])])
+    return cand, nc
+
+
+def cut_candidates(out: torch.Tensor, nc: int) -> torch.Tensor:
+    """Scores of padded candidates cut back to the ``nc`` given: the
+    candidate axis is last for (B, NC) scores, first for (NC,) logits."""
+    return out[..., :nc] if out.dim() > 1 else out[:nc]
+
+
+def retrieval_scores(cfg: RecsysConfig, params, inputs: dict, cand: torch.Tensor,
+                     cand_params=None) -> torch.Tensor:
+    """The scores of the candidate rows ``cand``: against each user of
+    ``inputs`` for SASRec and two-tower, a logit per row for FM and xDeepFM.
+    ``cand_params`` looks the candidates up (default ``params``; on a mesh,
+    the view whose lookups split them over ``"model"``)."""
+    cp = params if cand_params is None else cand_params
+    if cfg.interaction == "self-attn-seq":
+        return recsys.sasrec_retrieval(cfg, params, inputs["hist"], cand, cp)
+    if cfg.interaction == "dot":
+        return recsys.tt_retrieval(cfg, params, inputs["user_feats"], cand, cp)
+    if cfg.interaction in ("fm-2way", "cin"):
+        # fm / cin: score the candidate matrix directly (batched)
+        fn = recsys.fm_logits if cfg.interaction == "fm-2way" else recsys.xdeepfm_logits
+        return fn(cfg, cp, cand)
+    raise ValueError(cfg.interaction)
 
 
 # ----------------------------------------------------------------------

@@ -25,7 +25,10 @@ reference's axis names (``"data"``, ``"model"``, ``"pod"``).
 * :func:`local_shard`, :func:`place`, :func:`flatten_specs` — a rank's own
   slice of a tensor every rank holds, a state's leaves placed as DTensors
   by a tree of shardings, and such a tree flattened to ``{path: leaf}``
-  (the checkpointer's ``reshard`` and the sharded train step use them).
+  (the checkpointer's ``reshard`` and the sharded train step use them);
+  :func:`to_local` — a DTensor's local shard (another tensor as it is);
+  :func:`axes_index` — the rank's slice among those a set of mesh axes cuts
+  a dimension into.
 
 There is no ``shard_map``: a rank's own code is its local function, and
 data moves between ranks through explicit collectives (``all_gather``,
@@ -158,6 +161,26 @@ def mesh_device(mesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
+
+
+def to_local(t):
+    """``t``'s local shard if it is a DTensor, else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def axes_index(mesh, axes) -> tuple[list, int, int]:
+    """``(groups, n, index)`` of the mesh axes ``axes`` (major first): their
+    process groups, the number of slices they cut a dimension into, and the
+    rank's slice among them in a DTensor's order (the major axis first).
+    No axes: ``([], 1, 0)``."""
+    names = list(mesh.mesh_dim_names)
+    groups, n, index = [], 1, 0
+    for a in axes:
+        size = mesh.size(names.index(a))
+        groups.append(mesh.get_group(a))
+        n *= size
+        index = index * size + mesh.get_local_rank(a)
+    return groups, n, index
 
 
 def _axes_of(entry) -> tuple:

@@ -39,17 +39,14 @@ import dataclasses
 import math
 
 import torch
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import Shard
 
 from ..configs.base import LMConfig
 from ..models import steps, transformer
 from ..train.optimizer import param_tree
-from .compat import NamedSharding, flatten_specs, local_shard, mesh_device, require_device_mesh
+from .compat import (NamedSharding, axes_index, flatten_specs, local_shard, mesh_device,
+                     require_device_mesh, to_local)
 from .lm_split import LMSplit
-
-
-def _local(t):
-    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _row_slices(mesh, placements, dim: int) -> int:
@@ -97,7 +94,7 @@ def make_sharded_prefill_step(cfg: LMConfig, mesh, param_specs: dict, in_specs: 
 
     @torch.no_grad()
     def prefill(params: dict, tokens):
-        local = {k: _local(params[k]) for k in split.plans}
+        local = {k: to_local(params[k]) for k in split.plans}
         rows = local_shard(torch.as_tensor(tokens, device=dev), mesh, tok_sh)
         t = rows.shape[1]
         if t % m:
@@ -129,18 +126,14 @@ def make_sharded_decode_step(cfg: LMConfig, mesh, param_specs: dict, in_specs: d
     # its mesh dimensions in order), and the rank's slice among them
     names = tuple(mesh.mesh_dim_names)
     t_dims = [j for j, p in enumerate(cache_sh) if isinstance(p, Shard) and p.dim == 3]
-    t_groups = [split.groups[names[j]] for j in t_dims]
-    t_index = 0
-    for j in t_dims:
-        t_index = t_index * mesh.size(j) + mesh.get_local_rank(names[j])
-    n_t = math.prod(mesh.size(j) for j in t_dims)
+    t_groups, n_t, t_index = axes_index(mesh, [names[j] for j in t_dims])
 
     @torch.no_grad()
     def decode(params: dict, tokens, positions, kv_cache):
-        local = {k: _local(params[k]) for k in split.plans}
+        local = {k: to_local(params[k]) for k in split.plans}
         tok = local_shard(torch.as_tensor(tokens, device=dev), mesh, tok_sh)
         pos = local_shard(torch.as_tensor(positions, device=dev), mesh, pos_sh)
-        cache = _local(kv_cache)
+        cache = to_local(kv_cache)
         transformer.check_positions(pos, cache.shape[3] * n_t)
         att = transformer.resolve_attention(attention, tok.device)
         view = split.decode_view(local, t_groups, t_index)

@@ -204,17 +204,21 @@ def gnn_input_specs_sharding(cfg: GNNConfig, shape_name: str, mesh, multi_pod: b
 # ----------------------------------------------------------------------
 # RecSys
 # ----------------------------------------------------------------------
+def is_recsys_table(name: str, ndim: int) -> bool:
+    """Whether the recsys leaf ``name`` of ``ndim`` dimensions is a table the
+    models look rows up in: a ``*table*`` or ``item_emb`` leaf, or the 1-D
+    ``linear``."""
+    return "table" in name or "item_emb" in name or ("linear" in name and ndim == 1)
+
+
 def recsys_param_specs(cfg: RecsysConfig, params_shape, mesh, multi_pod: bool) -> dict:
-    """Tables row-sharded over 'model'; MLPs replicated.  Built from the
-    parameter *shapes* (a model on ``meta``, or ``{path: tensor}``)."""
+    """Tables row-sharded over 'model' where the rows divide; MLPs
+    replicated.  Built from the parameter *shapes* (a model on ``meta``, or
+    ``{path: tensor}``)."""
 
     def rule(name: str, leaf) -> P:
-        if "table" in name or "item_emb" in name:
-            if _div(leaf.shape[0], mesh, "model"):
-                return P("model", *([None] * (len(leaf.shape) - 1)))
-            return P(*([None] * len(leaf.shape)))
-        if "linear" in name and leaf.dim() == 1 and _div(leaf.shape[0], mesh, "model"):
-            return P("model")
+        if is_recsys_table(name, len(leaf.shape)) and _div(leaf.shape[0], mesh, "model"):
+            return P("model", *([None] * (len(leaf.shape) - 1)))
         return P(*([None] * len(leaf.shape)))
 
     return {k: rule(k, v) for k, v in param_tree(params_shape).items()}

@@ -21,14 +21,22 @@ in the rank's shards (the gathers' backwards reduce-scatter it), and a leaf
 replicated on an axis is then all-reduced over that axis.  Float32
 gradients are held only as those shards plus one layer's transient.
 
-**The other families** keep the gathered step: every rank gathers the
-parameters (``full_tensor``) into a working model of plain tensors on its
-device, computes the loss and the gradients of its slice of the batch
-(a loss that does not split over examples — a node-level GNN batch, the
-two-tower model's in-batch softmax — whole on every rank), and sums the
-float32 gradients over the ranks that hold other slices, each rank's
-weighted by its share of the loss's normaliser (rows, or the mask's count
-where the loss masks); each rank keeps its shards of the sum.
+**Recsys models** split their lookups (:mod:`.recsys_split`): each rank
+takes its rows of the batch (the data axes), looks them up on its shards
+of the tables row-sharded over ``"model"`` (``embedding_bag``'s shard
+mode), sums the partials over ``"model"`` and runs the rest of the model on
+its rows; two-tower's in-batch softmax scores the rank's users against the
+whole batch's items, gathered over the data axes.  Every model rank of a
+data slice computes the same loss, so each gradient (a table's shard, or a
+replicated leaf) is summed over the data axes only.  **The GIN**
+(:mod:`.gnn_split`) splits a node-level graph's nodes and edges over every
+mesh axis after the reference's padding (each layer's ``h @ w1`` gathered,
+its messages' partial sums reduce-scattered), and a batch of small graphs
+by examples; its replicated weights' gradients are summed over the axes
+that split the batch.  Both weight each rank's loss by its share of the
+loss's normaliser (rows, or the mask's count where the loss masks) before
+the backward, so that the collectives' backwards sum the whole batch's
+gradient, and call ``full_tensor`` on no parameter.
 
 The update is the same for both, on the rank's shards alone: the global
 norm sums each element once (a leaf replicated over ranks counts once, not
@@ -56,7 +64,6 @@ import dataclasses
 import math
 
 import torch
-import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import GNNConfig, LMConfig
@@ -72,11 +79,11 @@ from ..train.optimizer import (
     schedule,
     sort_paths,
 )
-from . import tp
+from . import gnn_split, recsys_split, tp
 from .compat import (NamedSharding, P, flatten_specs, local_shard, mesh_device,
-                     require_device_mesh)
+                     require_device_mesh, to_local)
 from .lm_split import LMSplit
-from .specs import opt_state_specs, param_specs_for
+from .specs import gnn_input_specs_sharding, opt_state_specs, param_specs_for
 
 
 def state_specs_for(cfg, state: dict, mesh, multi_pod: bool = False) -> dict:
@@ -93,34 +100,31 @@ def meta_state(cfg, opt_cfg: OptConfig, shape_name: str | None = None) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device="meta")}
 
 
-def _loss_count(cfg, batch: dict):
-    """The normaliser of the family's loss on ``batch`` (a float32 0-d
-    tensor), or ``None`` when the loss does not split over examples."""
-    if isinstance(cfg, LMConfig):
-        t = batch["targets"]
-        return torch.tensor(float(t.numel()), device=t.device)  # the mean over tokens
-    if isinstance(cfg, GNNConfig):
-        if batch["node_feat"].dim() != 3:
-            return None  # one graph: its nodes are not independent examples
-        return batch["train_mask"].float().sum()
-    if cfg.interaction == "dot":
-        return None  # in-batch softmax over the whole batch
+def _loss_count(cfg, batch: dict) -> torch.Tensor:
+    """The normaliser of the recsys loss on ``batch``, the rank's rows (a
+    float32 0-d tensor): its rows, or its labelled positions (SASRec)."""
     if cfg.interaction == "self-attn-seq":
         return (batch["labels"] > 0).float().sum()
-    t = batch["labels"]
-    return torch.tensor(float(t.shape[0]), device=t.device)  # the mean over rows
+    key = "user_feats" if cfg.interaction == "dot" else "labels"
+    return torch.tensor(float(batch[key].shape[0]), device=batch[key].device)
 
 
 def make_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, state_specs: dict,
                             batch_specs: dict, n_micro: int = 1,
                             shape_name: str | None = None, attention: str | None = None,
-                            device=None):
+                            device=None, shard_axes=None, pad_multiple: int | None = None,
+                            shapes: dict | None = None):
     """``train_step(state, batch) -> (state, metrics)`` on ``mesh`` for a
     state placed by ``state_specs`` (see the module docstring).  ``batch``
     is the whole batch (NumPy arrays or tensors), the same on every rank;
     ``batch_specs`` holds a spec for each of its leaves.  ``n_micro``
     (LMs) accumulates over the rank's slices of the unsharded step's
-    micro-batches; ``shape_name`` picks a GNN's input width.  The loss
+    micro-batches; ``shape_name`` picks a GNN's input width (and, for a
+    ``graph_mini`` shape, its seed labels' axes); ``shapes`` gives each
+    leaf's whole shape instead.  A GIN's node-level graph is padded to
+    ``pad_multiple`` (default: the ranks of ``shard_axes``) and split over
+    ``shard_axes`` (default: every mesh axis), as the reference's dry-run
+    builds its step.  The loss
     takes the kernels on a card (``steps.loss_for``; ``attention`` names
     the LMs' route).  ``device`` is the rank's compute device, the mesh's
     by default; the dry-run passes ``"meta"`` with a ``meta`` state and
@@ -128,9 +132,10 @@ def make_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, state_specs: dict,
     those of the unsharded step: the state is updated in place and returned
     with ``step`` one higher.  ``train_step.grads(state, batch)`` returns
     ``({path: this rank's float32 shard of the whole batch's gradient},
-    metrics)`` without updating; ``train_step.work`` is the gathered
-    working model of the other families (None for an LM, which has none),
-    ``train_step.split`` the LM's :class:`~.lm_split.LMSplit` (else None)."""
+    metrics)`` without updating; ``train_step.split`` is the LM's
+    :class:`~.lm_split.LMSplit`, the recsys model's
+    :class:`~.recsys_split.RecsysPlan` or the GIN's
+    :class:`~.gnn_split.GraphSplit`."""
     require_device_mesh(mesh, "make_sharded_train_step")
     if n_micro > 1 and not isinstance(cfg, LMConfig):
         raise ValueError(f"n_micro={n_micro}: only the LM step accumulates micro-batches")
@@ -145,18 +150,13 @@ def make_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, state_specs: dict,
     names = tuple(mesh.mesh_dim_names)
     batch_dims = sorted({m for pl in batch_sh.values() for m, x in enumerate(pl)
                          if not isinstance(x, Replicate)})
-    groups = [mesh.get_group(names[m]) for m in batch_dims]
     n_slices = math.prod(mesh.size(m) for m in batch_dims)
-    shapes = {k: tuple(p.shape) for k, p in
-              param_tree(steps.init_model_params(cfg, None, "meta", shape_name)).items()}
+    if shapes is None:
+        shapes = {k: tuple(p.shape) for k, p in
+                  param_tree(steps.init_model_params(cfg, None, "meta", shape_name)).items()}
     if set(shapes) != set(param_sh):
         raise KeyError(f"state specs for {sorted(set(param_sh) ^ set(shapes))[:4]} do "
                        f"not match the model's parameters")
-
-    def _reduce(t: torch.Tensor) -> torch.Tensor:
-        for g in groups:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
-        return t
 
     moe = isinstance(cfg, LMConfig) and cfg.moe is not None
     rank_cfg = cfg
@@ -169,11 +169,19 @@ def make_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, state_specs: dict,
         rank_cfg = dataclasses.replace(cfg, moe_groups=cfg.moe_groups // n_slices)
     if isinstance(cfg, LMConfig):
         grads = _lm_grads(rank_cfg, mesh, param_sh, batch_sh, shapes, n_micro, attention, dev)
-        split, work = grads.split, None
+    elif isinstance(cfg, GNNConfig):
+        label_axes = None
+        if shape_name is not None and cfg.shapes[shape_name].kind == "graph_mini":
+            label_axes = gnn_input_specs_sharding(cfg, shape_name, mesh, "pod" in names)["labels"]
+            label_axes = label_axes[0] if len(label_axes) else None
+        axes = names if shard_axes is None else shard_axes
+        n = math.prod(mesh.size(names.index(a)) for a in
+                      ((axes,) if isinstance(axes, str) else axes))
+        grads = gnn_split.make_split_grads(cfg, mesh, axes, pad_multiple or n, batch_sh,
+                                           label_axes, dev)
     else:
-        grads = _gathered_grads(cfg, mesh, param_sh, batch_sh, groups, _reduce, shape_name,
-                                attention, dev)
-        split, work = None, grads.work
+        grads = _recsys_grads(cfg, mesh, param_sh, batch_sh, dev)
+    split = grads.split
 
     def train_step(state: dict, batch: dict):
         g, metrics = grads(state, batch)
@@ -188,43 +196,37 @@ def make_sharded_train_step(cfg, opt_cfg: OptConfig, mesh, state_specs: dict,
                 {**metrics, **extra})
 
     train_step.grads = grads
-    train_step.work = work
     train_step.split = split
     return train_step
 
 
-def _gathered_grads(cfg, mesh, param_sh: dict, batch_sh: dict, groups: list, _reduce,
-                    shape_name, attention, dev):
-    """The other families' gradients: gathered weights, the rank's slice of
-    the batch, the float32 gradients summed over the slices and cut to the
-    rank's shards."""
-    loss_fn = steps.loss_for(cfg, attention)
-    work = steps.init_model_params(cfg, None, "meta", shape_name).to_empty(device=dev)
-    work_params = param_tree(work)
+def _recsys_grads(cfg, mesh, param_sh: dict, batch_sh: dict, dev):
+    """A recsys model's gradients, split over the mesh (:mod:`.recsys_split`):
+    the rank's rows of the batch on its table shards, each gradient summed
+    over the data axes."""
+    plan = recsys_split.RecsysPlan(cfg, mesh, param_sh)
+    row_groups, row_index = recsys_split.row_split(mesh, batch_sh)
+    loss_fn = recsys_split.loss_for(cfg, row_groups, row_index)
+    groups = plan.data_groups  # the batch's slices (a world of one: the identity)
 
     def grads(state: dict, batch: dict):
         params = state["params"]
-        with torch.no_grad():  # the whole parameters, on every rank
-            for k, p in work_params.items():
-                p.copy_(params[k].full_tensor())
-        whole = _batch_on(batch, batch_sh, dev)
-        split = bool(groups) and _loss_count(cfg, whole) is not None
-        local = _slice(whole, 1, mesh, batch_sh) if split else whole
-        del whole
-        loss, aux, g = steps._accum_grads(loss_fn, work, local, 1)
-        metrics = {"loss": loss, **aux}
+        leaves = {k: to_local(params[k]).detach().requires_grad_() for k in sort_paths(param_sh)}
+        rows = _slice(_batch_on(batch, batch_sh, dev), 1, mesh, batch_sh)
+        count = _loss_count(cfg, rows)
+        total = tp.sum_into(count.clone(), groups)
+        w = torch.clamp(count, min=1.0) / torch.clamp(total, min=1.0)
+        loss, aux = loss_fn(plan.view(leaves), rows)
+        g = torch.autograd.grad(loss * w, list(leaves.values()), allow_unused=True)
         with torch.no_grad():
-            if split:
-                count = _loss_count(cfg, local)
-                total = _reduce(count.clone())
-                w = torch.clamp(count, min=1.0) / torch.clamp(total, min=1.0)
-                g = {k: _reduce(v.float() * w) for k, v in g.items()}
-                vals = _reduce(torch.stack([v.float() for v in metrics.values()]) * w)
-                metrics = dict(zip(metrics, vals.unbind()))
-            g = {k: local_shard(v.float(), mesh, param_sh[k]) for k, v in g.items()}
-        return g, metrics
+            g = {k: tp.sum_into(torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                                if v is None else v.float(), groups)
+                 for (k, p), v in zip(leaves.items(), g)}
+            metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+            vals = tp.sum_into(torch.stack([v.float() for v in metrics.values()]) * w, groups)
+        return g, dict(zip(metrics, vals.unbind()))
 
-    grads.work = work
+    grads.split = plan
     return grads
 
 
@@ -256,7 +258,7 @@ def _lm_grads(cfg, mesh, param_sh: dict, batch_sh: dict, shapes: dict, n_micro: 
     def grads(state: dict, batch: dict):
         params = state["params"]
         # the leaves in the reference's order, which global_norm's sum follows
-        local = {k: _local(params[k]) for k in sort_paths(param_sh)}
+        local = {k: to_local(params[k]) for k in sort_paths(param_sh)}
         sinks = {k: torch.zeros(v.shape, dtype=torch.float32, device=dev)
                  for k, v in local.items()}
         anchor = torch.zeros((), device=dev, requires_grad=True)
@@ -326,10 +328,6 @@ def _slice(batch: dict, n_micro: int, mesh, batch_sh: dict) -> dict:
     return {k: torch.cat([p[k] for p in parts]) for k in batch}
 
 
-def _local(t):
-    return t.to_local() if isinstance(t, DTensor) else t
-
-
 def _adafactor_shard(opt_cfg: OptConfig, g32: torch.Tensor, vr: torch.Tensor,
                      vc: torch.Tensor, decay: torch.Tensor, placements, shape: tuple, mesh):
     """``optimizer.adafactor_direction`` of one leaf from this rank's shard of
@@ -355,25 +353,25 @@ def _update(opt_cfg: OptConfig, state: dict, grads: dict, gnorm, param_sh: dict,
     params, opt = state["params"], state["opt"]
     step_t = opt["step"]
     if opt_cfg.kind == "adamw":
-        local_opt = {"m": {k: _local(v) for k, v in opt["m"].items()},
-                     "v": {k: _local(v) for k, v in opt["v"].items()},
-                     "step": _local(step_t)}
-        _, local_opt, extra = adamw_update(opt_cfg, {k: _local(p) for k, p in params.items()},
+        local_opt = {"m": {k: to_local(v) for k, v in opt["m"].items()},
+                     "v": {k: to_local(v) for k, v in opt["v"].items()},
+                     "step": to_local(step_t)}
+        _, local_opt, extra = adamw_update(opt_cfg, {k: to_local(p) for k, p in params.items()},
                                            grads, local_opt, gnorm=gnorm)
-        _local(step_t).copy_(local_opt["step"])
+        to_local(step_t).copy_(local_opt["step"])
         return extra
     scale = clip_scale(opt_cfg.clip_norm, gnorm)
-    step = _local(step_t) + 1
+    step = to_local(step_t) + 1
     lr = schedule(opt_cfg, step)
     decay = adafactor_decay(step)
     for k, g in grads.items():
-        vr, vc = _local(opt["vr"][k]), _local(opt["vc"][k])
+        vr, vc = to_local(opt["vr"][k]), to_local(opt["vc"][k])
         u, new_vr, new_vc = _adafactor_shard(opt_cfg, g * scale, vr, vc, decay, param_sh[k],
                                              shapes[k], mesh)
-        p = _local(params[k])
+        p = to_local(params[k])
         u = u + opt_cfg.weight_decay * p.float()
         p.copy_((p.float() - lr * u).to(p.dtype))
         vr.copy_(new_vr)
         vc.copy_(new_vc)
-    _local(step_t).copy_(step.to(step_t.dtype))
+    to_local(step_t).copy_(step.to(step_t.dtype))
     return {"grad_norm": gnorm, "lr": lr}

@@ -10,6 +10,10 @@ loss (each rank runs ``backward`` on its own part):
 * :func:`scatter` — reduce-scatter (sum) along a dimension; backward
   all-gathers the gradient;
 * :func:`all_reduce` — sum over a group; backward sums the gradient over it;
+* :func:`sum_partials` — sum over a group whose ranks then compute the same
+  thing (the model ranks of a recsys data slice, each holding a partial
+  lookup of its table shard); backward passes the gradient through
+  unchanged, since each rank's copy of the downstream loss is the whole;
 * :func:`fetch` — one weight's operand from the rank's shard of it: gathered
   along each dimension the plan names (the per-layer FSDP gather over
   ``"data"``, a gather over ``"model"`` where the rank's compute needs more
@@ -20,8 +24,9 @@ loss (each rank runs ``backward`` on its own part):
   in float32 (autograd would cast them back to the weight's dtype).
 
 Outside autograd (serving): :func:`fetch_nograd` (a weight's gathers
-without a gradient sink), :func:`max_into` / :func:`sum_into` (in-place
-all-reduces) and :func:`all_to_all` (the prefill's cache from heads to T).
+without a gradient sink), :func:`gather_nograd` / :func:`scatter_nograd`,
+:func:`max_into` / :func:`sum_into` (in-place all-reduces) and
+:func:`all_to_all` (the prefill's cache from heads to T).
 
 A group of one rank is the identity: no collective is issued, so a world of
 one computes what the unsharded step computes, bit for bit.  The
@@ -117,6 +122,11 @@ def gather_nograd(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return _gather_raw(x, dim, group)
 
 
+def scatter_nograd(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Reduce-scatter (sum) along ``dim`` outside autograd."""
+    return _scatter_raw(x, dim, group)
+
+
 def sum_into(x: torch.Tensor, groups) -> torch.Tensor:
     """``x`` summed over each group in turn, outside autograd, in place."""
     for g in groups:
@@ -156,6 +166,22 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_reduce_raw(g, ctx.group), None
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_raw(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` over ``group``; the backward is the identity (module
+    docstring)."""
+    return x if group_size(group) == 1 else _SumPartials.apply(x, group)
 
 
 def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:

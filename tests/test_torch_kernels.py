@@ -789,6 +789,95 @@ def test_embedding_bag_edges():
         eb_ops.embedding_bag(torch.zeros(4), table, 2)
 
 
+#: (rows of the whole table, shard boundaries): shards at the start, the
+#: middle and the end, of unequal and equal sizes
+EB_SHARDS = [(40, (0, 13, 26, 40)), (64, (0, 16, 32, 48, 64)), (7, (0, 1, 6, 7))]
+
+
+def _shard_ids(rng, n: int, bounds, n_bags: int, bag: int) -> np.ndarray:
+    """(n_bags, bag) ids: every shard boundary and its neighbours, -1 and n
+    (outside the table) in two bags, the rest random in [0, n)."""
+    edges = sorted({max(0, min(n - 1, b + o)) for b in bounds for o in (-1, 0)})
+    ids = rng.integers(0, n, (n_bags, bag))
+    flat = ids.reshape(-1)
+    flat[:len(edges)] = edges[:flat.size]
+    ids[-1, 0], ids[-2, -1] = -1, n
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("n,bounds", EB_SHARDS)
+@pytest.mark.parametrize("bag", [1, 39])
+@pytest.mark.parametrize("layout", ["contiguous", "linear[:, None]", "one element in"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_shard_mode_vs_oracle(n, bounds, bag, layout, dtype):
+    """The shard mode's plain version on each shard of a table: an id in
+    the shard reads its row, another shard's id adds 0, an id outside
+    [0, n) makes its bag NaN on every shard; within gamma_bag of the
+    float64 oracle's |terms|, NaN where it is NaN.  The whole table as
+    its own shard is the default call, bit for bit."""
+    rng = np.random.default_rng(n * 10 + bag)
+    d = 1 if layout == "linear[:, None]" else 10
+    jt, _ = _jax_pair(rng, (n, d), dtype)
+    whole = _eb_table(jt, dtype, layout)
+    idx = _shard_ids(rng, n, bounds, 6, bag)
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        got = eb_ops.embedding_bag(torch.from_numpy(idx), whole[lo:hi], bag, lo, n)
+        want = embedding_bag_ref(idx.reshape(-1), whole[lo:hi].float().numpy(), bag, lo, n)
+        assert got.dtype == torch.float32 and tuple(got.shape) == (6, d)
+        assert np.array_equal(np.isnan(got.numpy()), np.isnan(want))
+        assert np.isnan(want[-2:]).all(axis=1).all() and not np.isnan(want[:-2]).any()
+        mag = embedding_bag_ref(np.abs(idx.reshape(-1)) % n, np.abs(whole.float().numpy()), bag)
+        live = ~np.isnan(want)
+        assert (np.abs(got.numpy() - want)[live] <= _gamma(bag) * mag[live] + 1e-30).all()
+    assert np.array_equal(  # bits, NaN included
+        eb_ops.embedding_bag(torch.from_numpy(idx), whole, bag, 0, n).numpy().view(np.int32),
+        eb_ops.embedding_bag(torch.from_numpy(idx), whole, bag).numpy().view(np.int32))
+    with pytest.raises(ValueError, match="does not lie inside"):
+        eb_ops.embedding_bag(torch.from_numpy(idx), whole[bounds[1]:], bag, bounds[1] + 1, n)
+    with pytest.raises(ValueError, match="does not lie inside"):
+        eb_ops.embedding_bag(torch.from_numpy(idx), whole, bag, -1, n)
+
+
+@pytest.mark.parametrize("n,bounds", EB_SHARDS)
+@pytest.mark.parametrize("bag", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_shard_sum_vs_pallas(n, bounds, bag, dtype):
+    """The shards' lookups summed in rank order against the reference's
+    Pallas op on the whole table (interpret mode): bags of one bit for bit
+    (one row and zeros; -0.0 and +0.0 compare equal), longer bags within
+    gamma_bag of the |terms| (the shards' partial sums change the order)."""
+    from repro.kernels.embedding_bag.ops import embedding_bag as ref_embedding_bag
+
+    rng = np.random.default_rng(n + bag)
+    jt, tt = _jax_pair(rng, (n, 10), dtype)
+    idx = rng.integers(0, n, (8, bag)).astype(np.int32)
+    want = np.asarray(ref_embedding_bag(jnp.asarray(idx), jt, bag, interpret=True))
+    got = torch.zeros((8, 10))
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        got = got + eb_ops.embedding_bag(torch.from_numpy(idx), tt[lo:hi], bag, lo, n)
+    if bag == 1:
+        assert torch.equal(got, torch.from_numpy(want))
+    else:
+        mag = embedding_bag_ref(idx.reshape(-1), np.abs(tt.float().numpy()), bag)
+        assert (np.abs(got.numpy() - want) <= 2 * _gamma(bag + len(bounds)) * mag + 1e-30).all()
+
+
+def test_embedding_bag_shard_backward():
+    """``EmbeddingBag`` on a shard puts the gradient into the shard's own
+    rows (ids shifted by ``row_start``, others dropped): the whole table's
+    gradient, cut to the shard."""
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.normal(size=(30, 4)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 30, (12, 3)).astype(np.int32))
+    dout = torch.from_numpy(rng.normal(size=(12, 4)).astype(np.float32))
+    whole = table.clone().requires_grad_()
+    eb_ops.EmbeddingBag.apply(idx, whole, 3).backward(dout)
+    for lo, hi in ((0, 10), (10, 25), (25, 30)):
+        part = table[lo:hi].clone().requires_grad_()
+        eb_ops.EmbeddingBag.apply(idx, part, 3, None, lo, 30).backward(dout)
+        assert torch.equal(part.grad, whole.grad[lo:hi])
+
+
 @pytest.mark.parametrize("b,m,hk,h,d", [(4, 6, 8, 5, 10), (3, 4, 4, 7, 130), (9, 39, 20, 16, 10),
                                         (1, 1, 1, 1, 1)])
 def test_cin_layer_plain_vs_pallas(b, m, hk, h, d, monkeypatch):
